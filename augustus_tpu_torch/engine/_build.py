@@ -1,6 +1,6 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Every `csrc/<name>.cu` is compiled at first use, from the sources in the
+`csrc/<name>.cu` is compiled at first use, from the sources in the
 checkout, into `build/kernels/lib<name>-<hash>.so` at the repository root
 (the hash covers the source and the flags, so an edited source rebuilds).
 Nothing is built when the package is imported.
@@ -13,16 +13,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
-from typing import Dict, List, Optional
+from typing import Dict
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-KERNEL_SOURCES = ("viterbi",)
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -46,46 +43,19 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, dict]:
-    """Compile the named kernel sources (default: all) in parallel, one nvcc
-    per source.  Returns {name: {"path", "seconds", "ptxas"}}; raises if
-    any compile fails."""
-    names = list(names or KERNEL_SOURCES)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        out = _lib_path(name)
-        if os.path.exists(out):
-            procs[name] = (out, None)
-            continue
-        tmp = out + f".{os.getpid()}.tmp"
-        cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", tmp,
-                                            os.path.join(CSRC, name + ".cu")]
-        procs[name] = (out, (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    report = {}
-    for name, (out, job) in procs.items():
-        log = ""
-        if job is not None:
-            tmp, proc = job
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-            os.replace(tmp, out)
-        report[name] = {"path": out, "ptxas": log.strip(),
-                        "seconds": time.perf_counter() - t0}
-    return report
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of csrc/<name>.cu, building it if needed."""
+    """The loaded shared library of csrc/<name>.cu, building it if needed
+    (nvcc's messages go to stderr; a failed build raises)."""
     lib = _loaded.get(name)
     if lib is None:
         path = _lib_path(name)
         if not os.path.exists(path):
-            build_all([name])
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run([find_nvcc()] + NVCC_FLAGS +
+                           ["-o", tmp, os.path.join(CSRC, name + ".cu")],
+                           check=True)
+            os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         _loaded[name] = lib
     return lib

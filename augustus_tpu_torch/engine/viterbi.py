@@ -88,6 +88,102 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
     return desc
 
 
+def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
+    """What one launch must move and compute on this chunk's data, for the
+    roofline bound: ({part: bytes}, float ops).
+
+    Bytes count each input element that the kernel reads for these inputs
+    once (rows 1..n-1 of the j-planes, only the lanes the descriptor names
+    and only where their gate is on; the gcum/msk columns that the windows
+    cover; the constant tables), each output element written once (bp and
+    v_final; the debug values are not part of a timed launch), and the lane
+    history written once (`scratch`: NL lanes of value and arg per
+    position; its window reads are not counted again).  Ops count the
+    float adds and max-compares: per predecessor of a chain state or lane,
+    one add and one max; per window entry, the score's adds and one max."""
+    st = static
+    n, S, NL = st.n, st.S, st.NL
+    host = {k: planes[k].cpu().numpy() for k in
+            ("ip_misc", "ip_conv", "sp_state", "msk", "sel_pack")}
+    ipm, ipc = host["ip_misc"][1:n], host["ip_conv"][1:n]
+    sps, msk = host["sp_state"][1:n], host["msk"]
+    J = np.arange(1, n)
+    cls = ipm[:, st.cls_lane]
+    gw = planes["gcum"].shape[-1]
+    read = {k: np.zeros((n - 1, planes[k].shape[1]), dtype=bool) for k in
+            ("sp_state", "sp_geo", "sp_convH", "ip_conv", "ip_misc")}
+    gdiff = np.zeros((st.C, st.NGR, gw + 1), dtype=np.int64)
+    mread = np.zeros(msk.shape, dtype=bool)
+    lv_used = np.zeros(planes["lv_pack"].numel(), dtype=bool)
+    ops = 0
+
+    def cover(c, row, start, end):          # gcum columns [start, end)
+        keep = end > start
+        np.add.at(gdiff, (c[keep], row[keep], start[keep]), 1)
+        np.add.at(gdiff, (c[keep], row[keep], end[keep]), -1)
+
+    read["ip_misc"][:, st.cls_lane] = True
+    cs = list(st.chain_states)
+    read["sp_state"][:, cs] = True
+    ops += (n - 1) * len(cs) * S * 2 + n * NL * S * 2
+    for (s, _, _, kind, _, gbit) in _fixed_lanes(st, host["sel_pack"]):
+        read["ip_misc"][:, st.gate_lane] = True
+        on = ((ipm[:, st.gate_lane] >> gbit) & 1).astype(bool)
+        read["sp_state"][on, s] = True
+        if kind in (1, 2):
+            read["sp_geo"][on, s] = True
+        ops += int(on.sum()) * (1 + (kind >= 1) + (kind == 2))
+    for p in st.pinned:
+        read["sp_state"][:, p.state] = True
+        on = sps[:, p.state] > GATE
+        read["ip_misc"][on, p.eop_lane] = True
+        ops += int(on.sum())
+    for d in st.lessd:
+        read["sp_state"][:, d.state] = True
+        on = sps[:, d.state] > GATE
+        read["ip_misc"][on, d.jsel_lane] = True
+        jj = J[on]
+        cover(cls[on], np.full(jj.shape, d.cum_row), W_PAD + jj - d.window,
+              W_PAD + jj + 1)
+        rng = np.zeros(gw + 1, dtype=np.int64)
+        np.add.at(rng, W_PAD + np.maximum(jj - d.window, 0), 1)
+        np.add.at(rng, W_PAD + jj, -1)
+        span = np.cumsum(rng)[:gw] > 0
+        mread[d.valid_row] |= span
+        mread[d.stop_row] |= span & (msk[d.valid_row] != 0)
+        lv_used[d.lv_off: d.lv_off + d.window] = True
+        ops += int(on.sum()) * d.window * 5
+    for cv in st.convs:
+        read["ip_conv"][:, cv.ip_lane] = True
+        gp = ipc[:, cv.ip_lane]
+        on = (gp & 1).astype(bool)
+        read["ip_conv"][on, cv.ip_lane + 1: cv.ip_lane + 3] = True
+        jj, c, phi = J[on], cls[on], gp[on] >> 1
+        for v in cv.variants:
+            b0 = W_PAD + jj + cv.a_off - v.len_hi
+            w1 = min(max(v.g2_from, 0), v.width) if v.g2row >= 0 else v.width
+            cover(c, v.g3row + phi, b0, b0 + w1)
+            if v.g2row >= 0:
+                cover(c, v.g2row + phi, b0 + w1, b0 + v.width)
+            if v.hv_base >= 0:
+                read["sp_convH"][on, v.hv_base: v.hv_base + v.width] = True
+            else:
+                read["sp_convH"][on, v.h_lane] = True
+            lv_used[v.lv_off: v.lv_off + v.width] = True
+            if cv.frame_mode:
+                lv_used[[v.fm_off, v.fm_off + v.width]] = True
+            ops += int(on.sum()) * v.width * (3 + (v.hv_base >= 0))
+    n_cls = len(np.unique(cls)) if n > 1 else 0
+    parts = {k: int(m.sum()) * 4 for k, m in read.items()}
+    parts["gcum"] = int((np.cumsum(gdiff, axis=-1)[..., :gw] > 0).sum()) * 4
+    parts["msk"] = int(mread.sum()) * 4
+    parts["tables"] = (n_cls * len(cs) * S + NL * S + int(lv_used.sum())
+                       + 3 * 64) * 4 + _descriptor(st, host["sel_pack"]).nbytes
+    parts["outputs"] = (n * 64 + 64) * 4
+    parts["scratch"] = n * NL * 8
+    return parts, ops
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------

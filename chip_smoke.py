@@ -2,33 +2,31 @@
 """Drive the PyTorch/CUDA port (augustus_tpu_torch) on one NVIDIA H100.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-It needs one CUDA card, builds the kernels from the sources in the checkout,
+It needs one CUDA card, builds the kernel from the sources in the checkout,
 and exits non-zero on any failure (nothing is caught, nothing falls back to
 the CPU or to a kernel's plain version).  Phases, one JSON line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of every csrc/*.cu, in parallel (set-up time)
+  build   nvcc of csrc/viterbi.cu (set-up time)
   parity  the Viterbi kernel against its plain PyTorch version on the card,
           on 6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
           inside the chunk), and on all of HS04636.fa, the chunk that the
           gff phase gives the kernel: per-step values bit-equal (tolerance
-          0), live backpointers equal, final column equal
+          0), live backpointers equal, final column equal; the kernel's
+          time beside its roofline bound, with the bytes per position
   gff     predict_file(..., device="cuda") on HS04636.fa, byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
-          (comment lines excluded)
-  full    ab-initio prediction on a >= 1,000,000-base sequence built from the
-          repository's genomic sequences and seeded random spacers: one cold
-          run, then one warm run with the per-stage breakdown
-Then the kernels line, the card line and the final status line.
-
-Options: --quick runs device, build and one short parity chunk only;
---length N sets the full-size sequence length; --seed S its spacers.
+  full    ab-initio prediction on the 1,023,095-base sequence of
+          augustus_tpu_torch/io/tiled.py: one cold run, then one warm run
+          with the per-stage breakdown, each byte-equal to
+          augustus_tpu_torch/data/golden/repo_fixture_tiled.gff
+Then the kernels line, the card line and the final status line.  The GFF
+comparisons leave out comment lines.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -37,8 +35,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "augustus_tpu_torch", "data", "config")
-GOLDEN = os.path.join(ROOT, "augustus_tpu_torch", "data", "golden",
-                      "repo_fixture_HS04636.gff")
+GOLDEN_DIR = os.path.join(ROOT, "augustus_tpu_torch", "data", "golden")
 DATA = os.path.join(ROOT, "tests", "data")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
@@ -64,41 +61,13 @@ def model_args(species: str) -> dict:
             "UTR": "off", "softmasking": "0"}
 
 
-def genbank_sequences(path: str):
-    """The ORIGIN sequences of a GenBank file (letters only)."""
-    seqs, cur = [], None
-    with open(path) as fh:
-        for line in fh:
-            if line.startswith("ORIGIN"):
-                cur = []
-            elif line.startswith("//"):
-                if cur is not None:
-                    seqs.append("".join(cur))
-                cur = None
-            elif cur is not None:
-                cur.append("".join(ch for ch in line if ch.isalpha()))
-    return seqs
+def golden_body(name: str) -> str:
+    with open(os.path.join(GOLDEN_DIR, name)) as fh:
+        return strip_comments(fh.read())
 
 
-def full_size_sequence(length: int, seed: int) -> str:
-    """The repository's genomic sequences tiled with uniform-ACGT spacers of
-    2-20 kb drawn from a numpy generator seeded with `seed`."""
-    import numpy as np
-    from augustus_tpu_torch.io.fasta import read_fasta
-    parts = [r.sequence for f in ("HS04636.fa", "HS08198.fa")
-             for r in read_fasta(os.path.join(DATA, f))]
-    for f in ("genes_crf3.gb", "genes_test1.gb", "utrtrain.gb"):
-        parts += genbank_sequences(os.path.join(DATA, f))
-    rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"acgt", dtype=np.uint8)
-    out, total, i = [], 0, 0
-    while total < length:
-        spacer = acgt[rng.integers(0, 4, int(rng.integers(2000, 20001)))]
-        out.append(spacer.tobytes().decode())
-        out.append(parts[i % len(parts)].lower())
-        total += len(out[-2]) + len(out[-1])
-        i += 1
-    return "".join(out)
+def strip_comments(text: str) -> str:
+    return "".join(l for l in text.splitlines(True) if not l.startswith("#"))
 
 
 def chunk_planes(species: str, seq: str, device):
@@ -115,27 +84,6 @@ def chunk_planes(species: str, seq: str, device):
     st, arr = pack_tracks(build_tracks(gold))
     switches = int((gold.stairs[1:] != gold.stairs[:-1]).sum())
     return st, planes_for(st, arr, device), switches
-
-
-def work_counts(st, planes):
-    """Bytes each input/output moves once, and the adds+compares that this
-    chunk's data needs (gated convolutions and lessD windows counted only
-    where their gate is on)."""
-    import numpy as np
-    n, S, NL = st.n, st.S, st.NL
-    nbytes = sum(t.numel() * t.element_size() for k, t in planes.items()
-                 if k != "sel_pack")
-    nbytes += n * 64 * 4 * 2 + 64 * 4            # bp, vals, v_final
-    ipc = planes["ip_conv"][:n].cpu().numpy()
-    sps = planes["sp_state"][:n].cpu().numpy()
-    ops = (n - 1) * (len(st.chain_states) * S + NL * S) * 2
-    for cv in st.convs:
-        on = int((ipc[1:, cv.ip_lane] & 1).sum())
-        ops += on * sum(v.width for v in cv.variants) * 6
-    for d in st.lessd:
-        on = int((sps[1:, d.state] > np.float32(-1e29)).sum())
-        ops += on * d.window * 6
-    return nbytes, ops
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -156,7 +104,7 @@ def phase_parity(device, chunks):
     import numpy as np
     import torch
     from augustus_tpu_torch.engine.viterbi import (
-        viterbi_forward, viterbi_forward_reference)
+        kernel_work, viterbi_forward, viterbi_forward_reference)
     from augustus_tpu_torch.io.fasta import read_fasta
     seq = read_fasta(os.path.join(DATA, "HS04636.fa"))[0].sequence
     rows = []
@@ -186,7 +134,8 @@ def phase_parity(device, chunks):
         if not torch.equal(vf_k[:S].cpu(), vf_p[:S].cpu()):
             raise AssertionError(f"{species}: final column differs")
         kernel_ms = time_cuda(lambda: viterbi_forward(st, planes), 3)
-        nbytes, ops = work_counts(st, planes)
+        parts, ops = kernel_work(st, planes)
+        nbytes = sum(parts.values())
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = ops / F32_OPS_PER_S * 1e3
         row = {"phase": "parity", "species": species, "n": n,
@@ -195,7 +144,10 @@ def phase_parity(device, chunks):
                "max_abs_err": float(np.abs(vk[live] - vp[live]).max()
                                     if live.any() else 0.0),
                "live_values": int(live.sum()), "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+               "plain_ms": plain_ms, "bytes": nbytes,
+               "bytes_per_position": nbytes / n, "bytes_by_part": parts,
+               "ops": ops, "bound_bytes_ms": bound_bytes_ms,
+               "bound_ops_ms": bound_ops_ms,
                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                             else "operations")}
@@ -204,17 +156,7 @@ def phase_parity(device, chunks):
     return rows
 
 
-def strip_comments(text: str) -> str:
-    return "".join(l for l in text.splitlines(True) if not l.startswith("#"))
-
-
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--length", type=int, default=1_000_000)
-    ap.add_argument("--seed", type=int, default=7)
-    opts = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -222,9 +164,9 @@ def main() -> int:
     from augustus_tpu_torch import stats
     from augustus_tpu_torch.engine import _build
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    from augustus_tpu_torch.io.tiled import tiled_record
     from augustus_tpu_torch.predict import Model, predict_file, \
         predict_records
-    from augustus_tpu_torch.io.fasta import FastaRecord
 
     device = torch.device("cuda")
     card = card_line()
@@ -234,22 +176,13 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    built = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {k: {"ptxas": v["ptxas"][-600:]}
-                      for k, v in built.items()}})
+    _build.load("viterbi")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
     # the last chunk (None: all of HS04636.fa) is the gff phase's input
-    chunks = [("repo_fixture", 2500)] if opts.quick else \
-        [("repo_fixture", 6000), ("repo_fixture_gc2", 6000),
-         ("repo_fixture", None)]
-    parity = phase_parity(device, chunks)
-    if opts.quick:
-        print(card, flush=True)
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
+    parity = phase_parity(device, [("repo_fixture", 6000),
+                                   ("repo_fixture_gc2", 6000),
+                                   ("repo_fixture", None)])
 
     # ---- main path: GFF parity, then full size; counts from here on ----
     viterbi_forward.launches = 0
@@ -257,9 +190,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gff = predict_file(model, os.path.join(DATA, "HS04636.fa"),
                        device="cuda")
-    with open(GOLDEN) as fh:
-        golden = fh.read()
-    if strip_comments(gff) != strip_comments(golden):
+    if strip_comments(gff) != golden_body("repo_fixture_HS04636.gff"):
         raise AssertionError("GFF differs from the committed golden")
     ngenes = gff.count("\tgene\t")
     if ngenes < 1:
@@ -268,8 +199,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0,
           "launches": viterbi_forward.launches})
 
-    seq = full_size_sequence(opts.length, opts.seed)
-    rec = FastaRecord(name="tiled", sequence=seq)
+    rec = tiled_record(DATA)
+    golden_full = golden_body("repo_fixture_tiled.gff")
     runs = []
     for label in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
@@ -280,20 +211,22 @@ def main() -> int:
         wall = time.perf_counter() - t0
         tm = dict(stats.TIMES)
         stats.reset(False)
+        if strip_comments(gff_full) != golden_full:
+            raise AssertionError(f"{label} run: the full-size GFF differs "
+                                 "from the committed golden")
         genes = gff_full.count("\tgene\t")
         if genes < 1:
             raise AssertionError("no gene predicted on the full sequence")
-        if "nan" in gff_full.lower().split("# protein")[0]:
-            raise AssertionError("nan in the GFF")
         host_prep = tm.get("prep", 0) + tm.get("build_tracks", 0) + \
             tm.get("pack", 0)
-        row = {"phase": "full", "run": label, "length": len(seq),
-               "genes": genes, "host_prep_s": host_prep,
+        row = {"phase": "full", "run": label, "length": len(rec.sequence),
+               "genes": genes, "equal_to_golden": True,
+               "host_prep_s": host_prep,
                "expand_ms": tm.get("expand", 0) * 1e3,
                "kernel_ms": tm.get("kernel", 0) * 1e3,
                "traceback_ms": tm.get("traceback", 0) * 1e3,
                "output_s": tm.get("project", 0) + tm.get("print", 0),
-               "wall_s": wall, "mb_per_s": len(seq) / 1e6 / wall,
+               "wall_s": wall, "mb_per_s": len(rec.sequence) / 1e6 / wall,
                "device_busy_share": (tm.get("expand", 0) +
                                      tm.get("kernel", 0)) / wall,
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -311,11 +244,9 @@ def main() -> int:
         "replaces": "augustus_tpu/engine/pallas_scan.py:128",
         "launches": launches, "parity": "bit-exact",
         "max_abs_err": max(r["max_abs_err"] for r in parity),
-        "ms": p["kernel_ms"], "plain_ms": p["plain_ms"],
-        "kernel_ms": p["kernel_ms"], "bound_ms": p["bound_ms"],
-        "bound_by": p["bound_by"], "library_ms": None,
-        "shape": f"{p['species']} n={p['n']}",
-        "full_size_kernel_ms": runs[-1]["kernel_ms"]}]})
+        "ms": p["kernel_ms"], "kernel_ms": p["kernel_ms"],
+        "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+        "bound_by": p["bound_by"], "library_ms": None}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,36 @@ def test_golden_equal_to_reference(reference):
     assert golden.count("\tgene\t") >= 1
 
 
+def _tiled_golden() -> str:
+    from torch_goldens import GOLDEN_DIR, GOLDENS
+    with open(os.path.join(GOLDEN_DIR, GOLDENS["tiled"])) as fh:
+        return fh.read()
+
+
+def test_tiled_golden_is_a_prediction_on_the_tiled_sequence():
+    """The committed full-size golden names the sequence that
+    augustus_tpu_torch/io/tiled.py builds, and its genes lie inside it."""
+    from augustus_tpu_torch.io.tiled import tiled_record
+    rec = tiled_record(DATA)
+    golden = _tiled_golden()
+    assert f"(length = {len(rec.sequence)}, name = {rec.name})" in golden
+    genes = [l.split("\t") for l in body(golden).splitlines()
+             if "\tgene\t" in l]
+    assert len(genes) >= 1
+    for g in genes:
+        assert g[0] == rec.name
+        assert 1 <= int(g[3]) <= int(g[4]) <= len(rec.sequence)
+
+
+@pytest.mark.slow
+def test_tiled_golden_equal_to_the_cpu_path():
+    """The full-size golden is what the port's CPU path gives, the path
+    that test_gff_equal_to_reference holds to augustus_tpu (a quarter of
+    an hour and several GB)."""
+    from torch_goldens import golden_gff
+    assert body(_tiled_golden()) == body(golden_gff("tiled"))
+
+
 def test_cli_prints_the_same_text():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT

@@ -146,6 +146,78 @@ def test_engine_traceback_matches_reference(case):
     assert len(got) > 10
 
 
+def _reads_of_the_kernel(st, planes):
+    """Every element that csrc/viterbi.cu reads, marked position by
+    position as its code reads it: {plane: bool mask}."""
+    from augustus_tpu_torch.engine.pack import W_PAD
+    from augustus_tpu_torch.engine.viterbi import GATE, _fixed_lanes
+    h = {k: v.numpy() for k, v in planes.items()}
+    ipm, ipc, sps, msk = h["ip_misc"], h["ip_conv"], h["sp_state"], h["msk"]
+    seen = {k: np.zeros(v.shape, dtype=bool) for k, v in h.items()}
+    fixed = _fixed_lanes(st, h["sel_pack"])
+    for j in range(1, st.n):
+        c = ipm[j, st.cls_lane]
+        seen["ip_misc"][j, st.cls_lane] = True
+        seen["sp_state"][j, list(st.chain_states)] = True
+        for (s, _, _, kind, _, gbit) in fixed:
+            seen["ip_misc"][j, st.gate_lane] = True
+            if (ipm[j, st.gate_lane] >> gbit) & 1:
+                seen["sp_state"][j, s] = True
+                seen["sp_geo"][j, s] |= kind in (1, 2)
+        for p in st.pinned:
+            seen["sp_state"][j, p.state] = True
+            if sps[j, p.state] > GATE:
+                seen["ip_misc"][j, p.eop_lane] = True
+        for d in st.lessd:
+            seen["sp_state"][j, d.state] = True
+            if not sps[j, d.state] > GATE:
+                continue
+            seen["ip_misc"][j, d.jsel_lane] = True
+            r = j - d.window + np.arange(d.window)
+            seen["gcum"][c, d.cum_row, W_PAD + np.append(r, j)] = True
+            r = r[r >= 0]
+            seen["msk"][d.valid_row, W_PAD + r] = True
+            r = r[msk[d.valid_row, W_PAD + r] != 0]
+            seen["msk"][d.stop_row, W_PAD + r] = True
+        for cv in st.convs:
+            seen["ip_conv"][j, cv.ip_lane] = True
+            gp = ipc[j, cv.ip_lane]
+            if not gp & 1:
+                continue
+            seen["ip_conv"][j, cv.ip_lane + 1: cv.ip_lane + 3] = True
+            phi = gp >> 1
+            for v in cv.variants:
+                w = np.arange(v.width)
+                col = W_PAD + j + cv.a_off - v.len_hi + w
+                two = (w >= v.g2_from) if v.g2row >= 0 else w < 0
+                seen["gcum"][c, v.g3row + phi, col[~two]] = True
+                seen["gcum"][c, v.g2row + phi, col[two]] = True
+                if v.hv_base >= 0:
+                    seen["sp_convH"][j, v.hv_base + w] = True
+                else:
+                    seen["sp_convH"][j, v.h_lane] = True
+    return seen
+
+
+def test_kernel_work_counts_each_read_once(case):
+    """kernel_work's bytes equal the elements the kernel's code reads,
+    marked position by position; outputs and the lane history are written
+    once."""
+    from augustus_tpu_torch.engine.viterbi import kernel_work
+    st = case["st"]
+    planes = planes_for(st, case["arr"], "cpu")
+    parts, ops = kernel_work(st, planes)
+    seen = _reads_of_the_kernel(st, planes)
+    for k in ("sp_state", "sp_geo", "sp_convH", "ip_conv", "ip_misc",
+              "gcum", "msk"):
+        assert parts[k] == int(seen[k].sum()) * 4, k
+    assert parts["outputs"] == (st.n * 64 + 64) * 4
+    assert parts["scratch"] == st.n * st.NL * 8
+    whole = sum(planes[k].numel() * 4 for k in seen if k != "sel_pack")
+    assert 0 < sum(parts.values()) < whole
+    assert ops > st.n * st.NL * st.S * 2
+
+
 def test_wrapper_checks_its_inputs():
     species, n = "repo_fixture", 300
     m = Model.load(_args(species))
