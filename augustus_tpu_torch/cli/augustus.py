@@ -3,8 +3,10 @@
 Usage: python -m augustus_tpu_torch.cli.augustus [--key=value ...] [--device=cpu|cuda] queryfile
 Mirrors `augustus_tpu/cli/augustus.py` (reference src/augustus.cc):
 --species is required, input is FASTA, output is GFF/GTF on stdout.
---device selects where the Viterbi kernel runs (default cuda).  Comparative
-gene prediction (--alnfile), GenBank input and evaluation are not ported.
+--device selects where the Viterbi kernel runs (default cuda).  Softmasking
+(--softmasking=1) and hints (--hintsfile, --extrinsicCfgFile) as in the
+reference.  Comparative gene prediction (--alnfile), GenBank input and
+evaluation are not ported.
 """
 
 from __future__ import annotations
@@ -69,8 +71,13 @@ def main(argv=None) -> int:
         verbosity = 1
     model = Model.load(args)
     sys.stdout.write(HEADER.format(version=__version__))
-    if verbosity:
+    if verbosity and "hintsfile" not in args:
         sys.stdout.write("# No extrinsic information on sequences given.\n")
+    elif verbosity:
+        sys.stdout.write(f"# reading in the file {args['hintsfile']} ...\n")
+        nseq = len(model.gff_hints) if model.gff_hints else 0
+        sys.stdout.write(f"# Have extrinsic information about {nseq} "
+                         "sequences (in the specified range). \n")
     if verbosity > 1:
         cfgdir = args.get("AUGUSTUS_CONFIG_PATH",
                           model.props.get("AUGUSTUS_CONFIG_PATH", ""))

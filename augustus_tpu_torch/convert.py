@@ -97,16 +97,17 @@ def model_from_reference(fields: Dict[str, dict]):
 
 def pack_from_reference(static_fields: dict, arrays: Dict[str, np.ndarray]):
     """(PKStatic, arrays) of the port from the asdict of a reference
-    PKStatic and its pack_tracks arrays.  Sparse-hint chunks (NHW > 0) are
-    outside this slice and raise."""
+    PKStatic and its pack_tracks arrays.  With sparse hints (NHW > 0) the
+    hint records, NHW and hint_lm come across as they are, and the
+    reference's 128-lane xh/xi maps are cut to the lanes in use."""
     f = dict(static_fields)
-    if f.pop("NHW", 0) or f.pop("hint_lm", None) is not None:
-        raise NotImplementedError("sparse exon/CDS hint chunks")
     convs = []
     for c in f["convs"]:
         c = dict(c)
-        if c.pop("hint", None) is not None:
-            raise NotImplementedError("sparse exon/CDS hint chunks")
+        h = c.pop("hint", None)
+        if h is not None:
+            c["hint"] = P.PKHint(**{**h, "cross": tuple(map(tuple, h[
+                "cross"])), "ex": tuple(map(tuple, h["ex"]))})
         c["variants"] = tuple(P.PKVariant(**v) for v in c["variants"])
         convs.append(P.PKConv(**c))
     st = P.PKStatic(
@@ -116,7 +117,14 @@ def pack_from_reference(static_fields: dict, arrays: Dict[str, np.ndarray]):
                g["states"])}) for g in f["fixed_groups"]),
            "lessd": tuple(P.PKLessD(**d) for d in f["lessd"]),
            "pinned": tuple(P.PKPinned(**p) for p in f["pinned"]),
+           "hint_lm": (tuple(f["hint_lm"]) if f["hint_lm"] is not None
+                       else None),
            "convs": tuple(convs)})
     out = {k: np.asarray(arrays[k])
            for k in P.PLANE_INPUTS + P.KERNEL_CONSTANTS + ("log_term",)}
+    if st.NHW:
+        for k in ("m_xh", "m_xi"):
+            m = np.asarray(arrays[k])
+            out[k] = m[m >= 0]
+        out["hw_src"] = np.asarray(arrays["hw_src"])
     return st, out

@@ -1,5 +1,6 @@
 """DP tracks: factorized per-state score arrays (host copy of
-augustus_tpu/engine/device.py for the no-UTR, no-hint architecture).
+augustus_tpu/engine/device.py for the no-UTR architecture, with the hint
+folds and the sparse exon/CDS hint tables of softmasked and hinted runs).
 
 Exon emissions factorize as
 
@@ -144,6 +145,14 @@ class ExonConvState:
     start_min: np.ndarray         # (n,) int32
     start_max: np.ndarray         # (n,) int32
     variants: List[ConvVariant] = field(default_factory=list)
+    # sparse exon-hint metadata (None when inactive; see HintTables)
+    hint_strand: Optional[str] = None      # '+' or '-'
+    hint_ipo: int = 0             # bob = b - ipo
+    hint_bo: int = 0              # ebx = j + bo
+    hint_aL: bool = False         # left-anchored exon type
+    hint_aR: bool = False         # right-anchored
+    hint_exclass: int = 0         # 0 single, 1 internal, 2 term/rinit,
+    #                               3 initial/rterm (exon-hint match rule)
 
 
 @dataclass
@@ -210,6 +219,8 @@ class DPTracks:
     exon_conv: List[ExonConvState] = field(default_factory=list)
     exon_pinned: List[ExonPinnedState] = field(default_factory=list)
     gold: GoldEngine = None
+    hint_tables: Optional[Dict] = None     # strand -> HintTables (sparse)
+    hint_lm: Optional[Dict] = None         # log maluses for the sparse path
 
 
 # ---------------------------------------------------------------------------
@@ -240,10 +251,22 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
         lane_tgt.append(target)
         return len(lane_rows) - 1
 
-    # no hints in this package: the per-base intronpart bonus of the
-    # geometric states is zero (kept as an explicit add so every table
-    # rounds exactly as in augustus_tpu)
-    ipb_p = ipb_m = np.zeros(n)
+    # hint folds (stage 1): per-position separable hint terms are baked
+    # into the emission tracks at build time (reference folds them into the
+    # DP lazily — igenicmodel.cc:318, intronmodel emiProbUnderModel,
+    # exonmodel.cc:1294-1311).  Non-separable exon/CDS hint quotients are
+    # handled by the sparse machinery below (see HintCorr).
+    hints_on = getattr(eng, "hints", None) is not None
+    if hints_on:
+        eng._device_sparse_hints = any(
+            eng.hints.by_type[t] for t in EXON_HINT_KINDS)
+        ipb_p, ipb_m = eng.ipb_plus, eng.ipb_minus
+        ipc_p, ipc_m = eng.ipb_plus_cum, eng.ipb_minus_cum
+        lm = eng.log_malus
+    else:
+        ipb_p = ipb_m = np.zeros(n)
+        ipc_p = ipc_m = np.zeros(n + 1)
+        lm = {}
 
     # superwindow back-extent: must cover the longest banded variant
     gpad = CONV_CAP + 96
@@ -308,6 +331,18 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
                 gate = T.is_possible_rdss_sh(sp.rdss_ok, -cn.dss_start)
             sel = (start >= 0) & gate
             emi = U.where(sel, U.sg(src, 1 - cn.dss_whole_size, n), NEG_INF)
+            if hints_on:
+                # intronic sub-range of the dss window
+                # (gold._fixed_intron_cands hint branch)
+                smc = ipc_p if fwd else ipc_m
+                eop = j - cn.dss_whole_size
+                if fwd:
+                    seg = U.val(U.sg(smc, 1, n) -
+                                U.sg(smc, -DSS_MIDDLE - cn.dss_end + 1, n))
+                else:
+                    seg = U.val(U.sg(smc, 1 - cn.dss_start, n) -
+                                U.sg(smc, 1 - cn.dss_whole_size, n))
+                emi = xp.where(emi > NEG_INF, emi + seg, emi)
             # reverse-strand longdss states are entered from rgeometric
             # (mirrored intron order) whose row is class-renormalized:
             # split ancestors like longass (kind 2)
@@ -338,11 +373,22 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
                 gate = T.is_possible_rass_sh(
                     sp.rass_ok,
                     -cn.ass_upwindow_size - cn.ass_start - ASS_MIDDLE + 1)
+            if hints_on:
+                smc = ipc_p if fwd else ipc_m
+                eop = j - jump
+                if fwd:
+                    seg = U.val(U.sg(smc, 1 - cn.ass_end, n) -
+                                U.sg(smc, 1 - jump, n))
+                else:
+                    seg = U.val(U.sg(smc, 1, n) -
+                                U.sg(smc, 1 - jump + cn.ass_end, n))
             per_c = []
             for c in range(C):
                 src = sp.ass_score[c] if fwd else sp.rass_score[c]
                 sel = (start >= 0) & gate
                 emi = U.where(sel, U.sg(src, 1 - jump, n), NEG_INF)
+                if hints_on:
+                    emi = xp.where(emi > NEG_INF, emi + seg, emi)
                 per_c.append(_f32(emi))
             nongeo = [p for p in anc if types[p] not in (
                 ST.geometric0, ST.geometric1, ST.geometric2,
@@ -356,11 +402,23 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
                    ST.requalD0, ST.requalD1, ST.requalD2):
             jj = U.arange(n)
             ok_j = jj >= dsl
+            hint_seg = 0.0
+            if hints_on:
+                # gold._fixed_intron_cands: equalD uses the plus cums,
+                # requalD the minus cums; + the intron malus
+                smc = ipc_p if t in (ST.equalD0, ST.equalD1,
+                                     ST.equalD2) else ipc_m
+                hint_seg = xp.where(
+                    ok_j,
+                    U.val(U.sg(smc, 1, n) - U.sg(smc, 1 - dsl, n))
+                    + lm["intron"], 0.0)
             per_c = []
             for c in range(C):
                 cum = eng.cum_intron_f[c]    # requalD also fwd (quirk)
                 seg = U.val(U.sg(cum, 1, n) - U.sg(cum, 1 - dsl, n))
                 emi = xp.where(ok_j, seg, NEG_INF)
+                if hints_on:
+                    emi = xp.where(emi > NEG_INF, emi + hint_seg, emi)
                 per_c.append(_f32(emi))
             dss = anc[0]
             if dss not in bare_dss_lane:
@@ -407,6 +465,11 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
     tr.n_lanes = NL
     tr.lane_trans = np.stack(lane_rows).astype(np.float32)
     tr.lane_target = np.array(lane_tgt, dtype=np.int32)
+    if hints_on and getattr(eng, "_device_sparse_hints", False):
+        tr.hint_tables = _hint_tables_cached(eng, gpad)
+        tr.hint_lm = {k: float(lm[k])
+                      for k in ("exonpart", "CDSpart", "exon", "CDS")}
+        tr.hint_lm["local_cp"] = float(eng.log_local_malus_cp)
     _finalize_tracks(tr, eng, pool)
     return tr
 
@@ -501,12 +564,16 @@ def _build_lessd(eng: GoldEngine, s: int, t: ST, lane: int,
     sp = eng.splice
     fwd = t in (ST.lessD0, ST.lessD1, ST.lessD2)
     C = len(eng.inp.gc)
+    hints_on = getattr(eng, "hints", None) is not None
     # intronpart bonus cums fold into the content cums; the intron malus
     # folds into the length vector (gold._lessd_cands hint branch)
     ipbc = 0.0
     lm_intron = 0.0
+    if hints_on:
+        ipbc = eng.ipb_plus_cum if fwd else eng.ipb_minus_cum
+        lm_intron = eng.log_malus["intron"]
     cum_key = ("cum_intron_f" if fwd else "cum_intron_r") + \
-        ""
+        ("_h" if hints_on else "")
     cum_id = pool.add(cum_key, lambda: U.stk(
         [_pre((eng.cum_intron_f[c] if fwd else eng.cum_intron_r[c]) + ipbc)
          for c in range(C)]), rb=("cum",))
@@ -612,6 +679,99 @@ def _build_lessd(eng: GoldEngine, s: int, t: ST, lane: int,
 
 # ---------------------------------------------------------------------------
 
+def _pinned_hint_quot(eng, aL: bool, aR: bool, exclass: int,
+                      bob, ebx, exon_len, gpad: int, ebx_shift: int = 0):
+    """exonpart/CDSpart/exon/CDS quotient for the single-candidate pinned
+    states (reverse strand), via the cumulative HintTables decomposition —
+    same formulas as scan._hint_quot, evaluated at one begin per j
+    (reference exonmodel.cc:1769-1860; host oracle gold._exon_part_quot)."""
+    xp = np
+    lm = eng.log_malus
+    n = eng.n
+    if not getattr(eng, "_device_sparse_hints", False):
+        # no exon-kind hints: the quotient is the separable malus form
+        return (exon_len * (lm["exonpart"] + lm["CDSpart"])
+                + lm["exon"] + lm["CDS"])
+    ht = _hint_tables_cached(eng, gpad)["-"]
+    ebx_sh = ebx_shift            # ebx = i + ebx_shift (static)
+
+    def xr(name, idx, zero_oob_low=True):
+        """ht.xrows[name][idx], 0 below 0, saturated above n-1."""
+        v = ht.xrows[name]
+        g = v[xp.clip(idx, 0, n - 1)]
+        return xp.where(idx < 0, 0.0, g) if zero_oob_low else g
+
+    def xre(name):
+        """xr at eb = clip(i + ebx_shift): a static shift."""
+        return U.sg(ht.xrows[name], ebx_sh, n)
+
+    e_in = ebx <= n - 1          # crossing/exact tables are void past n-1
+    eb = xp.clip(ebx, 0, n - 1)
+    bm1 = bob - 1
+
+    cov_ep = xp.where(e_in, xre("TX_ep"), 0.0)
+    cov_cp = xp.where(e_in, xre("TX_cp"), 0.0)
+    covc_ep = xp.where(e_in, xre("TXc_ep"), 0.0)
+    covc_cp = xp.where(e_in, xre("TXc_cp"), 0.0)
+    for k in range(ht.cross_start.shape[1]):
+        sk = ht.cross_start[eb, k]
+        wk = ht.cross_w[eb, k]
+        fl = ht.cross_flag[eb, k]
+        sub = (e_in & (sk >= bob)).astype(wk.dtype)
+        cov_ep = cov_ep - xp.where(fl == 1, wk, 0.0) * sub
+        covc_ep = covc_ep - xp.where(fl == 1, 1.0, 0.0) * sub
+        cov_cp = cov_cp - xp.where(fl == 2, wk, 0.0) * sub
+        covc_cp = covc_cp - xp.where(fl == 2, 1.0, 0.0) * sub
+
+    crw_ep = xr("CR_ep", bob)
+    inside_ep = xre("BE_ep") - xr("BE_ep", bm1) - crw_ep + cov_ep
+    inside_cp = xre("BE_cp") - xr("BE_cp", bm1) - xr("CR_cp", bob) + cov_cp
+    ccw_ep = xr("CntCR_ep", bob)
+    cin_ep = xre("CntBE_ep") - xr("CntBE_ep", bm1) - ccw_ep + covc_ep
+    cin_cp = xre("CntBE_cp") - xr("CntBE_cp", bm1) - \
+        xr("CntCR_cp", bob) + covc_cp
+    part_bonus = inside_ep + inside_cp
+    nep = cin_ep + cin_cp
+    if aL:
+        part_bonus = part_bonus + 0.5 * (crw_ep - cov_ep)
+        nep = nep + (ccw_ep - covc_ep)
+    if aR:
+        part_bonus = part_bonus + 0.5 * (xre("C2_ep") - cov_ep)
+        nep = nep + (xre("CntC2_ep") - covc_ep)
+    quot = part_bonus
+
+    sup_ex = xp.zeros(bob.shape)
+    sup_cds = xp.zeros(bob.shape)
+    for k in range(ht.ex_pos.shape[1]):
+        pk = ht.ex_pos[eb, k]
+        wk = ht.ex_w[eb, k]
+        kd = ht.ex_kind[eb, k]
+        cond = (e_in & (kd == 1) & (bob == pk)).astype(wk.dtype)
+        quot = quot + wk * cond
+        sup_cds = xp.maximum(sup_cds, cond)
+        if exclass == 1:
+            cond = (e_in & (kd == 2) & (bob == pk)).astype(wk.dtype)
+            quot = quot + wk * cond
+            sup_ex = xp.maximum(sup_ex, cond)
+        elif exclass == 3:
+            cond = (e_in & (kd == 3) & (pk < bob) &
+                    (pk > -(1 << 29))).astype(wk.dtype)
+            quot = quot + 0.5 * wk * cond
+            sup_ex = xp.maximum(sup_ex, cond)
+    quot = quot + lm["exon"] * (1.0 - sup_ex) + lm["CDS"] * (1.0 - sup_cds)
+
+    d_ep = exon_len - (xre("CntE_ep") - xr("CntE_ep", bm1))
+    d_cp = exon_len - (xre("CntE_cp") - xr("CntE_cp", bm1))
+    quot = quot + xp.where(d_ep > 0, d_ep * lm["exonpart"], 0.0)
+    quot = quot + xp.where(d_cp > 0, d_cp * lm["CDSpart"], 0.0)
+
+    zc = xre("ZC") - xr("ZC", bm1)
+    lpm = xp.where(zc > 0, zc * eng.log_local_malus_cp, 0.0)
+    lpm = xp.maximum(lpm, -part_bonus)
+    quot = quot + xp.where(nep >= 4.5, lpm, 0.0)
+    return quot
+
+
 # ---------------------------------------------------------------------------
 
 def _build_pinned(eng: GoldEngine, s: int, t: ST, lane: int, gpad: int
@@ -628,6 +788,7 @@ def _build_pinned(eng: GoldEngine, s: int, t: ST, lane: int, gpad: int
     log_nc = float(np.log(cn.prob_n_in_coding))
     L3 = float(np.log(3.0))
     j = U.arange(n)
+    hints_on = getattr(eng, "hints", None) is not None
 
     if t == ST.rsingleG:
         ends = [eng.tis_end_rev[c] for c in range(C)]
@@ -637,6 +798,11 @@ def _build_pinned(eng: GoldEngine, s: int, t: ST, lane: int, gpad: int
                                T.is_possible_rass_sh(eng.splice.rass_ok,
                                                      cn.ass_end + 1))
         end = xp.where(gate, 0.0, NEG_INF)
+        if hints_on:
+            ok = (asspos >= 0) & (asspos < n)
+            padj = xp.where(ok, U.sg(eng.ass_site_adj_m, cn.ass_end + 1, n),
+                            eng.log_malus["ass"])
+            end = xp.where(end > NEG_INF, end + padj, end)
         ends = [end for _ in range(C)]
 
     # ---- the single begin candidate per j ------------------------------
@@ -699,6 +865,11 @@ def _build_pinned(eng: GoldEngine, s: int, t: ST, lane: int, gpad: int
         lp = xp.where((exon_len >= 1) & ((2 - exon_len) % 3 == g.win),
                       L3 + lend[le], NEG_INF)
     quot = 0.0
+    if hints_on:
+        quot = _pinned_hint_quot(eng, True, t == ST.rsingleG,
+                                 0 if t == ST.rsingleG else 3, bob,
+                                 end_of_bio, exon_len, gpad,
+                                 ebx_shift=g.base_offset)
 
     score_c = []
     for c in range(C):
@@ -764,7 +935,8 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
     right = j + ro
     phi_j = (phase_const + phase_sign * j) % 3             # (n,)
 
-    lm = {}
+    hints_on = getattr(eng, "hints", None) is not None
+    lm = eng.log_malus if hints_on else {}
     xp = np
 
     def _site_adj(track, shift, oob):
@@ -809,12 +981,21 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
                                         -g.inner_part_offset - 1))
             bt = xp.where(b > 0, xp.where(shortcut, NEG_INF, 0.0),
                           xp.where(b == 0, 0.0, NEG_INF))
+            if hints_on:
+                padj = _site_adj(eng.ass_site_adj_p,
+                                 -g.inner_part_offset - 1, lm["ass"])
+                bt = xp.where((b > 0) & (bt > NEG_INF), bt + padj, bt)
         else:   # rinitial, rinternal*
             blocked = (bob < 0) | ((bob - DSS_MIDDLE > 0) &
                                    ~T.is_possible_rdss_sh(
                                        sp.rdss_ok,
                                        -g.inner_part_offset - 1))
             bt = xp.where(b == 0, 0.0, xp.where(blocked, NEG_INF, 0.0))
+            if hints_on:
+                # malus only when beginOfBioExon > 0 (exonmodel.cc:1534)
+                padj = _site_adj(eng.dss_site_adj_m,
+                                 -g.inner_part_offset - 1, 0.0)
+                bt = xp.where((b != 0) & (bt > NEG_INF), bt + padj, bt)
         begin_list.append(bt)
     begin_arr = U.stk(begin_list)                          # (C, n)
     begin_key = {
@@ -842,12 +1023,20 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
         lmb = T.leftmost_exon_begin(
             eng.orf, g.win - 1, j + cn.dss_start, True, cn, n)
         gate = xp.where((j == n - 1) | (mid & (lmb < j)), 0.0, NEG_INF)
+        if hints_on:
+            padj = _site_adj(eng.dss_site_adj_p, cn.dss_start + 1,
+                             lm["dss"])
+            gate = xp.where(gate > NEG_INF, gate + padj, gate)
         end_part = U.stk([gate for _ in range(C)])
     else:   # rinternal*
         asspos = j + cn.ass_end + 1
         mid = (j < n - 1) & (j + cn.ass_end + ASS_MIDDLE < n) & \
             T.is_possible_rass_sh(sp.rass_ok, cn.ass_end + 1)
         gate = xp.where((j == n - 1) | mid, 0.0, NEG_INF)
+        if hints_on:
+            padj = _site_adj(eng.ass_site_adj_m, cn.ass_end + 1,
+                             lm["ass"])
+            gate = xp.where(gate > NEG_INF, gate + padj, gate)
         end_part = U.stk([gate for _ in range(C)])
     # separable part of the exonpart/CDS hint quotient
     # (gold._exon_part_quot with no exonpart/CDSpart/exon/CDS hints):
@@ -855,6 +1044,10 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
     # term folds into the length vectors, the constants into endPart.
     # With such hints present the sparse HintCorr machinery replaces this.
     lm_lin = 0.0
+    if hints_on and not getattr(eng, "_device_sparse_hints", False):
+        end_part = xp.where(end_part > NEG_INF,
+                            end_part + lm["exon"] + lm["CDS"], end_part)
+        lm_lin = lm["exonpart"] + lm["CDSpart"]
 
     end_gate = (end_part > NEG_INF).any(axis=0)
 
@@ -1103,4 +1296,204 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
         frame_mode=frame_mode, win=g.win, lane=lane,
         end_gate=end_gate, start_min=smin.astype(np.int32),
         start_max=smax.astype(np.int32), variants=variants)
+    if hints_on and getattr(eng, "_device_sparse_hints", False):
+        ecs.hint_strand = "+" if fwd else "-"
+        ecs.hint_ipo = g.inner_part_offset
+        ecs.hint_bo = g.base_offset
+        ecs.hint_aL = t in (ST.singleG, ST.initial0, ST.initial1,
+                            ST.initial2)
+        ecs.hint_aR = t in (ST.singleG, ST.terminal, ST.rinitial)
+        if t in (ST.internal0, ST.internal1, ST.internal2,
+                 ST.rinternal0, ST.rinternal1, ST.rinternal2):
+            ecs.hint_exclass = 1
+        elif t in (ST.terminal, ST.rinitial):
+            ecs.hint_exclass = 2
+        elif t == ST.singleG:
+            ecs.hint_exclass = 0
+        else:   # initial0-2 (rterminal/rsingleG are pinned, not convs)
+            ecs.hint_exclass = 3
     return ecs
+
+
+# ---------------------------------------------------------------------------
+# Sparse exon-hint machinery (exonpart/CDSpart/exon/CDS quotients)
+# ---------------------------------------------------------------------------
+#
+# gold._exon_part_quot (reference exonmodel.cc:1769-1860) scores each exon
+# candidate [bob, ebx] against the hint set.  On device this decomposes as
+#
+#   quot(j, b) = separable(b) + separable(j) + clamps(window arithmetic)
+#              + covering corrections + exact boundary matches
+#
+# via cumulative tracks:
+#   BE(x)   = sum of log-bonus over hints with end <= x
+#   CR(p)   = sum over hints crossing p (start < p <= end)
+#   C2(x)   = sum over hints with start <= x < end
+#   Cnt*(x) = count versions; ZC(x) = zero-coverage cumsum (local malus)
+# so e.g.  sum over hints INSIDE [bob, ebx]
+#        = BE(ebx) - BE(bob-1) - CR(bob) + Cov(b, j)
+# where Cov(b, j) = sum over hints with start < bob and end > ebx.  Cov is
+# the only non-separable term; every such hint crosses ebx, so with
+#   TX(x)   = sum over hints crossing x
+#   steps(x) = the (start, w) list of hints crossing x
+# Cov = TX(ebx) - sum_k w_k * [start_k >= bob] -- a handful of per-x step
+# entries (bounded by the hint crossing depth, K-capped).  Exact boundary
+# matches (CDS ==, exon == / one-sided) are per-x point/step entries.
+
+EXON_HINT_KINDS = ("exonpart", "CDSpart", "exon", "CDS")
+
+
+@dataclass
+class HintTables:
+    """Per-strand hint tracks + per-x correction tables."""
+    # b-indexed window rows over the extended domain [-gpad, n+END_PAD):
+    # dict name -> (n_ext,) f32
+    wrows: Dict[str, np.ndarray]
+    # x-indexed 1-D tracks over [0, n) (baked into scalar cols at x=j+bo)
+    xrows: Dict[str, np.ndarray]
+    # crossing step tables: (n, K) arrays
+    cross_start: np.ndarray       # int32, -2**30 when empty
+    cross_w: np.ndarray           # f32 log-bonus
+    cross_flag: np.ndarray        # int32 bitmask: 1=ep 2=cp 4=exon
+    # exact-match tables at x == hint end: (n, K2)
+    ex_pos: np.ndarray            # int32 bob value / threshold
+    ex_w: np.ndarray              # f32
+    ex_kind: np.ndarray           # int32: 1=CDS point, 2=exonI point,
+    #                               3=exonLT step (bob > pos)
+
+
+def _hint_tables_cached(eng, gpad: int) -> Dict[str, HintTables]:
+    """Per-engine cache of the hint tables (_build_pinned and the final
+    build_tracks assembly share one construction)."""
+    cache = getattr(eng, "_ht_cache", None)
+    if cache is None:
+        cache = eng._ht_cache = {}
+    if gpad not in cache:
+        cache[gpad] = _build_hint_tables(eng, gpad)
+    return cache[gpad]
+
+
+def _build_hint_tables(eng, gpad: int) -> Dict[str, HintTables]:
+    """Build per-strand HintTables from the prepared SeqHints."""
+    h = eng.hints
+    n = eng.n
+    n_ext = gpad + n + END_PAD
+    out = {}
+    for strand in ("+", "-"):
+        def sok(f):
+            return f.strand in (strand, ".")
+
+        eps = [f for f in h.by_type["exonpart"] if sok(f)]
+        cps = [f for f in h.by_type["CDSpart"] if sok(f)]
+        exs = [f for f in h.by_type["exon"] if sok(f)]
+        cds = [f for f in h.by_type["CDS"] if sok(f)]
+
+        def cum_end(feats, w=True):
+            a = np.zeros(n)
+            for f in feats:
+                if 0 <= f.end < n:
+                    a[f.end] += np.log(f.bonus) if w else 1.0
+            return np.cumsum(a)
+
+        def cross(feats, w=True):
+            """CR(p) = sum over start < p <= end."""
+            a = np.zeros(n + 1)
+            for f in feats:
+                lo, hi = f.start + 1, f.end + 1   # p in [start+1, end]
+                a[max(lo, 0): max(min(hi, n), 0)] += \
+                    np.log(f.bonus) if w else 1.0
+            return a[:n]
+
+        def cross2(feats, w=True):
+            """C2(x) = sum over start <= x < end."""
+            a = np.zeros(n + 1)
+            for f in feats:
+                a[max(f.start, 0): max(min(f.end, n), 0)] += \
+                    np.log(f.bonus) if w else 1.0
+            return a[:n]
+
+        wrows = {}
+        xrows = {}
+
+        def put_both(name, arr):
+            ext = np.zeros(n_ext, dtype=np.float32)
+            ext[gpad: gpad + n] = arr
+            ext[gpad + n:] = arr[-1] if n else 0.0
+            wrows[name] = ext
+            xrows[name] = np.asarray(arr, dtype=np.float64)
+
+        put_both("BE_ep", cum_end(eps))
+        put_both("BE_cp", cum_end(cps))
+        put_both("CntBE_ep", cum_end(eps, w=False))
+        put_both("CntBE_cp", cum_end(cps, w=False))
+        put_both("CR_ep", cross(eps))
+        put_both("CR_cp", cross(cps))
+        put_both("CntCR_ep", cross(eps, w=False))
+        put_both("CntCR_cp", cross(cps, w=False))
+        xrows["C2_ep"] = cross2(eps)
+        xrows["CntC2_ep"] = cross2(eps, w=False)
+        # any-strand end counts (numEPendingInExon ignores strand)
+        all_eps = h.by_type["exonpart"]
+        all_cps = h.by_type["CDSpart"]
+        put_both("CntE_ep", cum_end(all_eps, w=False))
+        put_both("CntE_cp", cum_end(all_cps, w=False))
+        # zero-coverage cums for the local malus (gold cumcov_cp_*)
+        zc = getattr(eng, "cumcov_cp_plus" if strand == "+"
+                     else "cumcov_cp_minus")
+        put_both("ZC", zc.astype(np.float64))
+
+        # crossing tables: hints crossing x, for Cov + terminal exon matches
+        lists = [[] for _ in range(n)]
+        for flag, feats in ((1, eps), (2, cps), (4, exs)):
+            for f in feats:
+                for x in range(max(f.start, 0), min(f.end, n)):
+                    lists[x].append((f.start, float(np.log(f.bonus)), flag))
+        K = max((len(l) for l in lists), default=0)
+        cross_start = np.full((n, max(K, 1)), -(1 << 30), dtype=np.int32)
+        cross_w = np.zeros((n, max(K, 1)), dtype=np.float64)
+        cross_flag = np.zeros((n, max(K, 1)), dtype=np.int32)
+        for x, l in enumerate(lists):
+            for k, (st_, w_, fl_) in enumerate(l):
+                cross_start[x, k] = st_
+                cross_w[x, k] = w_
+                cross_flag[x, k] = fl_
+        if K == 0:
+            cross_start = cross_start[:, :0]
+            cross_w = cross_w[:, :0]
+            cross_flag = cross_flag[:, :0]
+        # TX sums per x
+        for nm, flag, w in (("TX_ep", 1, True), ("TX_cp", 2, True),
+                            ("TXc_ep", 1, False), ("TXc_cp", 2, False)):
+            a = np.zeros(n)
+            if cross_start.shape[1]:
+                sel = cross_flag == flag
+                a = np.sum(np.where(sel, cross_w if w else 1.0, 0.0), axis=1)
+            xrows[nm] = a
+
+        # exact tables keyed by x = hint end
+        lists2 = [[] for _ in range(n)]
+        for f in cds:
+            if 0 <= f.end < n:
+                lists2[f.end].append((f.start, float(np.log(f.bonus)), 1))
+        for f in exs:
+            if 0 <= f.end < n:
+                lists2[f.end].append((f.start, float(np.log(f.bonus)), 2))
+                lists2[f.end].append((f.start, float(np.log(f.bonus)), 3))
+        K2 = max((len(l) for l in lists2), default=0)
+        ex_pos = np.full((n, max(K2, 1)), -(1 << 30), dtype=np.int32)
+        ex_w = np.zeros((n, max(K2, 1)), dtype=np.float64)
+        ex_kind = np.zeros((n, max(K2, 1)), dtype=np.int32)
+        for x, l in enumerate(lists2):
+            for k, (p_, w_, kd_) in enumerate(l):
+                ex_pos[x, k] = p_
+                ex_w[x, k] = w_
+                ex_kind[x, k] = kd_
+        if K2 == 0:
+            ex_pos = ex_pos[:, :0]
+            ex_w = ex_w[:, :0]
+            ex_kind = ex_kind[:, :0]
+        out[strand] = HintTables(
+            wrows=wrows, xrows=xrows, cross_start=cross_start,
+            cross_w=cross_w, cross_flag=cross_flag,
+            ex_pos=ex_pos, ex_w=ex_w, ex_kind=ex_kind)
+    return out

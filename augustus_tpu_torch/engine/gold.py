@@ -1,9 +1,11 @@
 """Host track preparation for the semi-Markov Viterbi decode.
 
 Host copy of the preparation half of `augustus_tpu/engine/gold.py`
-(`GoldEngine.prepare`, `_prepare_tracks`, `set_boundaries`): float64 numpy
-tracks of ORF barriers, splice scores, content cumsums and signal sensors,
-which engine/device.py factorizes into the DP tracks.  The float64 host DP
+(`GoldEngine.prepare`, `_prepare_tracks`, `_build_hint_tracks`,
+`_apply_signal_hint_terms`, `set_boundaries`): float64 numpy tracks of ORF
+barriers, splice scores, content cumsums, signal sensors and the hint
+bonus/malus terms of softmasking and hints files, which engine/device.py
+factorizes into the DP tracks.  The float64 host DP
 of the reference package (`run`, `traceback`, sampling) is not part of this
 package: the decode runs in engine/viterbi.py.
 """
@@ -74,7 +76,8 @@ class GoldEngine:
     def __init__(self, sg: StateGraph, cn: Constants,
                  igp: IgenicParams, exp: ExonParams, inp: IntronParams,
                  decomp: gcmod.Decomposition,
-                 gcode: Optional[genetics.GeneticCode] = None):
+                 gcode: Optional[genetics.GeneticCode] = None,
+                 ext_cfg=None):
         self.sg = sg
         self.cn = cn
         self.igp = igp
@@ -82,6 +85,7 @@ class GoldEngine:
         self.inp = inp
         self.decomp = decomp
         self.gcode = gcode or genetics.GeneticCode()
+        self.ext_cfg = ext_cfg      # ExtrinsicConfig or None
         self.S = sg.statecount
 
         # per-GC-class adjusted transition matrices (log space).
@@ -144,18 +148,36 @@ class GoldEngine:
                 gff_hints=None) -> None:
         """Precompute all tracks for one sequence.
 
-        softmask / gff_hints: accepted for the reference signature; a
-        softmasked run (softmasking on) or any hints raise
-        NotImplementedError, as that machinery is not ported yet.
+        softmask: optional boolean per-base array (lowercase in the input).
+        With softmasking on, masked runs become nonexonpart "RM" hints
+        favoring intergenic/intron states (reference
+        SequenceFeatureCollection::prepare, extrinsicinfo.cc:1697-1723).
         """
         cn, n = self.cn, codes.shape[0]
-        if (softmask is not None and cn.softmasking) or gff_hints is not None:
-            raise NotImplementedError(
-                "softmasking and hints are not ported yet "
-                "(run with --softmasking=0 and no hints file)")
         self.codes = codes
         self.n = n
         self._kmer_full: Dict[tuple, np.ndarray] = {}
+        self.has_hints = False
+        self.hints = None
+        feats = []
+        if (softmask is not None and cn.softmasking
+                and self.ext_cfg is not None):
+            from ..hints.features import softmask_hints
+            for grp in softmask_hints(softmask[:n], self.ext_cfg):
+                feats.extend(grp.hints)
+            # reference sets hasHintsFile whenever softmasking is on, even
+            # with zero lowercase runs (extrinsicinfo.cc:1723) -> maluses
+            # apply and evidence blocks are printed
+            self.has_hints = True
+        if gff_hints is not None:
+            # a hints file was given: maluses apply even with no hints on
+            # this sequence (reference hasHintsFile)
+            feats.extend(gff_hints)
+            self.has_hints = True
+        if self.has_hints and self.ext_cfg is not None:
+            from ..hints.system import SeqHints
+            self.hints = SeqHints(feats, self.ext_cfg, codes)
+            self._build_hint_tracks()
         self.stairs = gcmod.compute_stairs(codes, cn, self.decomp)
         self._prepare_tracks(codes)
 
@@ -167,7 +189,12 @@ class GoldEngine:
         xp = np
         cn, n = self.cn, self.n
         self.orf = T.nearest_stop_arrays(codes, self.gcode)
-        self.splice = T.build_splice_tracks(codes, self.inp, cn)
+        hinted = None
+        if self.hints is not None:
+            h = self.hints
+            hinted = (h.hinted_fD, h.hinted_rD, h.hinted_fA, h.hinted_rA)
+        self.splice = T.build_splice_tracks(codes, self.inp, cn,
+                                            hinted=hinted)
 
         k = self.exp.k
         log_n_coding = float(np.log(cn.prob_n_in_coding))
@@ -188,6 +215,8 @@ class GoldEngine:
         self.cum_exon: Dict[Tuple[int, str, bool], np.ndarray] = {}
         for c in classes:
             self.ig_track[c] = self._igenic_track(codes, c)
+            if self.hints is not None:
+                self.ig_track[c] = self.ig_track[c] + self.ig_adjust
             # kmer_lookup_log already yields LOG_QUARTER below k = k1-1
             itf = T.kmer_lookup_log(codes, self.inp.k + 1,
                                     self.inp.gc[c].emiprobs, T.LOG_QUARTER)
@@ -217,6 +246,66 @@ class GoldEngine:
 
         # signal tracks
         self._build_signal_tracks(codes)
+
+    def _build_hint_tracks(self) -> None:
+        """Per-base hint bonus tracks (igenic adjust, intronpart cums) and
+        constants used by the DP hooks."""
+        h = self.hints
+        cfg = self.ext_cfg
+        n = self.n
+        LOG = np.log
+
+        ig = np.zeros(n)
+        have_ir = np.zeros(n, dtype=bool)
+        have_nep = np.zeros(n, dtype=bool)
+        have_nonir = np.zeros(n, dtype=bool)
+        for f in h.by_type["irpart"]:
+            ig[max(f.start, 0): f.end + 1] += LOG(f.bonus)
+            have_ir[max(f.start, 0): f.end + 1] = True
+        for f in h.by_type["nonexonpart"]:
+            ig[max(f.start, 0): f.end + 1] += LOG(f.bonus)
+            have_nep[max(f.start, 0): f.end + 1] = True
+        for f in h.by_type["genicpart"]:
+            ig[max(f.start, 0): f.end + 1] -= LOG(f.bonus)
+            have_nonir[max(f.start, 0): f.end + 1] = True
+        # maluses where no such hint covers the base (igenicmodel.cc:318-326)
+        ig += np.where(~have_ir, LOG(cfg.malus("irpart")), 0.0)
+        ig += np.where(~have_nep, LOG(cfg.malus("nonexonpart")), 0.0)
+        ig -= np.where(~have_nonir, LOG(cfg.malus("genicpart")), 0.0)
+        self.ig_adjust = ig
+
+        ipb_p = np.zeros(n)
+        ipb_m = np.zeros(n)
+        for f in h.by_type["intronpart"] + h.by_type["nonexonpart"]:
+            if f.strand in ("+", "."):
+                ipb_p[max(f.start, 0): f.end + 1] += LOG(f.bonus)
+            if f.strand in ("-", "."):
+                ipb_m[max(f.start, 0): f.end + 1] += LOG(f.bonus)
+        self.ipb_plus = ipb_p
+        self.ipb_minus = ipb_m
+        self.ipb_plus_cum = np.zeros(n + 1)
+        self.ipb_plus_cum[1:] = np.cumsum(ipb_p)
+        self.ipb_minus_cum = np.zeros(n + 1)
+        self.ipb_minus_cum[1:] = np.cumsum(ipb_m)
+
+        self.log_malus = {t: float(LOG(cfg.malus(t)))
+                          for t in ("start", "stop", "ass", "dss", "exonpart",
+                                    "exon", "intronpart", "intron", "CDS",
+                                    "CDSpart", "UTR", "UTRpart", "tss",
+                                    "tts")}
+
+        # local (part) malus coverage tables (reference
+        # SequenceFeatureCollection::prepareLocalMalus,
+        # extrinsicinfo.cc:1749-1818): cumulative count of bases NOT
+        # covered by any CDSpart-or-exonpart hint, per strand.
+        self.log_local_malus_cp = float(LOG(cfg.info("CDSpart").local_malus))
+        for strand, attr in (("+", "cumcov_cp_plus"),
+                             ("-", "cumcov_cp_minus")):
+            cov = np.zeros(n, dtype=bool)
+            for f in h.by_type["CDSpart"] + h.by_type["exonpart"]:
+                if f.strand in (strand, "."):
+                    cov[max(f.start, 0): f.end + 1] = True
+            setattr(self, attr, np.cumsum(~cov).astype(np.int64))
 
     # ------------------------------------------------------------------
     def _igenic_track(self, codes: np.ndarray, c: int) -> np.ndarray:
@@ -392,6 +481,67 @@ class GoldEngine:
             self.tis_end_rev[c] = val
 
         self.start_fwd_log = start_fwd
+
+        if self.hints is not None:
+            self._apply_signal_hint_terms()
+
+    # ------------------------------------------------------------------
+    def _apply_signal_hint_terms(self) -> None:
+        """Fold start/stop/ass/dss hint bonuses and maluses into signal
+        tracks (reference exonmodel.cc endPartEmiProb/notEndPartEmiProb)."""
+        from ..hints.system import distance_faded_bonus
+        h, n = self.hints, self.n
+        lm = self.log_malus
+
+        def codon_adj(hint_type, strand, pos_of_j, valid):
+            """Adjustment for codon-signal tracks: hints OVERLAPPING the
+            codon window suppress the malus; hints COVERING it add fades at
+            the middle base (reference exonmodel.cc:1294-1311)."""
+            adj = np.where(valid, lm[hint_type], 0.0)
+            hints = [f for f in h.by_type[hint_type]
+                     if f.strand in (strand, ".")]
+            if not hints:
+                return adj
+            for j in np.flatnonzero(valid):
+                a = pos_of_j(int(j))          # codon start
+                over = [f for f in hints if not (f.end < a or f.start > a + 2)]
+                if over:
+                    v = 0.0
+                    for f in over:
+                        if f.start <= a and f.end >= a + 2:
+                            v += distance_faded_bonus(f, a + 1)
+                    adj[j] = v
+            return adj
+
+        tw = self.cn.trans_init_window
+        self.end_stop_fwd = self.end_stop_fwd + codon_adj(
+            "stop", "+", lambda j: j - 2, self.end_stop_fwd > NEG_INF)
+        self.begin_rstop = self.begin_rstop + codon_adj(
+            "stop", "-", lambda b: b, self.begin_rstop > NEG_INF)
+        for c in self.classes:
+            self.tis_begin_fwd[c] = self.tis_begin_fwd[c] + codon_adj(
+                "start", "+", lambda b: b, self.tis_begin_fwd[c] > NEG_INF)
+            self.tis_end_rev[c] = self.tis_end_rev[c] + codon_adj(
+                "start", "-", lambda j: j - tw - STARTCODON_LEN + 1,
+                self.tis_end_rev[c] > NEG_INF)
+
+        # splice-site adjustment arrays indexed by SITE position:
+        # sum of fades of containing hints, else the malus
+        def site_adj(hint_type, strand):
+            adj = np.full(n, lm[hint_type])
+            hints = [f for f in h.by_type[hint_type]
+                     if f.strand in (strand, ".")]
+            for f in hints:
+                for p in range(max(f.start, 0), min(f.end + 1, n)):
+                    if adj[p] == lm[hint_type]:
+                        adj[p] = 0.0
+                    adj[p] += distance_faded_bonus(f, p)
+            return adj
+
+        self.dss_site_adj_p = site_adj("dss", "+")
+        self.dss_site_adj_m = site_adj("dss", "-")
+        self.ass_site_adj_p = site_adj("ass", "+")
+        self.ass_site_adj_m = site_adj("ass", "-")
 
     # ------------------------------------------------------------------
     def log_pls(self, c: int, m: int) -> np.ndarray:

@@ -23,8 +23,20 @@ Layout (S <= 64 states, NL <= 64 lanes):
   lt_T     (64,64) f32       lane transitions (rows p, cols l)
   sel_pack (NSEL,64,64) f32  fixed-state lane->state one-hot (0 / NEG)
   lv_pack  (1,LVP) f32       reversed length vectors and frame masks
+With sparse exon/CDS hints (NHW > 0) three more planes:
+  xh_plane (n_pad,NXH) f32   per-position hint scalars of the hinted convs
+                             (cumulative tracks at x = j + base_offset, the
+                             crossing/exact-match weights), one lane per
+                             scalar-table column in use
+  xi_plane (n_pad,NXI) i32   per-position hint ints (crossing starts and
+                             flags, exact-match positions and kinds)
+  hw_rows  (NHW, W_PAD+n_pad+EP) f32  b-indexed cumulative hint window rows,
+                             W_PAD zero columns in front, the last value
+                             repeated over the tail
 Lanes are permuted so that the pinned-state lanes come first.
 
+The TPU kernel's XH/XI planes were 128 lanes wide and its pack refused a
+chunk with more hint columns; the port sizes them to the columns in use.
 The TPU kernel additionally took `cls_blk`, per-2048-block GC-class runs
 with at most two switches per block; the port's kernel reads the class of
 every position from ip_misc lane 16, so any class pattern decodes.
@@ -33,7 +45,7 @@ every position from ip_misc lane 16, so any class pattern decodes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +59,7 @@ BLK = 2048            # plane row padding unit (n_pad = multiple of BLK)
 EP = 640              # end padding of b-indexed arrays
 NEG = np.float32(F32_NEG)
 GATE_LANE, CLS_LANE = 17, 16
+INT_FILL = np.int32(-(1 << 30))   # empty crossing / exact-match slot
 
 
 @dataclass(frozen=True)
@@ -67,6 +80,30 @@ class PKVariant:
 
 
 @dataclass(frozen=True)
+class PKHint:
+    """Sparse exon/CDS hint quotient data for one conv state (mirrors
+    scan.HintConvStatic): rows of hw_rows, and lanes of the per-position
+    planes xh_plane (f32) / xi_plane (i32)."""
+    ipo: int
+    aL: bool
+    aR: bool
+    exclass: int
+    # hw_rows rows
+    w_be_ep: int; w_be_cp: int; w_cntbe_ep: int; w_cntbe_cp: int
+    w_cr_ep: int; w_cr_cp: int; w_cntcr_ep: int; w_cntcr_cp: int
+    w_cnte_ep: int; w_cnte_cp: int; w_zc: int
+    # xh_plane lanes
+    x_be_ep: int; x_be_cp: int; x_cntbe_ep: int; x_cntbe_cp: int
+    x_c2_ep: int; x_cntc2_ep: int
+    x_cnte_ep: int; x_cnte_cp: int; x_zc: int
+    x_tx_ep: int; x_tx_cp: int; x_txc_ep: int; x_txc_cp: int
+    # K slots: (xi start lane, xh weight lane, xi flag lane) per slot
+    cross: Tuple[Tuple[int, int, int], ...]
+    # K2 slots: (xi position lane, xh weight lane, xi kind lane) per slot
+    ex: Tuple[Tuple[int, int, int], ...]
+
+
+@dataclass(frozen=True)
 class PKConv:
     state: int
     bpl: int
@@ -75,6 +112,7 @@ class PKConv:
     frame_mode: int
     ip_lane: int                 # ip_conv lane of gate|phi<<1 (then +1,+2)
     variants: Tuple[PKVariant, ...]
+    hint: Optional[PKHint] = None
 
 
 @dataclass(frozen=True)
@@ -125,6 +163,9 @@ class PKStatic:
     convs: Tuple[PKConv, ...]
     gate_lane: int               # ip_misc lane of fixed group gate bits
     cls_lane: int                # ip_misc lane of the GC class
+    NHW: int = 0                 # hint window rows (0 = no sparse hints)
+    hint_lm: Optional[tuple] = None   # (lm_ep, lm_cp, lm_exon, lm_CDS,
+    #                                   lm_local_cp) as Python floats
     PHW: int = 8192              # the TPU kernel's pinned-history ring size
 
 
@@ -303,6 +344,47 @@ def pack_tracks(tr: DPTracks):
         PHW *= 2
 
     # ---- convs ---------------------------------------------------------------
+    # ---- sparse exon/CDS hint planes ------------------------------------
+    # x-side per-position scalars (stab/itab columns) are packed into two
+    # j-planes XH (f32) / XI (i32), one lane per column in use (first use
+    # first, as the reference assigns its 128 lanes); window rows (hw_all)
+    # into a b-indexed array like gcum.
+    _xh_lanes: Dict[int, int] = {}
+    _xi_lanes: Dict[int, int] = {}
+
+    def xh_lane(col: int) -> int:
+        return _xh_lanes.setdefault(col, len(_xh_lanes))
+
+    def xi_lane(col: int) -> int:
+        return _xi_lanes.setdefault(col, len(_xi_lanes))
+
+    def pk_hint(hs) -> PKHint:
+        return PKHint(
+            ipo=hs.ipo, aL=hs.aL, aR=hs.aR, exclass=hs.exclass,
+            w_be_ep=hs.w_be_ep, w_be_cp=hs.w_be_cp,
+            w_cntbe_ep=hs.w_cntbe_ep, w_cntbe_cp=hs.w_cntbe_cp,
+            w_cr_ep=hs.w_cr_ep, w_cr_cp=hs.w_cr_cp,
+            w_cntcr_ep=hs.w_cntcr_ep, w_cntcr_cp=hs.w_cntcr_cp,
+            w_cnte_ep=hs.w_cnte_ep, w_cnte_cp=hs.w_cnte_cp, w_zc=hs.w_zc,
+            x_be_ep=xh_lane(hs.x_be_ep), x_be_cp=xh_lane(hs.x_be_cp),
+            x_cntbe_ep=xh_lane(hs.x_cntbe_ep),
+            x_cntbe_cp=xh_lane(hs.x_cntbe_cp),
+            x_c2_ep=xh_lane(hs.x_c2_ep), x_cntc2_ep=xh_lane(hs.x_cntc2_ep),
+            x_cnte_ep=xh_lane(hs.x_cnte_ep), x_cnte_cp=xh_lane(hs.x_cnte_cp),
+            x_zc=xh_lane(hs.x_zc),
+            x_tx_ep=xh_lane(hs.x_tx_ep), x_tx_cp=xh_lane(hs.x_tx_cp),
+            x_txc_ep=xh_lane(hs.x_txc_ep), x_txc_cp=xh_lane(hs.x_txc_cp),
+            cross=tuple((xi_lane(sc), xh_lane(wc), xi_lane(fc))
+                        for (sc, wc, fc) in hs.cross_cols),
+            ex=tuple((xi_lane(pc), xh_lane(wc), xi_lane(kc))
+                     for (pc, wc, kc) in hs.ex_cols))
+
+    hw_all = arr["hw_all"]                       # (NHW, GPAD + n + END_PAD)
+    NHW = hw_all.shape[0]
+    NHWp = _round_up(max(NHW, 1), 8)
+    gp_scan = hw_all.shape[1] - n - END_PAD
+    hw_src = np.asarray(hw_all[:, gp_scan: gp_scan + n])
+
     conv_list: List[PKConv] = []
     _next_h = [0]
 
@@ -393,7 +475,8 @@ def pack_tracks(tr: DPTracks):
         conv_list.append(PKConv(
             state=ecs.state, bpl=ecs.bpl, a_off=ecs.a_off,
             lane=lane_of[ecs.lane], frame_mode=ecs.frame_mode,
-            ip_lane=ip_lane, variants=tuple(vs)))
+            ip_lane=ip_lane, variants=tuple(vs),
+            hint=pk_hint(ecs.hint) if ecs.hint is not None else None))
 
     LVP = _round_up(max(lv_cursor[0], 128), 128)
     lv_pack = np.full((1, LVP), NEG, dtype=np.float32)
@@ -425,7 +508,9 @@ def pack_tracks(tr: DPTracks):
         chain_states=tuple(chain_states),
         fixed_groups=tuple(groups), lessd=tuple(lessd_list),
         pinned=tuple(pinned_list), convs=tuple(conv_list),
-        gate_lane=GATE_LANE, cls_lane=CLS_LANE, PHW=PHW)
+        gate_lane=GATE_LANE, cls_lane=CLS_LANE,
+        NHW=NHWp if any(c.hint is not None for c in conv_list) else 0,
+        hint_lm=st.hint_lm, PHW=PHW)
 
     arrays = {
         "stab": stab, "itab": itab,
@@ -442,6 +527,10 @@ def pack_tracks(tr: DPTracks):
         "lv_pack": lv_pack, "v0": v0, "l0": l0, "a0": a0,
         "log_term": np.asarray(arr["log_term"]),
     }
+    if static.NHW:
+        arrays["m_xh"] = np.array(list(_xh_lanes), dtype=np.int32)
+        arrays["m_xi"] = np.array(list(_xi_lanes), dtype=np.int32)
+        arrays["hw_src"] = hw_src
     return static, arrays
 
 
@@ -452,12 +541,15 @@ PLANE_INPUTS = ("stab", "itab", "xstab", "xitab", "m_sp_state", "m_sp_geo",
                 "bv_src", "bs_src")
 KERNEL_CONSTANTS = ("ltc_all", "lt_T", "sel_pack", "lv_pack", "v0", "l0",
                     "a0")
+# compact inputs of the hint planes, present only when static.NHW > 0
+HINT_INPUTS = ("m_xh", "m_xi", "hw_src")
 
 
 def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """One host->device copy of the compact arrays the decode needs."""
     return {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
-            for k in PLANE_INPUTS + KERNEL_CONSTANTS}
+            for k in PLANE_INPUTS + KERNEL_CONSTANTS + HINT_INPUTS
+            if k in arrays}
 
 
 def expand_arrays(st: PKStatic, a: Dict[str, torch.Tensor]
@@ -489,6 +581,15 @@ def expand_arrays(st: PKStatic, a: Dict[str, torch.Tensor]
         "ip_conv": plane(tabi, a["m_ip_conv"], 0, torch.int32),
         "ip_misc": plane(tabi, a["m_ip_misc"], 0, torch.int32),
     }
+    if st.NHW:
+        out["xh_plane"] = plane(tabs, a["m_xh"], 0.0, torch.float32)
+        out["xi_plane"] = plane(tabi, a["m_xi"], int(INT_FILL), torch.int32)
+        hw = a["hw_src"]                  # (rows in use, n)
+        hw_rows = torch.zeros((st.NHW, W_PAD + n_pad + EP),
+                              dtype=torch.float32, device=dev)
+        hw_rows[: hw.shape[0], W_PAD: W_PAD + n] = hw
+        hw_rows[: hw.shape[0], W_PAD + n:] = hw[:, n - 1: n]
+        out["hw_rows"] = hw_rows
 
     # gcum: rows [g*3+ph for g, ph] then [NG*3+u], padded to NGR, cols
     # front-padded by W_PAD and NEG beyond n

@@ -3,9 +3,11 @@
 Host copy of `split_tracks` from `augustus_tpu/engine/scan.py`: the per-state
 track lists of a DPTracks are consolidated into one (n, NSC) float32 table
 and one (n, NIC) int32 table (GC class baked in per position), plus the
-G/cum pools and lessD masks.  engine/pack.py turns these into the Viterbi
-kernel's planes.  The XLA scan engines of the reference module (the general
-Viterbi and the logsumexp forward) are later slices of the port.
+G/cum pools and lessD masks, and the sparse exon/CDS hint machinery (window
+rows `hw_all`, per-position hint columns and the `HintConvStatic` of every
+hinted conv).  engine/pack.py turns these into the Viterbi kernel's
+planes.  The XLA scan engines of the reference module (the general Viterbi
+and the logsumexp forward) are later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,6 +35,29 @@ class VariantStatic:
 
 
 @dataclass(frozen=True)
+class HintConvStatic:
+    """Sparse exon-hint machinery for one conv state (device.HintTables).
+
+    Window-row indices index hw_all; x-side values are scalar columns
+    pre-shifted to x = j + base_offset; cross/ex entry fields are
+    (int_col, scal_col, int_col) triples per K slot.
+    """
+    ipo: int
+    aL: bool
+    aR: bool
+    exclass: int
+    w_be_ep: int; w_be_cp: int; w_cntbe_ep: int; w_cntbe_cp: int
+    w_cr_ep: int; w_cr_cp: int; w_cntcr_ep: int; w_cntcr_cp: int
+    w_cnte_ep: int; w_cnte_cp: int; w_zc: int
+    x_be_ep: int; x_be_cp: int; x_cntbe_ep: int; x_cntbe_cp: int
+    x_c2_ep: int; x_cntc2_ep: int
+    x_cnte_ep: int; x_cnte_cp: int; x_zc: int
+    x_tx_ep: int; x_tx_cp: int; x_txc_ep: int; x_txc_cp: int
+    cross_cols: tuple
+    ex_cols: tuple
+
+
+@dataclass(frozen=True)
 class ConvStatic:
     state: int
     bpl: int
@@ -43,6 +68,7 @@ class ConvStatic:
     smax_col: int
     gate_col: int
     variants: Tuple[VariantStatic, ...]
+    hint: Optional[HintConvStatic] = None
 
 
 @dataclass(frozen=True)
@@ -98,6 +124,9 @@ class ScanStatic:
     pinned: Tuple[PinnedStatic, ...]
     convs: Tuple[ConvStatic, ...]
     cls_col: int              # int col of the GC class
+    NHW: int = 0              # hint window rows in hw_all
+    hint_lm: Optional[tuple] = None   # (lm_ep, lm_cp, lm_exon, lm_CDS,
+    #                                    lm_local_cp)
 
 
 def split_tracks(tr: DPTracks):
@@ -230,6 +259,91 @@ def split_tracks(tr: DPTracks):
         score_col=scol(U.class_pick(ps.score, cls)), eop_col=icol(ps.eop))
         for ps in tr.exon_pinned)
 
+    # ---- sparse exon-hint machinery --------------------------------------
+    ht = tr.hint_tables
+    hw_rows: List[np.ndarray] = []
+    hw_ids: Dict[tuple, int] = {}
+    xcol_cache: Dict[tuple, int] = {}
+    ccol_cache: Dict[tuple, tuple] = {}
+    ecol_cache: Dict[tuple, tuple] = {}
+
+    def hw_row(strand, name):
+        key = (strand, name)
+        if key not in hw_ids:
+            hw_ids[key] = len(hw_rows)
+            hw_rows.append(np.asarray(ht[strand].wrows[name], np.float32))
+        return hw_ids[key]
+
+    def xcol(strand, bo, name):
+        # x = j + bo may exceed n-1 for end-truncated exons: cumulative
+        # tracks saturate at n-1 (crossing-type tracks are 0 there anyway);
+        # x < 0 candidates are gated off upstream, value 0
+        key = (strand, bo, name)
+        if key not in xcol_cache:
+            xr = np.asarray(ht[strand].xrows[name], np.float64)
+            xi = pos + bo
+            vals = np.where(xi >= 0, xr[np.clip(xi, 0, n - 1)], 0.0)
+            xcol_cache[key] = scol(vals)
+        return xcol_cache[key]
+
+    def cross_cols(strand, bo):
+        key = (strand, bo)
+        if key not in ccol_cache:
+            t = ht[strand]
+            xi = pos + bo
+            ok = (xi >= 0) & (xi < n)
+            xc = np.clip(xi, 0, n - 1)
+            cols = []
+            for k in range(t.cross_start.shape[1]):
+                si = icol(np.where(ok, t.cross_start[xc, k], -(1 << 30)))
+                wi = scol(np.where(ok, t.cross_w[xc, k], 0.0))
+                fi = icol(np.where(ok, t.cross_flag[xc, k], 0))
+                cols.append((si, wi, fi))
+            ccol_cache[key] = tuple(cols)
+        return ccol_cache[key]
+
+    def ex_cols(strand, bo):
+        key = (strand, bo)
+        if key not in ecol_cache:
+            t = ht[strand]
+            xi = pos + bo
+            ok = (xi >= 0) & (xi < n)
+            xc = np.clip(xi, 0, n - 1)
+            cols = []
+            for k in range(t.ex_pos.shape[1]):
+                pi = icol(np.where(ok, t.ex_pos[xc, k], -(1 << 30)))
+                wi = scol(np.where(ok, t.ex_w[xc, k], 0.0))
+                ki = icol(np.where(ok, t.ex_kind[xc, k], 0))
+                cols.append((pi, wi, ki))
+            ecol_cache[key] = tuple(cols)
+        return ecol_cache[key]
+
+    def hint_static(ecs) -> Optional[HintConvStatic]:
+        if ht is None or ecs.hint_strand is None:
+            return None
+        s_, bo = ecs.hint_strand, ecs.hint_bo
+        return HintConvStatic(
+            ipo=ecs.hint_ipo, aL=ecs.hint_aL, aR=ecs.hint_aR,
+            exclass=ecs.hint_exclass,
+            w_be_ep=hw_row(s_, "BE_ep"), w_be_cp=hw_row(s_, "BE_cp"),
+            w_cntbe_ep=hw_row(s_, "CntBE_ep"),
+            w_cntbe_cp=hw_row(s_, "CntBE_cp"),
+            w_cr_ep=hw_row(s_, "CR_ep"), w_cr_cp=hw_row(s_, "CR_cp"),
+            w_cntcr_ep=hw_row(s_, "CntCR_ep"),
+            w_cntcr_cp=hw_row(s_, "CntCR_cp"),
+            w_cnte_ep=hw_row(s_, "CntE_ep"), w_cnte_cp=hw_row(s_, "CntE_cp"),
+            w_zc=hw_row(s_, "ZC"),
+            x_be_ep=xcol(s_, bo, "BE_ep"), x_be_cp=xcol(s_, bo, "BE_cp"),
+            x_cntbe_ep=xcol(s_, bo, "CntBE_ep"),
+            x_cntbe_cp=xcol(s_, bo, "CntBE_cp"),
+            x_c2_ep=xcol(s_, bo, "C2_ep"),
+            x_cntc2_ep=xcol(s_, bo, "CntC2_ep"),
+            x_cnte_ep=xcol(s_, bo, "CntE_ep"),
+            x_cnte_cp=xcol(s_, bo, "CntE_cp"), x_zc=xcol(s_, bo, "ZC"),
+            x_tx_ep=xcol(s_, bo, "TX_ep"), x_tx_cp=xcol(s_, bo, "TX_cp"),
+            x_txc_ep=xcol(s_, bo, "TXc_ep"), x_txc_cp=xcol(s_, bo, "TXc_cp"),
+            cross_cols=cross_cols(s_, bo), ex_cols=ex_cols(s_, bo))
+
     # ---- convs ---------------------------------------------------------
     convs = []
     for ei, ecs in enumerate(tr.exon_conv):
@@ -262,15 +376,23 @@ def split_tracks(tr: DPTracks):
             smin_col=icol(ecs.start_min), smax_col=icol(ecs.start_max),
             gate_col=icol(ecs.end_gate.astype(np.int32) +
                           (phi.astype(np.int32) << 1)),
-            variants=tuple(vs)))
+            variants=tuple(vs), hint=hint_static(ecs)))
 
     arrays["scalar_table"] = xp.stack(scal_cols, axis=1)    # (n, NSC)
     arrays["int_table"] = xp.stack(int_cols, axis=1)        # (n, NIC)
+    arrays["hw_all"] = xp.stack(hw_rows) if hw_rows else \
+        np.zeros((0, GPAD + n + END_PAD), np.float32)
     arrays["n_true"] = np.int32(n)      # overwritten by bucketed callers
 
+    hint_lm = None
+    if tr.hint_lm is not None:
+        hint_lm = (tr.hint_lm["exonpart"], tr.hint_lm["CDSpart"],
+                   tr.hint_lm["exon"], tr.hint_lm["CDS"],
+                   tr.hint_lm["local_cp"])
     static = ScanStatic(
         n=n, S=tr.S, NL=tr.n_lanes, C=C, PAD=PAD, GPAD=GPAD,
         NSC=len(scal_cols), NIC=len(int_cols),
         chain=chain_s, fixed=tuple(fixed_s), lessd=tuple(lessd_s),
-        pinned=pinned_s, convs=tuple(convs), cls_col=cls_col)
+        pinned=pinned_s, convs=tuple(convs), cls_col=cls_col,
+        NHW=len(hw_rows), hint_lm=hint_lm)
     return static, arrays

@@ -222,8 +222,11 @@ def is_possible_dss(dss_ok: np.ndarray, pos) -> np.ndarray:
     return ok & dss_ok[np.clip(pos, 0, n - 1)]
 
 
-def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants
-                        ) -> SpliceTracks:
+def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants,
+                        hinted=None) -> SpliceTracks:
+    """hinted: optional (fD, rD, fA, rA) boolean arrays of hint-enabled
+    splice sites (reference isPossibleDSS merges genomic consensus with
+    hinted sites, include/statemodel.hh:98-117)."""
     xp = np
     n = codes.shape[0]
     A_, C_, G_, T_ = genetics.A, genetics.C, genetics.G, genetics.T
@@ -236,6 +239,12 @@ def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants
         rdss_ok = rdss_ok | dinuc_at(codes, G_, C_)
     ass_ok = dinuc_at(codes, A_, G_)
     rass_ok = dinuc_at(codes, C_, T_)
+    if hinted is not None:
+        fD, rD, fA, rA = hinted
+        dss_ok = dss_ok | fD                       # 'gt'-indexed at pos
+        rdss_ok = rdss_ok | xp.roll(rD, -1)        # pattern at pos-1
+        ass_ok = ass_ok | xp.roll(fA, -1)
+        rass_ok = rass_ok | rA
 
     from . import xputil as U
     ds, de = cn.dss_start, cn.dss_end

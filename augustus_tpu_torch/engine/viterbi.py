@@ -2,10 +2,11 @@
 
 `viterbi_forward` replaces the Pallas TPU kernel
 `augustus_tpu/engine/pallas_scan.py:make_kernel` (launched by `build_call`,
-driven by `make_pallas_fn` / `PallasEngine`) for chunks without sparse
-exon/CDS hints.  On a CUDA tensor it launches `csrc/viterbi.cu`; on a CPU
-tensor it runs `viterbi_forward_reference`, the plain PyTorch version with
-the same arithmetic (an eager loop over positions).
+driven by `make_pallas_fn` / `PallasEngine`), its sparse exon/CDS hint
+quotient `hint_quot` (K1.f) included.  On a CUDA tensor it launches
+`csrc/viterbi.cu`; on a CPU tensor it runs `viterbi_forward_reference`, the
+plain PyTorch version with the same arithmetic (an eager loop over
+positions).
 
 What bounds the kernel on the card: the recursion is sequential over the n
 positions of a chunk (position j reads the values of j-1 and the lane
@@ -39,7 +40,20 @@ from .pack import (KERNEL_CONSTANTS, W_PAD, PKStatic, expand_arrays,
 
 NEG = np.float32(F32_NEG)
 GATE = np.float32(-1.0e29)
-MAX_DESC = 2048
+MAX_DESC = 4096       # descriptor ints the kernel holds in shared memory
+MAX_SLOTS = 64        # crossing (K) / exact-match (K2) hint slots per conv
+
+# the order of a hint record's window rows and x lanes in the descriptor
+# (csrc/viterbi.cu HR_W / HR_X)
+HINT_W_ROWS = ("w_be_ep", "w_be_cp", "w_cntbe_ep", "w_cntbe_cp", "w_cr_ep",
+               "w_cr_cp", "w_cntcr_ep", "w_cntcr_cp", "w_cnte_ep",
+               "w_cnte_cp", "w_zc")
+HINT_X_LANES = ("x_be_ep", "x_be_cp", "x_cntbe_ep", "x_cntbe_cp", "x_c2_ep",
+                "x_cntc2_ep", "x_cnte_ep", "x_cnte_cp", "x_zc", "x_tx_ep",
+                "x_tx_cp", "x_txc_ep", "x_txc_cp")
+# window rows read at bob - 1 (the others at bob)
+_W_AT_BOB_M1 = ("w_be_ep", "w_be_cp", "w_cntbe_ep", "w_cntbe_cp",
+                "w_cnte_ep", "w_cnte_cp", "w_zc")
 
 
 # --------------------------------------------------------------------------
@@ -60,6 +74,28 @@ def _fixed_lanes(st: PKStatic, sel_pack: np.ndarray):
     return out
 
 
+def _hint_lm32(st: PKStatic) -> np.ndarray:
+    """The five hint log maluses, rounded to float32 once (as JAX's weak
+    typing rounds the Python floats of the reference)."""
+    return np.asarray(st.hint_lm, dtype=np.float32)
+
+
+def _hint_record(h) -> Tuple[int, ...]:
+    """One hinted conv's record: ipo, aL, aR, exclass, K, K2, the window
+    rows (HINT_W_ROWS), the x lanes (HINT_X_LANES), then K crossing slots
+    (xi start lane, xh weight lane, xi flag lane) and K2 exact-match slots
+    (xi position lane, xh weight lane, xi kind lane)."""
+    if len(h.cross) > MAX_SLOTS or len(h.ex) > MAX_SLOTS:
+        raise NotImplementedError(
+            f"{len(h.cross)} crossing / {len(h.ex)} exact-match hint slots "
+            f"(the kernel takes at most {MAX_SLOTS} of each)")
+    rec = [h.ipo, int(h.aL), int(h.aR), h.exclass, len(h.cross), len(h.ex)]
+    rec += [getattr(h, k) for k in HINT_W_ROWS + HINT_X_LANES]
+    for slot in h.cross + h.ex:
+        rec += list(slot)
+    return tuple(rec)
+
+
 def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
     fixed = _fixed_lanes(st, sel_pack)
     chain = list(st.chain_states)
@@ -67,9 +103,18 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
               d.lv_off, d.jsel_lane) for d in st.lessd]
     pinned = [(p.state, p.lane, p.eop_lane) for p in st.pinned]
     convs, variants = [], []
+    # hint part: the five log maluses as float32 bits, then the records;
+    # a conv holds the offset of its record in this part, or -1
+    hints: List[int] = []
+    if st.NHW:
+        hints += _hint_lm32(st).view(np.int32).tolist()
     for cv in st.convs:
+        hoff = -1
+        if cv.hint is not None:
+            hoff = len(hints)
+            hints += _hint_record(cv.hint)
         convs.append((cv.state, cv.bpl, cv.a_off, cv.lane, cv.frame_mode,
-                      cv.ip_lane, len(variants), len(cv.variants)))
+                      cv.ip_lane, len(variants), len(cv.variants), hoff))
         for v in cv.variants:
             variants.append((v.width, v.len_hi, v.lv_off, v.fm_off, v.g3row,
                              v.h_lane, v.hv_base, v.g2row, v.g2_from))
@@ -77,14 +122,16 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
               st.gate_lane, st.cls_lane, st.S, st.NL]
     body: List[int] = []
     offsets = []
-    H_LEN = len(header) + 6
-    for part in (chain, fixed, lessd, pinned, convs, variants):
+    H_LEN = len(header) + 7
+    for part in (chain, fixed, lessd, pinned, convs, variants, hints):
         offsets.append(H_LEN + len(body))
         for e in part:
             body.extend(e if isinstance(e, tuple) else (e,))
     desc = np.array(header + offsets + body, dtype=np.int32)
     if desc.shape[0] > MAX_DESC:
-        raise NotImplementedError(f"chunk descriptor of {desc.shape[0]} ints")
+        raise NotImplementedError(
+            f"chunk descriptor of {desc.shape[0]} ints (the kernel holds "
+            f"at most {MAX_DESC}): too many hinted convs or hint slots")
     return desc
 
 
@@ -98,9 +145,14 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
     cover; the constant tables), each output element written once (bp and
     v_final; the debug values are not part of a timed launch), and the lane
     history written once (`scratch`: NL lanes of value and arg per
-    position; its window reads are not counted again).  Ops count the
-    float adds and max-compares: per predecessor of a chain state or lane,
-    one add and one max; per window entry, the score's adds and one max."""
+    position; its window reads are not counted again).  With sparse hints,
+    `hint_x` counts the xh/xi lanes that a hinted conv reads at the rows
+    where its gate is on (each (row, lane) once) and `hint_w` each hint
+    window column once per row.  Ops count the float adds, multiplies and
+    max-compares: per predecessor of a chain state or lane, one add and one
+    max; per window entry, the score's adds and one max, and in a hinted
+    band the quotient's terms (those of the crossing slots whose flag is
+    set at that position)."""
     st = static
     n, S, NL = st.n, st.S, st.NL
     host = {k: planes[k].cpu().numpy() for k in
@@ -116,6 +168,11 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
     mread = np.zeros(msk.shape, dtype=bool)
     lv_used = np.zeros(planes["lv_pack"].numel(), dtype=bool)
     ops = 0
+    if st.NHW:
+        xi_h = planes["xi_plane"][1:n].cpu().numpy()
+        xread = {k: np.zeros((n - 1, planes[k].shape[1]), dtype=bool)
+                 for k in ("xh_plane", "xi_plane")}
+        hdiff = np.zeros((st.NHW, gw + 1), dtype=np.int64)
 
     def cover(c, row, start, end):          # gcum columns [start, end)
         keep = end > start
@@ -173,6 +230,28 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
             if cv.frame_mode:
                 lv_used[[v.fm_off, v.fm_off + v.width]] = True
             ops += int(on.sum()) * v.width * (3 + (v.hv_base >= 0))
+        h = cv.hint
+        if h is None:
+            continue
+        lanes = [getattr(h, k) for k in HINT_X_LANES
+                 if h.aR or k not in ("x_c2_ep", "x_cntc2_ep")]
+        rows = np.flatnonzero(on)
+        xread["xh_plane"][np.ix_(rows, lanes + [
+            wl for (_, wl, _) in h.cross + h.ex])] = True
+        xread["xi_plane"][np.ix_(rows, [
+            q for (a, _, c) in h.cross + h.ex for q in (a, c)])] = True
+        kact = sum(np.isin(xi_h[on, fl], (1, 2)).astype(np.int64)
+                   for (_, _, fl) in h.cross) if h.cross else 0
+        per = (31 + 5 * (int(h.aL) + int(h.aR)) + 3 * len(h.ex)
+               * (1 + (h.exclass in (1, 3))) + 3 * len(h.cross)
+               * (h.exclass == 2))
+        for v in cv.variants:
+            c1 = W_PAD + jj + cv.a_off - v.len_hi - h.ipo - 1   # bob - 1
+            for name in HINT_W_ROWS:
+                c = c1 + (name not in _W_AT_BOB_M1)
+                np.add.at(hdiff, (getattr(h, name), c), 1)
+                np.add.at(hdiff, (getattr(h, name), c + v.width), -1)
+            ops += int(np.sum((per + 4 * kact) * v.width))
     n_cls = len(np.unique(cls)) if n > 1 else 0
     parts = {k: int(m.sum()) * 4 for k, m in read.items()}
     parts["gcum"] = int((np.cumsum(gdiff, axis=-1)[..., :gw] > 0).sum()) * 4
@@ -181,6 +260,10 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
                        + 3 * 64) * 4 + _descriptor(st, host["sel_pack"]).nbytes
     parts["outputs"] = (n * 64 + 64) * 4
     parts["scratch"] = n * NL * 8
+    if st.NHW:
+        parts["hint_x"] = (int(xread["xh_plane"].sum())
+                           + int(xread["xi_plane"].sum())) * 4
+        parts["hint_w"] = int((np.cumsum(hdiff, axis=-1)[:, :gw] > 0).sum()) * 4
     return parts, ops
 
 
@@ -192,6 +275,82 @@ def _last_argmax(score: torch.Tensor) -> Tuple[torch.Tensor, int]:
     best = score.max()
     idx = int(torch.nonzero(score == best)[-1, 0])
     return best, idx
+
+
+def _hint_quot(h, lm, xh, xi, hw, bob: torch.Tensor, lenv: torch.Tensor):
+    """The exonpart/CDSpart/exon/CDS hint quotient of one hinted conv at one
+    position over begins b = bob + ipo (reference exonmodel.cc:1769-1860),
+    term for term in the operand order of augustus_tpu's scan._hint_quot.
+    xh/xi: the position's xh_plane (f32 tensor) and xi_plane (numpy) rows;
+    hw: the window rows; lenv: the exon lengths as float32.  A crossing
+    slot whose flag is neither 1 nor 2 subtracts +0 from the covering sums
+    and is skipped (exact)."""
+    lm_ep, lm_cp, lm_ex, lm_cds, lm_loc = lm
+    f32 = torch.float32
+    c1 = W_PAD - 1 + bob                 # window column of bob - 1
+
+    def WR(name, col):
+        return hw[getattr(h, name), col]
+
+    cov_ep, cov_cp = xh[h.x_tx_ep], xh[h.x_tx_cp]
+    covc_ep, covc_cp = xh[h.x_txc_ep], xh[h.x_txc_cp]
+    for (sl, wl, fl) in h.cross:
+        flv = int(xi[fl])
+        if flv not in (1, 2):
+            continue
+        sub = (int(xi[sl]) >= bob).to(f32)
+        if flv == 1:
+            cov_ep = cov_ep - xh[wl] * sub
+            covc_ep = covc_ep - sub
+        else:
+            cov_cp = cov_cp - xh[wl] * sub
+            covc_cp = covc_cp - sub
+    crw_ep = WR("w_cr_ep", c1 + 1)
+    inside_ep = ((xh[h.x_be_ep] - WR("w_be_ep", c1)) - crw_ep) + cov_ep
+    inside_cp = ((xh[h.x_be_cp] - WR("w_be_cp", c1))
+                 - WR("w_cr_cp", c1 + 1)) + cov_cp
+    ccw_ep = WR("w_cntcr_ep", c1 + 1)
+    cin_ep = ((xh[h.x_cntbe_ep] - WR("w_cntbe_ep", c1)) - ccw_ep) + covc_ep
+    cin_cp = ((xh[h.x_cntbe_cp] - WR("w_cntbe_cp", c1))
+              - WR("w_cntcr_cp", c1 + 1)) + covc_cp
+    part_bonus = inside_ep + inside_cp
+    nep = cin_ep + cin_cp
+    if h.aL:
+        part_bonus = part_bonus + 0.5 * (crw_ep - cov_ep)
+        nep = nep + (ccw_ep - covc_ep)
+    if h.aR:
+        part_bonus = part_bonus + 0.5 * (xh[h.x_c2_ep] - cov_ep)
+        nep = nep + (xh[h.x_cntc2_ep] - covc_ep)
+    quot = part_bonus
+    zero = torch.zeros_like(bob, dtype=f32)
+    sup_ex, sup_cds = zero, zero
+    for (pl, wl, kl) in h.ex:
+        pk, wk, kd = int(xi[pl]), xh[wl], int(xi[kl])
+        cond = ((bob == pk) & (kd == 1)).to(f32)
+        quot = quot + wk * cond
+        sup_cds = torch.maximum(sup_cds, cond)
+        if h.exclass == 1:
+            cond = ((bob == pk) & (kd == 2)).to(f32)
+            quot = quot + wk * cond
+            sup_ex = torch.maximum(sup_ex, cond)
+        elif h.exclass == 3:
+            cond = ((bob > pk) & (kd == 3) & (pk > -(1 << 29))).to(f32)
+            quot = quot + (0.5 * wk) * cond
+            sup_ex = torch.maximum(sup_ex, cond)
+    if h.exclass == 2:
+        for (sl, wl, fl) in h.cross:
+            cond = ((bob == int(xi[sl])) & (int(xi[fl]) == 4)).to(f32)
+            quot = quot + (0.5 * xh[wl]) * cond
+            sup_ex = torch.maximum(sup_ex, cond)
+    quot = quot + lm_ex * (1.0 - sup_ex) + lm_cds * (1.0 - sup_cds)
+    d_ep = lenv - (xh[h.x_cnte_ep] - WR("w_cnte_ep", c1))
+    d_cp = lenv - (xh[h.x_cnte_cp] - WR("w_cnte_cp", c1))
+    quot = quot + torch.where(d_ep > 0, d_ep * lm_ep, zero)
+    quot = quot + torch.where(d_cp > 0, d_cp * lm_cp, zero)
+    zc = xh[h.x_zc] - WR("w_zc", c1)
+    lpm = torch.where(zc > 0, zc * lm_loc, zero)
+    lpm = torch.maximum(lpm, -part_bonus)
+    return quot + torch.where(nep >= 4.5, lpm, zero)
 
 
 def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
@@ -215,6 +374,10 @@ def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
     ipc_h = planes["ip_conv"][:n].cpu().numpy()
     lv_h = planes["lv_pack"].reshape(-1).cpu().numpy()
     fixed = _fixed_lanes(st, planes["sel_pack"].cpu().numpy())
+    if st.NHW:
+        lm = torch.from_numpy(_hint_lm32(st)).to(dev).unbind()
+        xh_all, hw = planes["xh_plane"], planes["hw_rows"]
+        xi_h = planes["xi_plane"][:n].cpu().numpy()
 
     # lane history, position-major with W_PAD rows of front padding
     hv = torch.empty((W_PAD + n, NL), dtype=f32, device=dev)
@@ -322,6 +485,16 @@ def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
                 continue
             phi = gp >> 1
             smin, smax = int(ipc[cv.ip_lane + 1]), int(ipc[cv.ip_lane + 2])
+            if cv.hint is not None:
+                # the quotient is a function of (j, b): once over the union
+                # of the variants' bands (b descending from ub1 - 1 to ub0)
+                ub0 = min(j + cv.a_off - v.len_hi for v in cv.variants)
+                ub1 = max(j + cv.a_off - v.len_hi + v.width
+                          for v in cv.variants)
+                bu = torch.arange(ub0, ub1, device=dev)
+                quot_u = _hint_quot(cv.hint, lm, xh_all[j], xi_h[j], hw,
+                                    bu - cv.hint.ipo,
+                                    (j + cv.a_off - bu).to(f32))
             best = NEGt
             for var in cv.variants:
                 wd = var.width
@@ -344,6 +517,8 @@ def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
                 bvec = b0 + widx
                 okb = (bvec >= smin) & (bvec <= smax)
                 base = (L + G) + lvd
+                if cv.hint is not None:
+                    base = base + quot_u[b0 - ub0: b0 - ub0 + wd]
                 if var.hv_base >= 0:
                     Hv = sph[var.hv_base: var.hv_base + wd]
                     score = torch.where(okb & (L > GATEt) & (G > GATEt)
@@ -379,7 +554,8 @@ def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
 # --------------------------------------------------------------------------
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+    + [ctypes.c_void_p]
 
 _PLANE_SPECS = {       # name -> (dtype, trailing shape or None)
     "sp_state": (torch.float32, (128,)), "sp_geo": (torch.float32, (128,)),
@@ -392,15 +568,23 @@ _PLANE_SPECS = {       # name -> (dtype, trailing shape or None)
 }
 
 
+_HINT_PLANE_SPECS = {"xh_plane": (torch.float32, None),
+                     "xi_plane": (torch.int32, None),
+                     "hw_rows": (torch.float32, None)}
+
+
 def _check(static: PKStatic, planes: Dict[str, torch.Tensor]) -> torch.device:
-    if getattr(static, "NHW", 0):
-        raise NotImplementedError(
-            "sparse exon/CDS hints (K1.f hint_quot of the TPU kernel) are "
-            "not ported yet")
     if static.S > 64 or static.NL > 64:
         raise NotImplementedError("more than 64 states or lanes")
     dev = planes["sp_state"].device
-    for k, (dt, tail) in _PLANE_SPECS.items():
+    specs = dict(_PLANE_SPECS)
+    if static.NHW:
+        missing = [k for k in _HINT_PLANE_SPECS if k not in planes]
+        if missing:
+            raise ValueError(f"a chunk with sparse hints needs the planes "
+                             f"{missing}")
+        specs.update(_HINT_PLANE_SPECS)
+    for k, (dt, tail) in specs.items():
         t = planes[k]
         if t.device != dev:
             raise ValueError(f"plane {k} on {t.device}, expected {dev}")
@@ -420,6 +604,14 @@ def _check(static: PKStatic, planes: Dict[str, torch.Tensor]) -> torch.device:
         raise ValueError(f"msk has shape {tuple(planes['msk'].shape)}")
     if tuple(planes["ltc_all"].shape[:1]) != (static.C,):
         raise ValueError("ltc_all does not have one matrix per GC class")
+    if static.NHW:
+        if tuple(planes["hw_rows"].shape) != (static.NHW, gw):
+            raise ValueError(f"hw_rows has shape "
+                             f"{tuple(planes['hw_rows'].shape)}")
+        for k in ("xh_plane", "xi_plane"):
+            if planes[k].dim() != 2 or planes[k].shape[0] < static.n:
+                raise ValueError(f"plane {k} has shape "
+                                 f"{tuple(planes[k].shape)}")
     return dev
 
 
@@ -429,7 +621,8 @@ def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (and
     raise if it does not build or launch).  `viterbi_forward.launches`
-    counts kernel launches."""
+    counts kernel launches, `viterbi_forward.hinted_launches` those of
+    chunks with sparse hints, which run the K1.f quotient."""
     dev = _check(static, planes)
     if dev.type == "cpu":
         return viterbi_forward_reference(static, planes, debug_vals)
@@ -455,6 +648,9 @@ def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
     gw = planes["gcum"].shape[-1]
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = planes
+    hinted = bool(static.NHW)
+    xh = p["xh_plane"] if hinted else None
+    xi = p["xi_plane"] if hinted else None
     err = fn(p["sp_state"].data_ptr(), p["sp_geo"].data_ptr(),
              p["sp_convH"].data_ptr(), p["ip_conv"].data_ptr(),
              p["ip_misc"].data_ptr(), p["gcum"].data_ptr(),
@@ -463,15 +659,22 @@ def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
              p["l0"].data_ptr(), p["a0"].data_ptr(), desc.data_ptr(),
              int(desc.shape[0]), hist_v.data_ptr(), hist_a.data_ptr(),
              bp.data_ptr(), vals.data_ptr() if vals is not None else None,
-             v_final.data_ptr(), n, static.NGR, gw, hs, stream)
+             v_final.data_ptr(), n, static.NGR, gw, hs,
+             xh.data_ptr() if hinted else None,
+             xi.data_ptr() if hinted else None,
+             p["hw_rows"].data_ptr() if hinted else None,
+             xh.shape[1] if hinted else 0, xi.shape[1] if hinted else 0,
+             stream)
     if err != 0:
         raise RuntimeError(f"viterbi_forward kernel launch failed: CUDA "
                            f"error {err}")
     viterbi_forward.launches += 1
+    viterbi_forward.hinted_launches += hinted
     return bp, v_final, vals
 
 
 viterbi_forward.launches = 0
+viterbi_forward.hinted_launches = 0
 
 
 def planes_for(static: PKStatic, arrays: Dict[str, np.ndarray],

@@ -19,6 +19,10 @@ for _ch, _v in (("a", A), ("c", C), ("g", G), ("t", T)):
     _CODE[ord(_ch)] = _v
     _CODE[ord(_ch.upper())] = _v
 
+_SOFTMASK = np.zeros(256, dtype=bool)
+for _ch in "acgtn":
+    _SOFTMASK[ord(_ch)] = True  # lowercase letters = repeat-softmasked
+
 COMPLEMENT = np.array([T, G, C, A, N], dtype=np.int8)
 
 INT2BASE = np.array(list("acgtn"))
@@ -28,6 +32,12 @@ def encode(seq: str) -> np.ndarray:
     """DNA string -> int8 codes (0..3, 4 for non-acgt)."""
     raw = np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
     return _CODE[raw]
+
+
+def softmask_runs(seq: str) -> np.ndarray:
+    """Boolean per-base mask: True where the base is lowercase (softmasked)."""
+    raw = np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
+    return _SOFTMASK[raw]
 
 
 def decode(codes: np.ndarray) -> str:

@@ -913,9 +913,8 @@ def print_gene_list(agl: List[AltGene], codes: np.ndarray, o: OutputOptions,
             print_gene_gff(tx, o, out)
             print_sequences(tx, codes, o, gcode, out, seq_offset)
             if with_evidence:
-                raise NotImplementedError(
-                    "hint evidence blocks need the hints machinery, which "
-                    "is not ported yet")
+                from . import evidence as ev
+                ev.print_evidence(tx, out)
         out.append(f"# end gene {ag.id}")
         out.append("###")
     return "\n".join(out) + ("\n" if out else "")

@@ -19,19 +19,33 @@ def cuda():
     return torch.device("cuda")
 
 
-def _planes(species, n, device):
+def _planes(species, n, device, hinted=False):
+    """Planes of the first n bases of HS04636.fa or, hinted, of the
+    softmasked HS04636sm.fa with its EST hints."""
     from augustus_tpu_torch import genetics
     from augustus_tpu_torch.engine.device import build_tracks
     from augustus_tpu_torch.engine.gold import GoldEngine
     from augustus_tpu_torch.engine.pack import pack_tracks
     from augustus_tpu_torch.engine.viterbi import planes_for
     from augustus_tpu_torch.io.fasta import read_fasta
-    from augustus_tpu_torch.predict import Model
-    m = Model.load({"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
-                    "UTR": "off", "softmasking": "0"})
-    seq = read_fasta(os.path.join(ROOT, "tests", "data", "HS04636.fa"))[0]
-    eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode)
-    eng.prepare(genetics.encode(seq.sequence.lower()[:n]))
+    from augustus_tpu_torch.predict import Model, _piece_hints
+    args = {"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
+            "UTR": "off", "softmasking": "0"}
+    fasta = "HS04636.fa"
+    if hinted:
+        fasta = "HS04636sm.fa"
+        args.update(softmasking="1", extrinsicCfgFile="extrinsic.M.RM.E.W.cfg",
+                    hintsfile=os.path.join(ROOT, "augustus_tpu_torch", "data",
+                                           "hints", "HS04636sm.E.gff"))
+    m = Model.load(args)
+    rec = read_fasta(os.path.join(ROOT, "tests", "data", fasta))[0]
+    seq = rec.sequence[:n]
+    eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode,
+                     ext_cfg=m.ext_cfg)
+    eng.prepare(genetics.encode(seq.lower()),
+                softmask=genetics.softmask_runs(seq),
+                gff_hints=(_piece_hints(m.gff_hints[rec.name], 0, n - 1)
+                           if hinted else None))
     st, arr = pack_tracks(build_tracks(eng))
     return st, planes_for(st, arr, device)
 
@@ -40,9 +54,23 @@ def _planes(species, n, device):
 @pytest.mark.parametrize("species,n", [("repo_fixture", 2500),
                                        ("repo_fixture_gc2", 6000)])
 def test_kernel_equals_plain_version(cuda, species, n):
+    _assert_kernel_equals_plain(*_planes(species, n, cuda))
+
+
+@pytest.mark.cuda
+def test_hinted_kernel_equals_plain_version(cuda):
+    """With sparse hints (NHW > 0) the kernel runs the quotient K1.f."""
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    st, planes = _planes("repo_fixture", 6000, cuda, hinted=True)
+    assert st.NHW > 0
+    before = viterbi_forward.hinted_launches
+    _assert_kernel_equals_plain(st, planes)
+    assert viterbi_forward.hinted_launches == before + 1
+
+
+def _assert_kernel_equals_plain(st, planes):
     from augustus_tpu_torch.engine.viterbi import (
         viterbi_forward, viterbi_forward_reference)
-    st, planes = _planes(species, n, cuda)
     before = viterbi_forward.launches
     bp, vf, vals = viterbi_forward(st, planes, debug_vals=True)
     torch.cuda.synchronize()

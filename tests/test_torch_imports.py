@@ -49,7 +49,11 @@ def test_no_jax_in_sys_modules_after_import():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=ROOT, env=env, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "augustus_tpu_torch.engine.viterbi" in _port_modules()
+    assert {"augustus_tpu_torch.engine.viterbi",
+            "augustus_tpu_torch.hints.config",
+            "augustus_tpu_torch.hints.features",
+            "augustus_tpu_torch.hints.system",
+            "augustus_tpu_torch.output.evidence"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -83,7 +87,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("args", [
-    {"UTR": "on"}, {"softmasking": "1"}, {"hintsfile": "h.gff"},
+    {"UTR": "on"}, {"nc": "1"}, {"alternatives-from-sampling": "1"},
     {"sample": "100"}, {"mea": "1"}])
 def test_out_of_slice_requests_raise(args):
     from augustus_tpu_torch.predict import Model

@@ -150,7 +150,8 @@ def _reads_of_the_kernel(st, planes):
     """Every element that csrc/viterbi.cu reads, marked position by
     position as its code reads it: {plane: bool mask}."""
     from augustus_tpu_torch.engine.pack import W_PAD
-    from augustus_tpu_torch.engine.viterbi import GATE, _fixed_lanes
+    from augustus_tpu_torch.engine.viterbi import (
+        GATE, HINT_W_ROWS, HINT_X_LANES, _W_AT_BOB_M1, _fixed_lanes)
     h = {k: v.numpy() for k, v in planes.items()}
     ipm, ipc, sps, msk = h["ip_misc"], h["ip_conv"], h["sp_state"], h["msk"]
     seen = {k: np.zeros(v.shape, dtype=bool) for k, v in h.items()}
@@ -196,6 +197,20 @@ def _reads_of_the_kernel(st, planes):
                     seen["sp_convH"][j, v.hv_base + w] = True
                 else:
                     seen["sp_convH"][j, v.h_lane] = True
+            hr = cv.hint
+            if hr is None:
+                continue
+            for k in HINT_X_LANES:
+                if hr.aR or k not in ("x_c2_ep", "x_cntc2_ep"):
+                    seen["xh_plane"][j, getattr(hr, k)] = True
+            for (il, wl, fl) in hr.cross + hr.ex:
+                seen["xh_plane"][j, wl] = True
+                seen["xi_plane"][j, [il, fl]] = True
+            for v in cv.variants:
+                bob = j + cv.a_off - v.len_hi + np.arange(v.width) - hr.ipo
+                for k in HINT_W_ROWS:
+                    off = -1 if k in _W_AT_BOB_M1 else 0
+                    seen["hw_rows"][getattr(hr, k), W_PAD + bob + off] = True
     return seen
 
 
@@ -218,6 +233,40 @@ def test_kernel_work_counts_each_read_once(case):
     assert ops > st.n * st.NL * st.S * 2
 
 
+def test_kernel_work_counts_hint_reads():
+    """On the 6 kb hinted chunk (softmasked HS04636sm.fa with its EST
+    hints): hint_x and hint_w equal the xh/xi lanes and window columns the
+    kernel's code reads, marked position by position, as do the other
+    parts."""
+    from augustus_tpu_torch import genetics
+    from augustus_tpu_torch.engine.viterbi import kernel_work
+    from augustus_tpu_torch.predict import _piece_hints
+    hints = os.path.join(ROOT, "augustus_tpu_torch", "data", "hints",
+                         "HS04636sm.E.gff")
+    m = Model.load(dict(_args("repo_fixture"), softmasking="1",
+                        hintsfile=hints,
+                        extrinsicCfgFile="extrinsic.M.RM.E.W.cfg"))
+    rec = read_fasta(os.path.join(ROOT, "tests", "data", "HS04636sm.fa"))[0]
+    seq = rec.sequence[:6000]
+    eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode,
+                     ext_cfg=m.ext_cfg)
+    eng.prepare(genetics.encode(seq.lower()),
+                softmask=genetics.softmask_runs(seq),
+                gff_hints=_piece_hints(m.gff_hints[rec.name], 0, 5999))
+    st, arr = pack_tracks(build_tracks(eng))
+    assert st.NHW > 0
+    planes = planes_for(st, arr, "cpu")
+    parts, _ = kernel_work(st, planes)
+    seen = _reads_of_the_kernel(st, planes)
+    for k in ("sp_state", "sp_geo", "sp_convH", "ip_conv", "ip_misc",
+              "gcum", "msk"):
+        assert parts[k] == int(seen[k].sum()) * 4, k
+    assert parts["hint_w"] == int(seen["hw_rows"].sum()) * 4
+    assert parts["hint_x"] == int(seen["xh_plane"].sum()
+                                  + seen["xi_plane"].sum()) * 4
+    assert 0 < parts["hint_x"] < parts["hint_w"]
+
+
 def test_wrapper_checks_its_inputs():
     species, n = "repo_fixture", 300
     m = Model.load(_args(species))
@@ -231,7 +280,7 @@ def test_wrapper_checks_its_inputs():
     bad = dict(planes, gcum=planes["gcum"][:, :, :-1])
     with pytest.raises(ValueError, match="gcum"):
         viterbi_forward(st, bad)
-    with pytest.raises(NotImplementedError, match="hint"):
+    with pytest.raises(ValueError, match="sparse hints"):
         viterbi_forward(_with_nhw(st), planes)
     before = viterbi_forward.launches
     viterbi_forward(st, planes)

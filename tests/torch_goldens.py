@@ -1,8 +1,10 @@
 """Write the port's golden GFFs, made on the CPU.
 
-    python3 tests/torch_goldens.py [hs04636] [tiled]
+    python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints]
 
-Both use the `repo_fixture` species with `--UTR=off --softmasking=0`:
+All use the `repo_fixture` species with `--UTR=off`; the first two with
+`--softmasking=0` and no hints, the last two with `--softmasking=1`, a hints
+file of augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
   hs04636  tests/data/HS04636.fa through `augustus_tpu` predict_file
            (engine="scan", JAX on the CPU)
            -> augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
@@ -10,13 +12,19 @@ Both use the `repo_fixture` species with `--UTR=off --softmasking=0`:
            through the port's own CPU path, predict_records(device="cpu"),
            where the plain PyTorch version of each kernel runs
            -> augustus_tpu_torch/data/golden/repo_fixture_tiled.gff
-The tiled golden does not come from `augustus_tpu`: the time per position
+  hints    tests/data/HS04636sm.fa with HS04636sm.E.gff through
+           `augustus_tpu` predict_file(engine="scan")
+           -> augustus_tpu_torch/data/golden/repo_fixture_HS04636sm_hints.gff
+  tiled_hints  io/tiled.py:tiled_hinted (the same letters softmasked, with
+           tiled_sm.E.gff) through the port's CPU path
+           -> augustus_tpu_torch/data/golden/repo_fixture_tiled_hints.gff
+The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
 tests/test_torch_*.py hold them to; at 1 Mb it takes about 17 minutes on
 one thread and 13 GB of memory, so run it where that is free.  Each golden
 prints its seconds and the process's peak resident memory.
-`chip_smoke.py` holds the card's output equal to both goldens.
+`chip_smoke.py` holds the card's output equal to all four goldens.
 """
 
 import os
@@ -30,24 +38,38 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 CONFIG = os.path.join(ROOT, "augustus_tpu_torch", "data", "config")
 GOLDEN_DIR = os.path.join(ROOT, "augustus_tpu_torch", "data", "golden")
+HINTS = os.path.join(ROOT, "augustus_tpu_torch", "data", "hints")
 GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
-           "tiled": "repo_fixture_tiled.gff"}
+           "tiled": "repo_fixture_tiled.gff",
+           "hints": "repo_fixture_HS04636sm_hints.gff",
+           "tiled_hints": "repo_fixture_tiled_hints.gff"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 
 
+def hinted_args(hints_file: str) -> dict:
+    return dict(ARGS, softmasking="1",
+                hintsfile=os.path.join(HINTS, hints_file),
+                extrinsicCfgFile="extrinsic.M.RM.E.W.cfg")
+
+
 def golden_gff(which: str) -> str:
     """The GFF text of one golden, computed anew."""
-    if which == "hs04636":
+    if which in ("hs04636", "hints"):
         from augustus_tpu.predict import Model, predict_file
-        return predict_file(Model.load(dict(ARGS)),
-                            os.path.join(DATA, "HS04636.fa"), engine="scan")
+        args, fasta = (dict(ARGS), "HS04636.fa") if which == "hs04636" \
+            else (hinted_args("HS04636sm.E.gff"), "HS04636sm.fa")
+        return predict_file(Model.load(args), os.path.join(DATA, fasta),
+                            engine="scan")
     import torch
-    from augustus_tpu_torch.io.tiled import tiled_record
+    from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
     from augustus_tpu_torch.predict import Model, predict_records
     torch.set_num_threads(1)    # the plain versions are loops of small ops
-    return predict_records(Model.load(dict(ARGS)), [tiled_record(DATA)],
-                           device="cpu")
+    if which == "tiled":
+        args, rec = dict(ARGS), tiled_record(DATA)
+    else:
+        args, rec = hinted_args("tiled_sm.E.gff"), tiled_hinted(DATA)[0]
+    return predict_records(Model.load(args), [rec], device="cpu")
 
 
 def main(names) -> int:
