@@ -135,9 +135,66 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
     return desc
 
 
+def _merged_bands(cv) -> List[Tuple[int, int]]:
+    """The union of a conv's variant bands as disjoint [lo, hi] offsets of
+    the begin b from the position j."""
+    out: List[List[int]] = []
+    for lo, hi in sorted((cv.a_off - v.len_hi,
+                          cv.a_off - v.len_hi + v.width - 1)
+                         for v in cv.variants):
+        if out and lo <= out[-1][1] + 1:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [tuple(iv) for iv in out]
+
+
+# float operations of the hint quotient of one unmasked band entry: 31 for
+# its fixed terms and 1 to add it to the score; 5 more for each of aL, aR
+QUOT_OPS, QUOT_SIDE_OPS = 32, 5
+
+
+def _hint_quot_ops(h, cv, jj, ipc_on, xi_on) -> int:
+    """The float operations the quotient of a hinted conv needs at the
+    gated positions jj: for each begin b that some variant's band holds and
+    that lies in [smin, smax] (its score is not masked), QUOT_OPS (+
+    QUOT_SIDE_OPS for aL and for aR); 2 for each crossing slot of flag 1 or 2
+    that covers b (b <= start + ipo: one subtraction from the covering sum
+    and one from its count); 1 for each exact-match term that matches b (a
+    K2 slot of kind 1, of kind 2 in exclass 1, of kind 3 below b in
+    exclass 3; a crossing slot of flag 4 at b in exclass 2)."""
+    smin = ipc_on[:, cv.ip_lane + 1].astype(np.int64)
+    smax = ipc_on[:, cv.ip_lane + 2].astype(np.int64)
+    xi = xi_on.astype(np.int64)
+    ipo = h.ipo
+    ops = 0
+    for rlo, rhi in _merged_bands(cv):
+        lo = np.maximum(jj + rlo, smin)
+        hi = np.minimum(jj + rhi, smax)
+        cnt = np.maximum(hi - lo + 1, 0)
+        ops += int(cnt.sum()) * (QUOT_OPS + QUOT_SIDE_OPS
+                                 * (int(h.aL) + int(h.aR)))
+        for (sl, _, fl) in h.cross:
+            at = xi[:, sl] + ipo
+            cover = np.maximum(np.minimum(hi, at) - lo + 1, 0)
+            ops += 2 * int(cover[np.isin(xi[:, fl], (1, 2))].sum())
+            if h.exclass == 2:
+                ops += int(((xi[:, fl] == 4) & (at >= lo) & (at <= hi)).sum())
+        for (pl, _, kl) in h.ex:
+            at, kd = xi[:, pl] + ipo, xi[:, kl]
+            hit = (at >= lo) & (at <= hi)
+            ops += int((hit & (kd == 1)).sum())
+            if h.exclass == 1:
+                ops += int((hit & (kd == 2)).sum())
+            elif h.exclass == 3:
+                below = np.maximum(hi - np.maximum(lo, at + 1) + 1, 0)
+                ops += int(below[(kd == 3) & (xi[:, pl] > -(1 << 29))].sum())
+    return ops
+
+
 def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
     """What one launch must move and compute on this chunk's data, for the
-    roofline bound: ({part: bytes}, float ops).
+    roofline bound: ({part: bytes}, {part: float ops}).
 
     Bytes count each input element that the kernel reads for these inputs
     once (rows 1..n-1 of the j-planes, only the lanes the descriptor names
@@ -149,10 +206,10 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
     `hint_x` counts the xh/xi lanes that a hinted conv reads at the rows
     where its gate is on (each (row, lane) once) and `hint_w` each hint
     window column once per row.  Ops count the float adds, multiplies and
-    max-compares: per predecessor of a chain state or lane, one add and one
-    max; per window entry, the score's adds and one max, and in a hinted
-    band the quotient's terms (those of the crossing slots whose flag is
-    set at that position)."""
+    compares: `dp`, per predecessor of a chain state or lane, one add and
+    one max, and per window entry the score's adds and one max;
+    `hint_quot`, the quotient's terms where this chunk's data needs them
+    (`_hint_quot_ops`)."""
     st = static
     n, S, NL = st.n, st.S, st.NL
     host = {k: planes[k].cpu().numpy() for k in
@@ -168,6 +225,7 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
     mread = np.zeros(msk.shape, dtype=bool)
     lv_used = np.zeros(planes["lv_pack"].numel(), dtype=bool)
     ops = 0
+    quot_ops = 0
     if st.NHW:
         xi_h = planes["xi_plane"][1:n].cpu().numpy()
         xread = {k: np.zeros((n - 1, planes[k].shape[1]), dtype=bool)
@@ -240,18 +298,13 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
             wl for (_, wl, _) in h.cross + h.ex])] = True
         xread["xi_plane"][np.ix_(rows, [
             q for (a, _, c) in h.cross + h.ex for q in (a, c)])] = True
-        kact = sum(np.isin(xi_h[on, fl], (1, 2)).astype(np.int64)
-                   for (_, _, fl) in h.cross) if h.cross else 0
-        per = (31 + 5 * (int(h.aL) + int(h.aR)) + 3 * len(h.ex)
-               * (1 + (h.exclass in (1, 3))) + 3 * len(h.cross)
-               * (h.exclass == 2))
+        quot_ops += _hint_quot_ops(h, cv, jj, ipc[on], xi_h[on])
         for v in cv.variants:
             c1 = W_PAD + jj + cv.a_off - v.len_hi - h.ipo - 1   # bob - 1
             for name in HINT_W_ROWS:
                 c = c1 + (name not in _W_AT_BOB_M1)
                 np.add.at(hdiff, (getattr(h, name), c), 1)
                 np.add.at(hdiff, (getattr(h, name), c + v.width), -1)
-            ops += int(np.sum((per + 4 * kact) * v.width))
     n_cls = len(np.unique(cls)) if n > 1 else 0
     parts = {k: int(m.sum()) * 4 for k, m in read.items()}
     parts["gcum"] = int((np.cumsum(gdiff, axis=-1)[..., :gw] > 0).sum()) * 4
@@ -264,7 +317,7 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
         parts["hint_x"] = (int(xread["xh_plane"].sum())
                            + int(xread["xi_plane"].sum())) * 4
         parts["hint_w"] = int((np.cumsum(hdiff, axis=-1)[:, :gw] > 0).sum()) * 4
-    return parts, ops
+    return parts, {"dp": ops, "hint_quot": quot_ops}
 
 
 # --------------------------------------------------------------------------

@@ -89,31 +89,6 @@ def strip_comments(text: str) -> str:
     return "".join(l for l in text.splitlines(True) if not l.startswith("#"))
 
 
-def chunk_planes(species: str, rec, n, device, hints=None):
-    """The kernel planes of the first n bases of rec, as the prediction of
-    that piece prepares them (softmask and the hints ending inside it)."""
-    from augustus_tpu_torch import genetics
-    from augustus_tpu_torch.predict import Model, _piece_hints
-    from augustus_tpu_torch.engine.gold import GoldEngine
-    from augustus_tpu_torch.engine.device import build_tracks
-    from augustus_tpu_torch.engine.pack import pack_tracks
-    from augustus_tpu_torch.engine.viterbi import planes_for
-    m = Model.load(model_args(species, hints))
-    seq = rec.sequence[:n]
-    codes = genetics.encode(seq.lower())
-    gold = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode,
-                      ext_cfg=m.ext_cfg)
-    gff_hints = None
-    if m.gff_hints is not None:
-        gff_hints = _piece_hints(m.gff_hints.get(rec.name, []), 0,
-                                 len(seq) - 1)
-    gold.prepare(codes, softmask=genetics.softmask_runs(seq),
-                 gff_hints=gff_hints)
-    st, arr = pack_tracks(build_tracks(gold))
-    switches = int((gold.stairs[1:] != gold.stairs[:-1]).sum())
-    return st, planes_for(st, arr, device), switches
-
-
 def time_cuda(fn, reps: int) -> float:
     import torch
     fn()
@@ -134,10 +109,13 @@ def phase_parity(device, chunks):
     from augustus_tpu_torch.engine.viterbi import (
         kernel_work, viterbi_forward, viterbi_forward_reference)
     from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_planes
     rows = []
     for species, fasta, n, hints in chunks:
         rec = read_fasta(os.path.join(DATA, fasta))[0]
-        st, planes, switches = chunk_planes(species, rec, n, device, hints)
+        st, planes, gold = piece_planes(
+            Model.load(model_args(species, hints)), rec, n, device)
+        switches = int((gold.stairs[1:] != gold.stairs[:-1]).sum())
         n = st.n
         if species.endswith("gc2") and switches < 1:
             raise AssertionError("the gc2 chunk has no GC-class switch")
@@ -164,8 +142,8 @@ def phase_parity(device, chunks):
         if not torch.equal(vf_k[:S].cpu(), vf_p[:S].cpu()):
             raise AssertionError(f"{species}: final column differs")
         kernel_ms = time_cuda(lambda: viterbi_forward(st, planes), 3)
-        parts, ops = kernel_work(st, planes)
-        nbytes = sum(parts.values())
+        parts, ops_by_part = kernel_work(st, planes)
+        nbytes, ops = sum(parts.values()), sum(ops_by_part.values())
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = ops / F32_OPS_PER_S * 1e3
         row = {"phase": "parity", "species": species, "fasta": fasta,
@@ -178,14 +156,12 @@ def phase_parity(device, chunks):
                "live_values": int(live.sum()), "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "bytes": nbytes,
                "bytes_per_position": nbytes / n, "bytes_by_part": parts,
-               "ops": ops, "bound_bytes_ms": bound_bytes_ms,
+               "ops": ops, "ops_by_part": ops_by_part,
+               "bound_bytes_ms": bound_bytes_ms,
                "bound_ops_ms": bound_ops_ms,
                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                            else "operations"),
-               # the quotient's own reads (hint planes and window rows)
-               "hint_bound_ms": (parts.get("hint_x", 0) + parts.get(
-                   "hint_w", 0)) / HBM_BYTES_PER_S * 1e3}
+                            else "operations")}
         emit(row)
         rows.append(row)
     return rows
@@ -328,7 +304,6 @@ def main() -> int:
         "launches": hinted, "parity": "bit-exact",
         "max_abs_err": max(r["max_abs_err"] for r in parity[3:]),
         "ms": ph["kernel_ms"], "kernel_ms": ph["kernel_ms"],
-        "unhinted_ms": p["kernel_ms"],
         "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
         "bound_by": ph["bound_by"], "library_ms": None}]})
     print(card_line(), flush=True)

@@ -22,13 +22,8 @@ def cuda():
 def _planes(species, n, device, hinted=False):
     """Planes of the first n bases of HS04636.fa or, hinted, of the
     softmasked HS04636sm.fa with its EST hints."""
-    from augustus_tpu_torch import genetics
-    from augustus_tpu_torch.engine.device import build_tracks
-    from augustus_tpu_torch.engine.gold import GoldEngine
-    from augustus_tpu_torch.engine.pack import pack_tracks
-    from augustus_tpu_torch.engine.viterbi import planes_for
     from augustus_tpu_torch.io.fasta import read_fasta
-    from augustus_tpu_torch.predict import Model, _piece_hints
+    from augustus_tpu_torch.predict import Model, piece_planes
     args = {"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
             "UTR": "off", "softmasking": "0"}
     fasta = "HS04636.fa"
@@ -37,17 +32,9 @@ def _planes(species, n, device, hinted=False):
         args.update(softmasking="1", extrinsicCfgFile="extrinsic.M.RM.E.W.cfg",
                     hintsfile=os.path.join(ROOT, "augustus_tpu_torch", "data",
                                            "hints", "HS04636sm.E.gff"))
-    m = Model.load(args)
     rec = read_fasta(os.path.join(ROOT, "tests", "data", fasta))[0]
-    seq = rec.sequence[:n]
-    eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode,
-                     ext_cfg=m.ext_cfg)
-    eng.prepare(genetics.encode(seq.lower()),
-                softmask=genetics.softmask_runs(seq),
-                gff_hints=(_piece_hints(m.gff_hints[rec.name], 0, n - 1)
-                           if hinted else None))
-    st, arr = pack_tracks(build_tracks(eng))
-    return st, planes_for(st, arr, device)
+    st, planes, _ = piece_planes(Model.load(args), rec, n, device)
+    return st, planes
 
 
 @pytest.mark.cuda

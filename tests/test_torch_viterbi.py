@@ -230,33 +230,62 @@ def test_kernel_work_counts_each_read_once(case):
     assert parts["scratch"] == st.n * st.NL * 8
     whole = sum(planes[k].numel() * 4 for k in seen if k != "sel_pack")
     assert 0 < sum(parts.values()) < whole
-    assert ops > st.n * st.NL * st.S * 2
+    assert ops["dp"] > st.n * st.NL * st.S * 2
+    assert ops["hint_quot"] == 0
+
+
+def _quot_ops_of_the_kernel(st, planes):
+    """The hint quotient's float operations that the chunk's data needs,
+    replayed position by position over the kernel's band entries: each
+    unmasked begin once per position and conv, with the slot terms that
+    apply to it."""
+    from augustus_tpu_torch.engine.viterbi import QUOT_OPS, QUOT_SIDE_OPS
+    ipc = planes["ip_conv"].numpy().astype(np.int64)
+    xi = planes["xi_plane"].numpy().astype(np.int64)
+    ops = 0
+    for j in range(1, st.n):
+        for cv in st.convs:
+            h = cv.hint
+            if h is None or not ipc[j, cv.ip_lane] & 1:
+                continue
+            smin, smax = ipc[j, cv.ip_lane + 1], ipc[j, cv.ip_lane + 2]
+            b = np.unique(np.concatenate([
+                j + cv.a_off - v.len_hi + np.arange(v.width)
+                for v in cv.variants]))
+            bob = b[(b >= smin) & (b <= smax)] - h.ipo
+            ops += bob.size * (QUOT_OPS + QUOT_SIDE_OPS * (h.aL + h.aR))
+            for (sl, _, fl) in h.cross:
+                if xi[j, fl] in (1, 2):
+                    ops += 2 * int((bob <= xi[j, sl]).sum())
+                if h.exclass == 2 and xi[j, fl] == 4:
+                    ops += int((bob == xi[j, sl]).sum())
+            for (pl, _, kl) in h.ex:
+                pk, kd = xi[j, pl], xi[j, kl]
+                if kd == 1 or (h.exclass == 1 and kd == 2):
+                    ops += int((bob == pk).sum())
+                if h.exclass == 3 and kd == 3 and pk > -(1 << 29):
+                    ops += int((bob > pk).sum())
+    return ops
 
 
 def test_kernel_work_counts_hint_reads():
     """On the 6 kb hinted chunk (softmasked HS04636sm.fa with its EST
     hints): hint_x and hint_w equal the xh/xi lanes and window columns the
     kernel's code reads, marked position by position, as do the other
-    parts."""
-    from augustus_tpu_torch import genetics
+    parts; the quotient's operations equal a position-by-position replay
+    of the unmasked band entries and the slot terms that apply."""
     from augustus_tpu_torch.engine.viterbi import kernel_work
-    from augustus_tpu_torch.predict import _piece_hints
+    from augustus_tpu_torch.predict import piece_planes
     hints = os.path.join(ROOT, "augustus_tpu_torch", "data", "hints",
                          "HS04636sm.E.gff")
     m = Model.load(dict(_args("repo_fixture"), softmasking="1",
                         hintsfile=hints,
                         extrinsicCfgFile="extrinsic.M.RM.E.W.cfg"))
     rec = read_fasta(os.path.join(ROOT, "tests", "data", "HS04636sm.fa"))[0]
-    seq = rec.sequence[:6000]
-    eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode,
-                     ext_cfg=m.ext_cfg)
-    eng.prepare(genetics.encode(seq.lower()),
-                softmask=genetics.softmask_runs(seq),
-                gff_hints=_piece_hints(m.gff_hints[rec.name], 0, 5999))
-    st, arr = pack_tracks(build_tracks(eng))
+    st, planes, _ = piece_planes(m, rec, 6000, "cpu")
     assert st.NHW > 0
-    planes = planes_for(st, arr, "cpu")
-    parts, _ = kernel_work(st, planes)
+    parts, ops = kernel_work(st, planes)
+    assert 0 < ops["hint_quot"] == _quot_ops_of_the_kernel(st, planes)
     seen = _reads_of_the_kernel(st, planes)
     for k in ("sp_state", "sp_geo", "sp_convH", "ip_conv", "ip_misc",
               "gcum", "msk"):
