@@ -8,37 +8,64 @@
 //
 // What bounds it on the card: position j depends on the values of j-1 (and
 // of older positions through the lane history), so the n positions run in
-// order inside ONE thread block and the chunk uses one SM.  Per position the
-// block reads one row of each j-plane (about 3.6 KB in this layout) plus the
-// windows of the exon convolutions and lessD introns (up to CONV_CAP = 3040
-// positions of lane history, G pool and length vector, from L2).  The
-// latency of that dependent chain, not HBM bandwidth, sets the pace.
+// order inside ONE thread block on one SM.  The time per position is the
+// latency of its dependent chain: two block barriers, the slowest state of
+// phase A (an exon convolution at a gated position: its clipped band, the
+// segmented reduction, with hints the quotient; else a lessD window) and the
+// lane update.  Bytes and operations are thousands of times below the card's
+// rates (engine/viterbi.py:kernel_work).
 //
-// Design: one CTA per chunk with a loop over positions; a phase in which
-// every state computes its value and backpointer (one thread per fixed or
-// pinned state, one warp per chain, lessD or exon-convolution state with a
-// shuffle reduction for its max and tie rule), a __syncthreads(), the lane
-// update (one warp per lane), a second __syncthreads().  The lane history
-// that the TPU kept in VMEM (PM/LM, the 128-step flush, the PHL ring) does
-// not fit in shared memory here: it lives in global memory, lane-major with
-// W_PAD columns of front padding, so window reads are coalesced and stay in
-// L2.  The GC class of every position is read from ip_misc, so class
-// switches need no per-block schedule.
-//
-// Hint quotient (K1.f): in a hinted conv every band entry's score gets the
-// exonpart/CDSpart/exon/CDS quotient of its candidate exon [bob, ebx] added
-// before the gate and the last-argmax.  It reads the position's hint scalars
-// (xh/xi rows: cumulative tracks at ebx, the K crossing and K2 exact-match
-// slots) once per conv into registers and per-warp shared memory, and per
-// band entry up to 11 window rows of `hw` at bob - 1 and bob, row-major like
-// gcum so that a warp's reads coalesce.
+// Design (one CTA of 768 threads per chunk, a loop over positions; 80
+// registers a thread, no spills to speak of):
+// - Band clipping.  An exon convolution's variant reads only the begins b in
+//   [smin, smax]: w in [max(0, smin - b0), min(wd - 1, smax - b0)].  The
+//   clipped entries of all variants of a conv form one list, walked by the
+//   conv's warp 32 entries at a time; a segmented shuffle reduction gives
+//   each variant's last argmax, carrying the lane arg of its entry, and one
+//   more reduction over the variants the first variant of the largest
+//   value.  The hint quotient (K1.f) runs only on these entries.
+//   Exactness: the plain version scores every entry outside [smin, smax]
+//   exactly NEGF <= GATE.  Such an entry can be the variant's last argmax
+//   only when no entry exceeds GATE; then vbest is NEGF, `vbest > best` is
+//   false, and neither the value nor pred/off is taken from it.  Inside the
+//   range the scores are the same floats, and a (value, index) maximum with
+//   a fixed tie rule is the same under any partition of the entries.
+// - Plane rows prefetched.  The rows of sp_state, sp_geo, sp_convH (the
+//   lanes in use), ip_conv, ip_misc and, with hints, xh/xi are staged with
+//   cp.async (4-byte copies, one per thread) STAGES = 8 positions ahead into
+//   a ring in shared memory; position j waits for its group and reads shared
+//   memory only.  The b-indexed windows (gcum, msk, hint rows) are
+//   prefetched into L2 64 positions ahead.
+// - Lane history in global memory, lane-major with W_PAD columns of front
+//   padding l0/a0: every lane's value and arg is written once per position
+//   and read back through L1/L2 by fixed jumps, lessD windows, pinned
+//   states and exon convolutions (up to CONV_CAP = 3040 back).  A ring of
+//   the last 64 positions in shared memory was measured and made the full
+//   cells 2.2-2.7 % slower (PERF.md), so there is none.
+// - Constant tables in shared memory: the lane transitions, every GC
+//   class' transitions into the chain states, the lessD length vectors, each
+//   variant's first frame and the descriptor.  engine/viterbi.py:smem_layout
+//   places them and checks the sum against the 232,448 bytes a block may
+//   have.
+// - Possible predecessors only.  A lane or chain state takes its maximum
+//   over the predecessors p whose transition exceeds POSSIBLE = -5e29, one
+//   thread each, in ascending p (the fixtures have at most 2 per lane and 5
+//   per chain state).  Exact where it matters: a transition of NEG (-1e30)
+//   gives v + NEG <= GATE for any value v below 4e29, so it can be the
+//   maximum only when the maximum is <= GATE; such a lane value, or chain
+//   value, enters every state only through a `> GATE` test that turns it
+//   into NEG, and its arg only into backpointers of states that are not
+//   live.  The plain version keeps the dense maximum.
+// - vnew/vprev are double-buffered: two barriers per position (after the
+//   staged row lands, and between the states and the lane update), no copy.
 //
 // Exactness: float32 arithmetic in the reference's operand order, compiled
 // with -fmad=false so that no multiply of the hint quotient (its only
 // multiplies) is contracted into an FMA.  Chain states and the lane update
-// take the FIRST argmax, convolutions and lessD the LAST.  Gated-off
-// states get (NEG, pred 0, off 0) for fixed states and (NEG, 0, 1) for the
-// others; the live test is v > -5e29 and is never applied here.
+// take the FIRST argmax, convolutions and lessD the LAST, and between the
+// variants of a conv the first of equal values wins.  Gated-off states get
+// (NEG, pred 0, off 0) for fixed states and (NEG, 0, 1) for the others; the
+// live test is v > -5e29 and is never applied here.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,21 +74,32 @@
 namespace {
 
 constexpr int W_PAD = 3200;
-constexpr int NTHREADS = 512;
+constexpr int NTHREADS = 768;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int ITEM_WARPS = NWARPS - 2;   // the last 2 warps: thread items
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEGF = -1.0e30f;
 constexpr float GATE = -1.0e29f;
 constexpr int MAX_DESC = 4096;
-constexpr int MAX_SLOTS = 64;   // crossing / exact-match hint slots per conv
+constexpr int STAGES = 8;                // plane rows staged ahead
+constexpr float POSSIBLE = -5.0e29f;     // a transition above it can happen
+constexpr int MAXV = 16;                 // variants of one conv
+constexpr int PF = 64;                   // L2 prefetch distance (positions)
 
 // descriptor header (written by engine/viterbi.py:_descriptor)
 enum {
   H_NCHAIN = 0, H_NFIXED, H_NLESSD, H_NPINNED, H_NCONV,
   H_GATE_LANE, H_CLS_LANE, H_S, H_NL,
   H_OFF_CHAIN, H_OFF_FIXED, H_OFF_LESSD, H_OFF_PINNED, H_OFF_CONV,
-  H_OFF_VAR, H_OFF_HINT, H_LEN
+  H_OFF_VAR, H_OFF_HINT,
+  // shared-memory layout in 4-byte words (engine/viterbi.py:smem_layout)
+  H_C, H_LVW, H_SM_LT, H_SM_LTC, H_SM_LVL, H_SM_F0,
+  H_SM_VBUF, H_SM_KIND, H_SM_STAGE, H_SM_WARP, H_ST_W, H_ST_IPC, H_ST_IPM,
+  H_ST_XH, H_ST_XI, H_WARP_W, H_KC, H_KE, H_SM_LPI, H_SM_LPC, H_SM_CHI,
+  H_SM_CHC,
+  H_LEN
 };
+constexpr int ST_SPG = 64, ST_SPH = 128;   // fixed offsets inside a stage
 constexpr int FIXED_W = 6;   // s, laneA, laneB, kind, jump, gate_bit
 constexpr int LESSD_W = 8;   // s, lane, window, cum_row, valid_row,
                              // stop_row, lv_off, jsel_lane
@@ -82,11 +120,6 @@ enum {
   X_BE_EP = 0, X_BE_CP, X_CNTBE_EP, X_CNTBE_CP, X_C2_EP, X_CNTC2_EP,
   X_CNTE_EP, X_CNTE_CP, X_ZC, X_TX_EP, X_TX_CP, X_TXC_EP, X_TXC_CP, NX,
   HR_SLOTS = HR_X + 13   // K x (start, weight, flag), K2 x (pos, w, kind)
-};
-
-struct HintSlots {             // one position's slots of one hinted conv
-  int cs[MAX_SLOTS]; float cw[MAX_SLOTS]; int cf[MAX_SLOTS];
-  int ep[MAX_SLOTS]; float ew[MAX_SLOTS]; int ek[MAX_SLOTS];
 };
 
 struct Args {
@@ -112,36 +145,52 @@ struct Args {
   const float* xh;         // (n_pad, nxh) hint scalars, or null
   const int* xi;           // (n_pad, nxi) hint ints
   const float* hw;         // (NHW, gw) hint window rows
-  int n, NGR, gw, hs, desc_len, nxh, nxi;
+  int n, NGR, NMS, NHW, gw, hs, desc_len, nxh, nxi;
 };
 
-__device__ __forceinline__ void reduce_first(float& v, int& i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(FULL, v, o);
-    int oi = __shfl_xor_sync(FULL, i, o);
-    if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
 __device__ __forceinline__ void reduce_last(float& v, int& i) {
   for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(FULL, v, o);
-    int oi = __shfl_xor_sync(FULL, i, o);
+    const float ov = __shfl_xor_sync(FULL, v, o);
+    const int oi = __shfl_xor_sync(FULL, i, o);
     if (ov > v || (ov == v && oi > i)) { v = ov; i = oi; }
   }
 }
 
 __device__ __forceinline__ int mod3(int x) { return ((x % 3) + 3) % 3; }
 
+// one position's slots of one hinted conv, in per-warp shared memory
+struct Slots {
+  const int* cs; const float* cw; const int* cf;
+  const int* ep; const float* ew; const int* ek;
+};
+
 // The hint quotient of the candidate exon [bob, ebx] of one band entry
 // (augustus_tpu scan._hint_quot, term for term).  X: the position's xh
-// scalars; lm: ep, cp, exon, CDS, local-cp log maluses; hw1: the window rows'
-// column of bob - 1.  A crossing slot whose flag is neither 1 nor 2
-// subtracts +0 from the covering sums and is skipped (exact).
+// scalars; lmb: ep, cp, exon, CDS, local-cp log maluses as float bits; hw1:
+// the window rows' column of bob - 1.  A crossing slot whose flag is
+// neither 1 nor 2 subtracts +0 from the covering sums and is skipped
+// (exact).
 __device__ __forceinline__ float hint_quot(
-    const int* hr, const float* X, const HintSlots& sl, const float* lm,
+    const int* hr, const float* X, const Slots& sl, const int* lmb,
     const float* hw1, int gw, int bob, float lenv) {
-#define WR(r, off) hw1[(size_t)hr[HR_W + (r)] * gw + (off)]
+#define WR(r, off) __ldg(hw1 + (size_t)hr[HR_W + (r)] * gw + (off))
+#define LM(q) __int_as_float(lmb[q])
   const int K = hr[HR_K], K2 = hr[HR_K2], exclass = hr[HR_EXCLASS];
   float cov_ep = X[X_TX_EP], cov_cp = X[X_TX_CP];
   float covc_ep = X[X_TXC_EP], covc_cp = X[X_TXC_CP];
@@ -200,75 +249,116 @@ __device__ __forceinline__ float hint_quot(
       sup_ex = fmaxf(sup_ex, cond);
     }
   }
-  quot = (quot + lm[2] * (1.0f - sup_ex)) + lm[3] * (1.0f - sup_cds);
+  quot = (quot + LM(2) * (1.0f - sup_ex)) + LM(3) * (1.0f - sup_cds);
   const float d_ep = lenv - (X[X_CNTE_EP] - WR(HW_CNTE_EP, 0));
   const float d_cp = lenv - (X[X_CNTE_CP] - WR(HW_CNTE_CP, 0));
-  quot = quot + (d_ep > 0.0f ? d_ep * lm[0] : 0.0f);
-  quot = quot + (d_cp > 0.0f ? d_cp * lm[1] : 0.0f);
+  quot = quot + (d_ep > 0.0f ? d_ep * LM(0) : 0.0f);
+  quot = quot + (d_cp > 0.0f ? d_cp * LM(1) : 0.0f);
   const float zc = X[X_ZC] - WR(HW_ZC, 0);
-  float lpm = zc > 0.0f ? zc * lm[4] : 0.0f;
+  float lpm = zc > 0.0f ? zc * LM(4) : 0.0f;
   lpm = fmaxf(lpm, -part_bonus);
   return quot + (nep >= 4.5f ? lpm : 0.0f);
 #undef WR
+#undef LM
 }
 
-// One variant's band of an exon convolution at one position.
-struct Band {
-  const float* L;          // lane history of the state's first lane at r0
-  int hs, b0, wd, fmode, f0, sgn;
-  const float* G1;         // G pool row(s) at b0
-  const float* G2;
-  int g2row, g2_from;
-  const float* lvd;        // reversed length vector
-  int smin, smax, hv_base;
-  const float* sph;        // conv H lanes of the position
-  int len_hi;
+// The lane history in global memory, lane-major, at column W_PAD.
+struct Hist {
+  const float* hv; const int* ha;
+  int hs;
+  __device__ __forceinline__ float val(int l, int r) const {
+    return hv[(size_t)l * hs + r];
+  }
+  __device__ __forceinline__ int arg(int l, int r) const {
+    return ha[(size_t)l * hs + r];
+  }
 };
 
-// This lane's (last) best score and band index over its entries of the
-// band; with HINTED each entry's score gets its hint quotient.  The
-// unhinted instantiation is the loop of a chunk without sparse hints.
+// What a conv's band entries need at one gated position.
+struct Conv {
+  const int* var;          // descriptor rows of the conv's variants
+  const int* f0;           // first frame of each variant
+  int jb, bpl, cl, fmode, sgn, phi, gw;
+  const float* gc;         // gcum of the position's GC class
+  const float* lv;         // lv_pack
+  const float* sph;        // staged sp_convH row
+  // hint quotient (HINTED only)
+  const int* hr; const float* X; Slots sl; const int* lmb; const float* hw;
+};
+
+// The score of entry w of variant v (its begin b is inside [smin, smax]).
 template <bool HINTED>
-__device__ __forceinline__ void band_max(
-    const Band& bd, int lane, const int* hr, const float* X,
-    const HintSlots& sl, const float* lm, const float* hw, int gw,
-    float& bv, int& bi) {
-  bv = -INFINITY;
-  bi = -1;
-  for (int w = lane; w < bd.wd; w += 32) {
-    const int b = bd.b0 + w;
-    const int f = bd.fmode ? mod3(bd.f0 + bd.sgn * w) : 0;
-    const float L = bd.L[(size_t)f * bd.hs + w];
-    const float G = (bd.g2row >= 0 && w >= bd.g2_from) ? bd.G2[w] : bd.G1[w];
-    float base = (L + G) + bd.lvd[w];
-    if (HINTED) {
-      const int bob = b - hr[HR_IPO];
-      base = base + hint_quot(hr, X, sl, lm, hw + W_PAD + bob - 1, gw, bob,
-                              (float)bd.len_hi - (float)w);
+__device__ __forceinline__ float band_entry(const Conv& cx, const Hist& h,
+                                            int v, int w, int& arg) {
+  const int* vr = cx.var + v * VAR_W;
+  const int len_hi = vr[1];
+  const int b = cx.jb - len_hi + w;
+  const int f = cx.fmode ? mod3(cx.f0[v] + cx.sgn * w) : 0;
+  const float L = h.val(cx.cl + f, b - cx.bpl - 1);
+  arg = h.arg(cx.cl + f, b - cx.bpl - 1);
+  const int grow = (vr[7] >= 0 && w >= vr[8]) ? vr[7] : vr[4];
+  const float G = __ldg(cx.gc + (size_t)(grow + cx.phi) * cx.gw + W_PAD + b);
+  float base = (L + G) + __ldg(cx.lv + vr[2] + w);
+  if (HINTED) {
+    const int bob = b - cx.hr[HR_IPO];
+    base = base + hint_quot(cx.hr, cx.X, cx.sl, cx.lmb,
+                            cx.hw + W_PAD + bob - 1, cx.gw, bob,
+                            (float)len_hi - (float)w);
+  }
+  if (vr[6] >= 0) {
+    const float Hv = cx.sph[vr[6] + w];
+    return (L > GATE && G > GATE && Hv > GATE) ? base + Hv : NEGF;
+  }
+  return (L > GATE && G > GATE) ? base : NEGF;
+}
+
+// Walk the `total` clipped entries of a conv's variants, 32 at a time, and
+// keep each variant's last argmax (value, w) and the lane arg of its entry
+// in accv/acci/acca.  Entries are in variant order, so a chunk's entries
+// of one variant sit on consecutive lanes: a segmented shuffle reduction
+// leaves the chunk's maximum of each variant on its first lane, which
+// merges it into the variant's slot.
+template <bool HINTED>
+__device__ __forceinline__ void conv_walk(
+    const Conv& cx, const Hist& h, int lane, int nv, int total,
+    const int* vstart, const int* vlo, float* accv, int* acci, int* acca) {
+  for (int base = 0; base < total; base += 32) {
+    const int e = base + lane;
+    float sv = -INFINITY;
+    int si = -1, sa = 0, v = -1;
+    if (e < total) {
+      v = 0;
+      while (v + 1 < nv && vstart[v + 1] <= e) ++v;
+      si = vlo[v] + (e - vstart[v]);
+      sv = band_entry<HINTED>(cx, h, v, si, sa);
     }
-    const bool okb = b >= bd.smin && b <= bd.smax;
-    float sc;
-    if (bd.hv_base >= 0) {
-      const float Hv = bd.sph[bd.hv_base + w];
-      sc = (okb && L > GATE && G > GATE && Hv > GATE) ? base + Hv : NEGF;
-    } else {
-      sc = (okb && L > GATE && G > GATE) ? base : NEGF;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float ov = __shfl_down_sync(FULL, sv, o);
+      const int oi = __shfl_down_sync(FULL, si, o);
+      const int oa = __shfl_down_sync(FULL, sa, o);
+      const int ok = __shfl_down_sync(FULL, v, o);
+      if (lane + o < 32 && ok == v && (ov > sv || (ov == sv && oi > si))) {
+        sv = ov;
+        si = oi;
+        sa = oa;
+      }
     }
-    if (sc >= bv) { bv = sc; bi = w; }
+    const int vup = __shfl_up_sync(FULL, v, 1);
+    if (e < total && (lane == 0 || vup != v)) {
+      if (sv > accv[v] || (sv == accv[v] && si > acci[v])) {
+        accv[v] = sv;
+        acci[v] = si;
+        acca[v] = sa;
+      }
+    }
+    __syncwarp();
   }
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 viterbi_forward_kernel(Args a) {
-  __shared__ int desc[MAX_DESC];
-  __shared__ float vprev[64];
-  __shared__ float vnew[64];
-  __shared__ int pnew[64];
-  __shared__ int onew[64];
-  __shared__ signed char thread_kind[64];   // 0 none, 1 fixed, 2 pinned
-  __shared__ unsigned char thread_item[64];
-  __shared__ HintSlots slots[NWARPS];
-
+  extern __shared__ __align__(16) int sm[];
+  int* desc = sm;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -279,7 +369,7 @@ viterbi_forward_kernel(Args a) {
   const int n_lessd = desc[H_NLESSD], n_pinned = desc[H_NPINNED];
   const int n_conv = desc[H_NCONV];
   const int gate_lane = desc[H_GATE_LANE], cls_lane = desc[H_CLS_LANE];
-  const int S = desc[H_S], NL = desc[H_NL];
+  const int S = desc[H_S], NL = desc[H_NL], C = desc[H_C];
   const int* chain = desc + desc[H_OFF_CHAIN];
   const int* fixed = desc + desc[H_OFF_FIXED];
   const int* lessd = desc + desc[H_OFF_LESSD];
@@ -287,187 +377,341 @@ viterbi_forward_kernel(Args a) {
   const int* conv = desc + desc[H_OFF_CONV];
   const int* var = desc + desc[H_OFF_VAR];
   const int* hint = desc + desc[H_OFF_HINT];
-  float lm[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (a.hw) {
-    for (int q = 0; q < 5; ++q) lm[q] = __int_as_float(hint[q]);
-  }
-  const int n_witems = n_conv + n_lessd + n_chain;
+  float* lt_s = reinterpret_cast<float*>(sm + desc[H_SM_LT]);
+  float* ltc_s = reinterpret_cast<float*>(sm + desc[H_SM_LTC]);
+  int* lpi = sm + desc[H_SM_LPI];           // possible predecessors of a
+  int* lpc = sm + desc[H_SM_LPC];           // lane, and their count
+  int* chi = sm + desc[H_SM_CHI];           // the same for each chain state
+  int* chc = sm + desc[H_SM_CHC];           // of each GC class
+  float* lvl_s = reinterpret_cast<float*>(sm + desc[H_SM_LVL]);
+  int* f0_s = sm + desc[H_SM_F0];
+  float* vbuf = reinterpret_cast<float*>(sm + desc[H_SM_VBUF]);
+  int* kind_s = sm + desc[H_SM_KIND];
+  float* stage = reinterpret_cast<float*>(sm + desc[H_SM_STAGE]);
+  const int STW = desc[H_ST_W], o_ipc = desc[H_ST_IPC];
+  const int o_ipm = desc[H_ST_IPM], o_xh = desc[H_ST_XH];
+  const int o_xi = desc[H_ST_XI];
+  const int warp_w = desc[H_WARP_W], KC = desc[H_KC], KE = desc[H_KE];
+  const int n_cgroups = (n_chain + 31) / 32;
+  const int n_witems = n_conv + n_lessd + n_cgroups;
   const int hs = a.hs;
+  const Hist hist = {a.hist_v + W_PAD, a.hist_a + W_PAD, hs};
+  const int lvw = desc[H_LVW];
 
-  // state -> thread item (fixed / pinned / none); warp items own the rest
-  if (tid < 64) {
-    thread_kind[tid] = 0;
-    thread_item[tid] = 0;
+  // ---- constant tables and history padding ----
+  for (int i = tid; i < 64 * 64; i += NTHREADS) {
+    lt_s[i] = a.lane_tr[i];
   }
-  __syncthreads();
-  if (tid < n_fixed) {
-    thread_kind[fixed[tid * FIXED_W]] = 1;
-    thread_item[fixed[tid * FIXED_W]] = (unsigned char)tid;
-  } else if (tid >= 64 && tid < 64 + n_pinned) {
-    int k = tid - 64;
-    thread_kind[pinned[k * PINNED_W]] = 2;
-    thread_item[pinned[k * PINNED_W]] = (unsigned char)k;
+  for (int i = tid; i < C * n_chain * 64; i += NTHREADS) {
+    const int row = i >> 6, c = row / n_chain, k = row % n_chain;
+    ltc_s[row * 64 + (i & 63)] =
+        a.ltcT[((size_t)c * 64 + chain[k]) * 64 + (i & 63)];
   }
-  __syncthreads();
-  bool warp_state = false;
-  if (tid < 64) {
-    for (int k = 0; k < n_chain; ++k) warp_state |= chain[k] == tid;
-    for (int k = 0; k < n_lessd; ++k) warp_state |= lessd[k * LESSD_W] == tid;
-    for (int k = 0; k < n_conv; ++k) warp_state |= conv[k * CONV_W] == tid;
+  for (int i = tid; i < n_lessd * lvw; i += NTHREADS) {
+    const int* ld = lessd + (i / lvw) * LESSD_W;
+    const int w = i % lvw;
+    lvl_s[i] = w < ld[2] ? a.lv_pack[ld[6] + w] : 0.0f;
   }
-
-  // front padding of the lane history: positions -W_PAD .. -1 hold l0/a0
+  for (int k = tid; k < n_conv; k += NTHREADS) {
+    const int* cv = conv + k * CONV_W;
+    for (int vi = cv[6]; vi < cv[6] + cv[7]; ++vi) {
+      const int* vr = var + vi * VAR_W;
+      int f0 = 0;
+      if (cv[4]) {
+        f0 = a.lv_pack[vr[3]] > 0.5f ? 0
+             : (a.lv_pack[vr[3] + vr[0]] > 0.5f ? 1 : 2);
+      }
+      f0_s[vi] = f0;
+    }
+  }
   for (int i = tid; i < 64 * W_PAD; i += NTHREADS) {
-    int l = i / W_PAD, c = i % W_PAD;
+    const int l = i / W_PAD, c = i % W_PAD;
     a.hist_v[(size_t)l * hs + c] = a.l0[l];
     a.hist_a[(size_t)l * hs + c] = a.a0[l];
   }
-  if (tid < 64) vnew[tid] = a.v0[tid];
+  // state -> thread item: kind << 8 | item (kind 0 none, 1 fixed, 2 pinned)
+  if (tid < 64) kind_s[tid] = 0;
   __syncthreads();
+  // the possible predecessors of each lane and chain state, ascending
+  for (int r = tid; r < 64 + C * n_chain; r += NTHREADS) {
+    const float* row = r < 64 ? lt_s + r * 64 : ltc_s + (r - 64) * 64;
+    int* idx = r < 64 ? lpi + r * 64 : chi + (r - 64) * 64;
+    int cnt = 0;
+    for (int p = 0; p < S; ++p) {
+      if (row[p] > POSSIBLE) idx[cnt++] = p;
+    }
+    if (r < 64) lpc[r] = cnt; else chc[r - 64] = cnt;
+  }
+  if (tid < n_fixed) {
+    kind_s[fixed[tid * FIXED_W]] = (1 << 8) | tid;
+  } else if (tid >= 64 && tid < 64 + n_pinned) {
+    kind_s[pinned[(tid - 64) * PINNED_W]] = (2 << 8) | (tid - 64);
+  }
+  // the thread-item warps: state s = tid - (NTHREADS - 64)
+  const int ts = tid - (NTHREADS - 64);
+  bool warp_state = false;
+  if (ts >= 0) {
+    for (int k = 0; k < n_chain; ++k) warp_state |= chain[k] == ts;
+    for (int k = 0; k < n_lessd; ++k) warp_state |= lessd[k * LESSD_W] == ts;
+    for (int k = 0; k < n_conv; ++k) warp_state |= conv[k * CONV_W] == ts;
+  }
+  if (tid < 64) {
+    vbuf[tid] = a.v0[tid];
+    a.bp_out[tid] = 0;
+    if (a.val_out) a.val_out[tid] = a.v0[tid];
+  }
 
-  for (int j = 0; j < a.n; ++j) {
-    if (j > 0) {
-      // ---------------- phase A: every state at position j ----------------
-      const float* sps = a.sp_state + (size_t)j * 128;
-      const float* spg = a.sp_geo + (size_t)j * 128;
-      const float* sph = a.sp_convH + (size_t)j * 256;
-      const int* ipm = a.ip_misc + (size_t)j * 128;
-      const int* ipc = a.ip_conv + (size_t)j * 128;
-      const int c = ipm[cls_lane];
-      const float* gc = a.gcum + (size_t)c * a.NGR * a.gw;
-
-      // thread items: fixed and pinned states, and states nobody owns
-      if (tid < 64) {
-        const int s = tid;
-        const int kind = thread_kind[s];
-        if (kind == 1) {
-          const int* f = fixed + thread_item[s] * FIXED_W;
-          float v = NEGF;
-          int pr = 0, of = 0;
-          if ((ipm[gate_lane] >> f[5]) & 1) {
-            const int r = W_PAD + j - f[4];
-            float lv = a.hist_v[(size_t)f[1] * hs + r];
-            int la = a.hist_a[(size_t)f[1] * hs + r];
-            if (f[3] == 1) {
-              lv = lv + spg[s];
-            } else if (f[3] == 2) {
-              const float lvB = a.hist_v[(size_t)f[2] * hs + r] + spg[s];
-              if (lvB > lv) la = a.hist_a[(size_t)f[2] * hs + r];
-              lv = fmaxf(lv, lvB);
-            }
-            const float e = sps[s];
-            if (lv > GATE && e > GATE) {
-              v = lv + e;
-              pr = la;
-              of = f[4];
-            }
-          }
-          vnew[s] = v; pnew[s] = pr; onew[s] = of;
-        } else if (kind == 2) {
-          const int* p = pinned + thread_item[s] * PINNED_W;
-          const float sc = sps[s];
-          float v = NEGF;
-          int pr = 0, of = 1;
-          if (sc > GATE) {
-            const int eop = ipm[p[2]];
-            const int r = W_PAD + max(eop, -W_PAD);
-            const float lv = a.hist_v[(size_t)p[1] * hs + r];
-            pr = a.hist_a[(size_t)p[1] * hs + r];
-            of = j - eop;
-            if (lv > GATE) v = lv + sc;
-          }
-          vnew[s] = v; pnew[s] = pr; onew[s] = of;
-        } else if (!warp_state) {
-          vnew[s] = NEGF; pnew[s] = 0; onew[s] = 0;
+  // ---- staging of plane rows: one 4-byte cp.async per word of a stage ----
+  auto stage_rows = [&](int j) {
+    if (j < a.n) {
+      float* dst = stage + (j & (STAGES - 1)) * STW;
+      for (int t = tid; t < STW; t += NTHREADS) {
+        const void* src;
+        if (t < ST_SPG) src = a.sp_state + (size_t)j * 128 + t;
+        else if (t < ST_SPH) src = a.sp_geo + (size_t)j * 128 + (t - ST_SPG);
+        else if (t < o_ipc) src = a.sp_convH + (size_t)j * 256 + (t - ST_SPH);
+        else if (t < o_ipm) src = a.ip_conv + (size_t)j * 128 + (t - o_ipc);
+        else if (t < o_xh) src = a.ip_misc + (size_t)j * 128 + (t - o_ipm);
+        else if (t < o_xi) src = a.xh + (size_t)j * a.nxh + (t - o_xh);
+        else src = a.xi + (size_t)j * a.nxi + (t - o_xi);
+        cp_async4(dst + t, src);
+      }
+      // the b-indexed windows' next cache line, once per 32 positions
+      const int col = W_PAD + j + PF;
+      if ((col & 31) == 0 && col < a.gw) {
+        const int ng = C * a.NGR;
+        if (tid < ng) {
+          prefetch_l2(a.gcum + (size_t)tid * a.gw + col);
+        } else if (tid < ng + a.NMS) {
+          prefetch_l2(a.msk + (size_t)(tid - ng) * a.gw + col);
+        } else if (tid < ng + a.NMS + a.NHW) {
+          prefetch_l2(a.hw + (size_t)(tid - ng - a.NMS) * a.gw + col);
         }
       }
+    }
+    cp_async_commit();
+  };
 
-      // warp items: exon convolutions, lessD introns, chain states
-      for (int it = warp; it < n_witems; it += NWARPS) {
+  // ---- lane update at position j from the values vcur ----
+  auto lane_update = [&](int j, const float* vcur) {
+    if (tid < NL) {
+      const int l = tid;
+      const float* lt = lt_s + l * 64;
+      float bv = -INFINITY;
+      int bi = 0;
+      for (int k = 0; k < lpc[l]; ++k) {
+        const int p = lpi[l * 64 + k];
+        const float x = vcur[p] + lt[p];
+        if (x > bv) { bv = x; bi = p; }
+      }
+      a.hist_v[(size_t)l * hs + W_PAD + j] = bv;
+      a.hist_a[(size_t)l * hs + W_PAD + j] = bi;
+    }
+  };
+
+  for (int k = 1; k < STAGES; ++k) stage_rows(k);
+  __syncthreads();
+  lane_update(0, vbuf);
+
+  for (int j = 1; j < a.n; ++j) {
+    stage_rows(j + STAGES - 1);
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    // ---------------- phase A: every state at position j ----------------
+    const float* row = stage + (j & (STAGES - 1)) * STW;
+    const float* sps = row;
+    const float* spg = row + ST_SPG;
+    const float* sph = row + ST_SPH;
+    const int* ipc = reinterpret_cast<const int*>(row + o_ipc);
+    const int* ipm = reinterpret_cast<const int*>(row + o_ipm);
+    const float* xrow = row + o_xh;
+    const int* irow = reinterpret_cast<const int*>(row + o_xi);
+    const int c = ipm[cls_lane];
+    const float* gc = a.gcum + (size_t)c * a.NGR * a.gw;
+    const float* vprev = vbuf + ((j - 1) & 1) * 64;
+    float* vnew = vbuf + (j & 1) * 64;
+    int* bpj = a.bp_out + (size_t)j * 64;
+    float* valj = a.val_out ? a.val_out + (size_t)j * 64 : nullptr;
+
+    if (ts >= 0) {
+      // thread items: fixed and pinned states, and states nobody owns
+      const int s = ts;
+      const int kind = kind_s[s] >> 8, item = kind_s[s] & 255;
+      float v = NEGF;
+      int pr = 0, of = 0;
+      if (kind == 1) {
+        const int* f = fixed + item * FIXED_W;
+        if ((ipm[gate_lane] >> f[5]) & 1) {
+          const int r = j - f[4];
+          float lv = hist.val(f[1], r);
+          int la = hist.arg(f[1], r);
+          if (f[3] == 1) {
+            lv = lv + spg[s];
+          } else if (f[3] == 2) {
+            const float lvB = hist.val(f[2], r) + spg[s];
+            if (lvB > lv) la = hist.arg(f[2], r);
+            lv = fmaxf(lv, lvB);
+          }
+          const float e = sps[s];
+          if (lv > GATE && e > GATE) {
+            v = lv + e;
+            pr = la;
+            of = f[4];
+          }
+        }
+      } else if (kind == 2) {
+        const int* p = pinned + item * PINNED_W;
+        const float sc = sps[s];
+        of = 1;
+        if (sc > GATE) {
+          const int eop = max(ipm[p[2]], -W_PAD);
+          const float lv = hist.val(p[1], eop);
+          pr = hist.arg(p[1], eop);
+          of = j - ipm[p[2]];
+          if (lv > GATE) v = lv + sc;
+        }
+      }
+      if (kind != 0 || !warp_state) {
+        vnew[s] = v;
+        bpj[s] = (pr << 20) | of;
+        if (valj) valj[s] = v;
+      }
+    } else {
+      // warp items: exon convolutions, lessD introns, chain-state groups
+      for (int it = warp; it < n_witems; it += ITEM_WARPS) {
         if (it < n_conv) {
           const int* cv = conv + it * CONV_W;
           const int s = cv[0], bpl = cv[1], a_off = cv[2], cl = cv[3];
-          const int fmode = cv[4], ipl = cv[5];
+          const int fmode = cv[4], ipl = cv[5], vbeg = cv[6], nv = cv[7];
           const int gp = ipc[ipl];
           float best = NEGF;
           int bpred = 0, boff = 1;
           if (gp & 1) {
-            const int phi = gp >> 1;
             const int smin = ipc[ipl + 1], smax = ipc[ipl + 2];
-            // this position's hint scalars, once per conv
             const int* hr = cv[8] >= 0 ? hint + cv[8] : nullptr;
-            float X[NX];
-            HintSlots& sl = slots[warp];
+            float* X = reinterpret_cast<float*>(
+                sm + desc[H_SM_WARP] + warp * warp_w);
+            int* vstart = reinterpret_cast<int*>(X + NX);
+            int* vlo = vstart + MAXV + 1;
+            float* accv = reinterpret_cast<float*>(vlo + MAXV);
+            int* acci = reinterpret_cast<int*>(accv + MAXV);
+            int* acca = acci + MAXV;
+            int* cs = acca + MAXV;
+            float* cw = reinterpret_cast<float*>(cs + KC);
+            int* cf = reinterpret_cast<int*>(cw + KC);
+            int* ep = cf + KC;
+            float* ew = reinterpret_cast<float*>(ep + KE);
+            int* ek = reinterpret_cast<int*>(ew + KE);
+            const int* vrow = var + vbeg * VAR_W;
+            // each variant's clipped range of w, on lane v
+            int cnt = 0;
+            if (lane < nv) {
+              const int* vr = vrow + lane * VAR_W;
+              const int b0 = j + a_off - vr[1];
+              const int lo = max(0, smin - b0);
+              const int hi = min(vr[0] - 1, smax - b0);
+              cnt = max(hi - lo + 1, 0);
+              vlo[lane] = lo;
+              accv[lane] = -INFINITY;
+              acci[lane] = -1;
+            }
+            int inc = cnt;
+            for (int o = 1; o < 32; o <<= 1) {
+              const int t = __shfl_up_sync(FULL, inc, o);
+              if (lane >= o) inc += t;
+            }
+            if (lane < nv) vstart[lane] = inc - cnt;
+            const int total = __shfl_sync(FULL, inc, 31);
+            Conv cx;
+            cx.var = vrow;
+            cx.f0 = f0_s + vbeg;
+            cx.jb = j + a_off;
+            cx.bpl = bpl;
+            cx.cl = cl;
+            cx.fmode = fmode;
+            cx.sgn = fmode == 1 ? 1 : -1;
+            cx.phi = gp >> 1;
+            cx.gw = a.gw;
+            cx.gc = gc;
+            cx.lv = a.lv_pack;
+            cx.sph = sph;
             if (hr) {
-              const float* xrow = a.xh + (size_t)j * a.nxh;
-              const int* irow = a.xi + (size_t)j * a.nxi;
-#pragma unroll
-              for (int q = 0; q < NX; ++q) {
-                X[q] = (hr[HR_AR] || (q != X_C2_EP && q != X_CNTC2_EP))
-                       ? xrow[hr[HR_X + q]] : 0.0f;
-              }
+              // the position's hint scalars and slots, once per conv
               const int K = hr[HR_K], K2 = hr[HR_K2];
               const int* cslot = hr + HR_SLOTS;
               const int* eslot = cslot + 3 * K;
-              __syncwarp();
+              if (lane < NX) {
+                X[lane] = (hr[HR_AR] || (lane != X_C2_EP &&
+                                         lane != X_CNTC2_EP))
+                          ? xrow[hr[HR_X + lane]] : 0.0f;
+              }
               for (int k = lane; k < K; k += 32) {
-                sl.cs[k] = irow[cslot[3 * k]];
-                sl.cw[k] = xrow[cslot[3 * k + 1]];
-                sl.cf[k] = irow[cslot[3 * k + 2]];
+                cs[k] = irow[cslot[3 * k]];
+                cw[k] = xrow[cslot[3 * k + 1]];
+                cf[k] = irow[cslot[3 * k + 2]];
               }
               for (int k = lane; k < K2; k += 32) {
-                sl.ep[k] = irow[eslot[3 * k]];
-                sl.ew[k] = xrow[eslot[3 * k + 1]];
-                sl.ek[k] = irow[eslot[3 * k + 2]];
+                ep[k] = irow[eslot[3 * k]];
+                ew[k] = xrow[eslot[3 * k + 1]];
+                ek[k] = irow[eslot[3 * k + 2]];
               }
-              __syncwarp();
+              cx.hr = hr;
+              cx.X = X;
+              cx.sl = {cs, cw, cf, ep, ew, ek};
+              cx.lmb = hint;
+              cx.hw = a.hw;
             }
-            for (int vi = 0; vi < cv[7]; ++vi) {
-              const int* vr = var + (cv[6] + vi) * VAR_W;
-              const int wd = vr[0], len_hi = vr[1], lv_off = vr[2];
-              const int fm_off = vr[3], g3row = vr[4], h_lane = vr[5];
-              const int hv_base = vr[6], g2row = vr[7], g2_from = vr[8];
-              const int b0 = j + a_off - len_hi;     // b at widx 0
-              const int r0 = b0 - bpl - 1;           // lane position at 0
-              int f0 = 0, sgn = 0;
-              if (fmode) {
-                f0 = a.lv_pack[fm_off] > 0.5f ? 0
-                     : (a.lv_pack[fm_off + wd] > 0.5f ? 1 : 2);
-                sgn = fmode == 1 ? 1 : -1;
-              }
-              const float* G1 = gc + (size_t)(g3row + phi) * a.gw + W_PAD + b0;
-              const float* G2 = g2row >= 0
-                  ? gc + (size_t)(g2row + phi) * a.gw + W_PAD + b0 : G1;
-              const float* lvd = a.lv_pack + lv_off;
-              const Band bd = {a.hist_v + (size_t)cl * hs + W_PAD + r0, hs,
-                               b0, wd, fmode, f0, sgn, G1, G2, g2row, g2_from,
-                               lvd, smin, smax, hv_base, sph, len_hi};
-              float bv;
-              int bi;
-              if (hr) {
-                band_max<true>(bd, lane, hr, X, sl, lm, a.hw, a.gw, bv, bi);
+            __syncwarp();
+            if (hr) {
+              conv_walk<true>(cx, hist, lane, nv, total, vstart, vlo, accv,
+                              acci, acca);
+            } else {
+              conv_walk<false>(cx, hist, lane, nv, total, vstart, vlo, accv,
+                               acci, acca);
+            }
+            // each variant's vbest, then the first variant of the largest
+            float vb = -INFINITY;
+            int wi = 0, wa = 0, vv = 0x7fffffff;
+            if (lane < nv) {
+              const int* vr = vrow + lane * VAR_W;
+              const float bv = accv[lane];
+              if (vr[6] >= 0) {
+                vb = bv > GATE ? bv : NEGF;
               } else {
-                band_max<false>(bd, lane, hr, X, sl, lm, a.hw, a.gw, bv, bi);
+                const float H = sph[vr[5]];
+                vb = (bv > GATE && H > GATE) ? bv + H : NEGF;
               }
-              reduce_last(bv, bi);
-              float vbest;
-              if (hv_base >= 0) {
-                vbest = bv > GATE ? bv : NEGF;
-              } else {
-                const float H = sph[h_lane];
-                vbest = (bv > GATE && H > GATE) ? bv + H : NEGF;
-              }
-              if (vbest > best) {
-                const int f = fmode ? mod3(f0 + sgn * bi) : 0;
-                best = vbest;
-                bpred = a.hist_a[(size_t)(cl + f) * hs + W_PAD + r0 + bi];
-                boff = (len_hi - a_off + bpl + 1) - bi;
+              wi = acci[lane];
+              wa = acca[lane];
+              vv = lane;
+            }
+            for (int o = 16; o > 0; o >>= 1) {
+              const float ov = __shfl_xor_sync(FULL, vb, o);
+              const int ow = __shfl_xor_sync(FULL, wi, o);
+              const int oa = __shfl_xor_sync(FULL, wa, o);
+              const int ovv = __shfl_xor_sync(FULL, vv, o);
+              if (ov > vb || (ov == vb && ovv < vv)) {
+                vb = ov;
+                wi = ow;
+                wa = oa;
+                vv = ovv;
               }
             }
+            if (vb > best) {
+              best = vb;
+              bpred = wa;
+              boff = (vrow[vv * VAR_W + 1] - a_off + bpl + 1) - wi;
+            }
+            __syncwarp();
           }
-          if (lane == 0) { vnew[s] = best; pnew[s] = bpred; onew[s] = boff; }
+          if (lane == 0) {
+            vnew[s] = best;
+            bpj[s] = (bpred << 20) | boff;
+            if (valj) valj[s] = best;
+          }
         } else if (it < n_conv + n_lessd) {
-          const int* ld = lessd + (it - n_conv) * LESSD_W;
+          const int k = it - n_conv;
+          const int* ld = lessd + k * LESSD_W;
           const int s = ld[0], ll = ld[1], W5 = ld[2];
           const float psi = sps[s];
           float val = NEGF;
@@ -475,75 +719,61 @@ viterbi_forward_kernel(Args a) {
           if (psi > GATE) {
             const int r0 = j - W5;                    // eop at widx 0
             const float* crow = gc + (size_t)ld[3] * a.gw + W_PAD;
-            const int* vrow = a.msk + (size_t)ld[4] * a.gw + W_PAD;
-            const int* srow = a.msk + (size_t)ld[5] * a.gw + W_PAD;
-            const float* lvd = a.lv_pack + ld[6];
+            const int* vrw = a.msk + (size_t)ld[4] * a.gw + W_PAD;
+            const int* srw = a.msk + (size_t)ld[5] * a.gw + W_PAD;
+            const float* lvd = lvl_s + k * lvw;
             const int jsel = ipm[ld[7]];
-            const float cumj = crow[j];
-            const float* hv = a.hist_v + (size_t)ll * hs + W_PAD;
+            const float cumj = __ldg(crow + j);
             float bv = -INFINITY;
             int bi = -1;
             for (int w = lane; w < W5; w += 32) {
               const int r = r0 + w;
-              const float Lsh = hv[r];
-              const float seg = cumj - crow[r];
-              const bool ok = r >= 0 && vrow[r] != 0 && (srow[r] & jsel) == 0;
+              const float Lsh = hist.val(ll, r);
+              const float seg = cumj - __ldg(crow + r);
+              const bool ok = r >= 0 && __ldg(vrw + r) != 0 &&
+                              (__ldg(srw + r) & jsel) == 0;
               const float sc = (ok && Lsh > GATE)
                                ? ((Lsh + seg) + lvd[w]) + psi : NEGF;
               if (sc >= bv) { bv = sc; bi = w; }
             }
             reduce_last(bv, bi);
-            pr = a.hist_a[(size_t)ll * hs + W_PAD + r0 + bi];
+            pr = hist.arg(ll, r0 + bi);
             of = W5 - bi;
             val = bv > GATE ? bv : NEGF;
           }
-          if (lane == 0) { vnew[s] = val; pnew[s] = pr; onew[s] = of; }
-        } else {
-          const int s = chain[it - n_conv - n_lessd];
-          const float* lt = a.ltcT + ((size_t)c * 64 + s) * 64;
-          float bv = -INFINITY;
-          int bi = 0x7fffffff;
-          for (int p = lane; p < S; p += 32) {
-            const float x = vprev[p] + lt[p];
-            if (x > bv) { bv = x; bi = p; }
-          }
-          reduce_first(bv, bi);
           if (lane == 0) {
-            vnew[s] = bv > GATE ? bv + sps[s] : NEGF;
-            pnew[s] = bi;
-            onew[s] = 1;
+            vnew[s] = val;
+            bpj[s] = (pr << 20) | of;
+            if (valj) valj[s] = val;
+          }
+        } else {
+          const int k = (it - n_conv - n_lessd) * 32 + lane;
+          if (k < n_chain) {
+            const int row = c * n_chain + k;
+            const float* lt = ltc_s + row * 64;
+            float bv = -INFINITY;
+            int bi = 0;
+            for (int q = 0; q < chc[row]; ++q) {
+              const int p = chi[row * 64 + q];
+              const float x = vprev[p] + lt[p];
+              if (x > bv) { bv = x; bi = p; }
+            }
+            const int s = chain[k];
+            const float v = bv > GATE ? bv + sps[s] : NEGF;
+            vnew[s] = v;
+            bpj[s] = (bi << 20) | 1;
+            if (valj) valj[s] = v;
           }
         }
       }
-      __syncthreads();
-      if (tid < 64) {
-        a.bp_out[(size_t)j * 64 + tid] = (pnew[tid] << 20) | onew[tid];
-        if (a.val_out) a.val_out[(size_t)j * 64 + tid] = vnew[tid];
-      }
-    } else if (tid < 64) {
-      a.bp_out[tid] = 0;
-      if (a.val_out) a.val_out[tid] = vnew[tid];
     }
-
-    // ---------------- phase B: lane update at position j ----------------
-    for (int l = warp; l < NL; l += NWARPS) {
-      const float* lt = a.lane_tr + l * 64;
-      float bv = -INFINITY;
-      int bi = 0x7fffffff;
-      for (int p = lane; p < S; p += 32) {
-        const float x = vnew[p] + lt[p];
-        if (x > bv) { bv = x; bi = p; }
-      }
-      reduce_first(bv, bi);
-      if (lane == 0) {
-        a.hist_v[(size_t)l * hs + W_PAD + j] = bv;
-        a.hist_a[(size_t)l * hs + W_PAD + j] = bi;
-      }
-    }
-    if (tid < 64) vprev[tid] = vnew[tid];
     __syncthreads();
+    // ---------------- phase B: lane update at position j ----------------
+    lane_update(j, vnew);
   }
-  if (tid < 64) a.v_final[tid] = vprev[tid];
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid < 64) a.v_final[tid] = vbuf[((a.n - 1) & 1) * 64 + tid];
 }
 
 }  // namespace
@@ -554,10 +784,14 @@ extern "C" int viterbi_forward_launch(
     const void* msk, const void* ltcT, const void* lane_tr,
     const void* lv_pack, const void* v0, const void* l0, const void* a0,
     const void* desc, int desc_len, void* hist_v, void* hist_a,
-    void* bp_out, void* val_out, void* v_final, int n, int NGR, int gw,
-    int hs, const void* xh, const void* xi, const void* hw, int nxh, int nxi,
-    void* stream) {
+    void* bp_out, void* val_out, void* v_final, int n, int NGR, int NMS,
+    int NHW, int gw, int hs, const void* xh, const void* xi, const void* hw,
+    int nxh, int nxi, int smem_bytes, void* stream) {
   if (desc_len > MAX_DESC || n < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      viterbi_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   Args a;
   a.sp_state = (const float*)sp_state;
   a.sp_geo = (const float*)sp_geo;
@@ -580,6 +814,8 @@ extern "C" int viterbi_forward_launch(
   a.v_final = (float*)v_final;
   a.n = n;
   a.NGR = NGR;
+  a.NMS = NMS;
+  a.NHW = NHW;
   a.gw = gw;
   a.hs = hs;
   a.desc_len = desc_len;
@@ -588,6 +824,6 @@ extern "C" int viterbi_forward_launch(
   a.hw = (const float*)hw;
   a.nxh = nxh;
   a.nxi = nxi;
-  viterbi_forward_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(a);
+  viterbi_forward_kernel<<<1, NTHREADS, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,10 @@ from typing import Dict
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+# -Xptxas=-v prints each kernel's registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

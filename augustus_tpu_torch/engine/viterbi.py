@@ -11,11 +11,13 @@ positions).
 What bounds the kernel on the card: the recursion is sequential over the n
 positions of a chunk (position j reads the values of j-1 and the lane
 history of older positions), so one chunk runs in one thread block on one
-SM; per position it reads one row of each plane (about 3.6 KB) and the
-convolution windows, which stay in L2.  The design answers that with one
-block per chunk, a loop over positions inside the kernel, and the lane
-history lane-major in global memory so window reads are coalesced.  Making
-it fast (several chunks across SMs, shared-memory staging) is later work.
+SM, and the latency of each position's dependent chain sets the pace.  The
+kernel walks only the unmasked begins of each exon convolution's band,
+stages each position's plane rows in shared memory ahead of use, keeps the
+transition tables on chip, and takes the lane and chain maxima over the
+possible predecessors only
+(csrc/viterbi.cu says why each is exact).  `smem_layout` sizes its shared
+memory and refuses, with NotImplementedError, a chunk beyond it.
 
 Outputs, for positions j = 0 .. n-1 and states s < 64:
   bp     (n, 64) int32   packed backpointer (pred << 20) | off; row j is the
@@ -42,6 +44,16 @@ NEG = np.float32(F32_NEG)
 GATE = np.float32(-1.0e29)
 MAX_DESC = 4096       # descriptor ints the kernel holds in shared memory
 MAX_SLOTS = 64        # crossing (K) / exact-match (K2) hint slots per conv
+
+# the kernel's shape (csrc/viterbi.cu): threads, the warps that take warp
+# items and the plane rows staged ahead
+NTHREADS = 768
+ITEM_WARPS = NTHREADS // 32 - 2
+STAGES = 8
+MAX_VAR = 16          # variants of one conv
+NX = 13               # hint scalars of a hinted conv at one position
+IPM_W = 32            # ip_misc lanes staged per position
+SMEM_LIMIT = 232_448  # shared memory one block may have on an H100
 
 # the order of a hint record's window rows and x lanes in the descriptor
 # (csrc/viterbi.cu HR_W / HR_X)
@@ -96,7 +108,80 @@ def _hint_record(h) -> Tuple[int, ...]:
     return tuple(rec)
 
 
-def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
+def _convh_width(st: PKStatic) -> int:
+    """sp_convH lanes in use (the kernel stages only these)."""
+    w = 0
+    for cv in st.convs:
+        for v in cv.variants:
+            w = max(w, v.hv_base + v.width if v.hv_base >= 0
+                    else v.h_lane + 1)
+    return w
+
+
+def _r4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def smem_layout(st: PKStatic, desc_len: int, nxh: int = 0,
+                nxi: int = 0) -> Dict[str, int]:
+    """Where the kernel keeps what in its dynamic shared memory, in 4-byte
+    words, and the bytes in all (`bytes`).  Raises NotImplementedError for
+    a chunk beyond what the kernel holds: more than MAX_VAR variants in a
+    conv, ip_misc lanes beyond IPM_W, or more than SMEM_LIMIT bytes."""
+    nvar = [len(cv.variants) for cv in st.convs]
+    if max(nvar + [0]) > MAX_VAR:
+        raise NotImplementedError(
+            f"a conv of {max(nvar)} variants (the kernel takes {MAX_VAR})")
+    ipm = [st.gate_lane, st.cls_lane] + [p.eop_lane for p in st.pinned] \
+        + [d.jsel_lane for d in st.lessd]
+    if max(ipm) >= IPM_W:
+        raise NotImplementedError(
+            f"ip_misc lane {max(ipm)} (the kernel stages {IPM_W})")
+    hints = [cv.hint for cv in st.convs if cv.hint is not None]
+    kc = max([len(h.cross) for h in hints] + [0])
+    ke = max([len(h.ex) for h in hints] + [0])
+    lay = {"st_ipc": 128 + _r4(_convh_width(st))}
+    lay["st_ipm"] = lay["st_ipc"] + 64
+    lay["st_xh"] = lay["st_ipm"] + IPM_W
+    lay["st_xi"] = lay["st_xh"] + nxh
+    lay["st_w"] = lay["st_xi"] + nxi
+    # X, vstart (MAX_VAR + 1), vlo, accv, acci, acca, then the K and K2
+    # slots
+    lay["warp_w"] = NX + 5 * MAX_VAR + 1 + 3 * kc + 3 * ke
+    lay["kc"], lay["ke"] = kc, ke
+    lay["lvw"] = max([d.window for d in st.lessd] + [0])  # lessD table row
+    parts = (("desc", desc_len),
+             ("lt", 64 * 64), ("ltc", st.C * len(st.chain_states) * 64),
+             ("lvl", len(st.lessd) * lay["lvw"]), ("f0", sum(nvar)),
+             ("vbuf", 128), ("kind", 64), ("stage", STAGES * lay["st_w"]),
+             ("warp", min(len(st.convs), ITEM_WARPS) * lay["warp_w"]),
+             ("lpi", 64 * 64), ("lpc", 64),
+             ("chi", st.C * len(st.chain_states) * 64),
+             ("chc", st.C * len(st.chain_states)))
+    words = 0
+    for name, size in parts:
+        lay[name] = words
+        words += _r4(size)
+    lay["bytes"] = words * 4
+    if lay["bytes"] > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{lay['bytes']} bytes of shared memory (a block may have "
+            f"{SMEM_LIMIT})")
+    return lay
+
+
+# the layout fields of the descriptor header, in the order of
+# csrc/viterbi.cu (H_LVW .. H_SM_CHC), after the static class count
+_LAYOUT_FIELDS = ("lvw", "lt", "ltc", "lvl", "f0", "vbuf",
+                  "kind", "stage", "warp", "st_w", "st_ipc", "st_ipm",
+                  "st_xh", "st_xi", "warp_w", "kc", "ke", "lpi", "lpc", "chi",
+                  "chc")
+
+
+def _descriptor(st: PKStatic, sel_pack: np.ndarray, nxh: int = 0,
+                nxi: int = 0) -> np.ndarray:
+    """The chunk's static structure as one int32 array, with the kernel's
+    shared-memory layout (smem_layout) in its header."""
     fixed = _fixed_lanes(st, sel_pack)
     chain = list(st.chain_states)
     lessd = [(d.state, d.lane, d.window, d.cum_row, d.valid_row, d.stop_row,
@@ -122,12 +207,14 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray) -> np.ndarray:
               st.gate_lane, st.cls_lane, st.S, st.NL]
     body: List[int] = []
     offsets = []
-    H_LEN = len(header) + 7
+    H_LEN = len(header) + 7 + 1 + len(_LAYOUT_FIELDS)
     for part in (chain, fixed, lessd, pinned, convs, variants, hints):
         offsets.append(H_LEN + len(body))
         for e in part:
             body.extend(e if isinstance(e, tuple) else (e,))
-    desc = np.array(header + offsets + body, dtype=np.int32)
+    lay = smem_layout(st, H_LEN + len(body), nxh, nxi)
+    layout = [st.C] + [lay[k] for k in _LAYOUT_FIELDS]
+    desc = np.array(header + offsets + layout + body, dtype=np.int32)
     if desc.shape[0] > MAX_DESC:
         raise NotImplementedError(
             f"chunk descriptor of {desc.shape[0]} ints (the kernel holds "
@@ -196,20 +283,24 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
     """What one launch must move and compute on this chunk's data, for the
     roofline bound: ({part: bytes}, {part: float ops}).
 
-    Bytes count each input element that the kernel reads for these inputs
-    once (rows 1..n-1 of the j-planes, only the lanes the descriptor names
-    and only where their gate is on; the gcum/msk columns that the windows
-    cover; the constant tables), each output element written once (bp and
-    v_final; the debug values are not part of a timed launch), and the lane
-    history written once (`scratch`: NL lanes of value and arg per
-    position; its window reads are not counted again).  With sparse hints,
-    `hint_x` counts the xh/xi lanes that a hinted conv reads at the rows
-    where its gate is on (each (row, lane) once) and `hint_w` each hint
-    window column once per row.  Ops count the float adds, multiplies and
-    compares: `dp`, per predecessor of a chain state or lane, one add and
-    one max, and per window entry the score's adds and one max;
-    `hint_quot`, the quotient's terms where this chunk's data needs them
-    (`_hint_quot_ops`)."""
+    Bytes count each input element that the function reads for these
+    inputs once (rows 1..n-1 of the j-planes, only the lanes the descriptor
+    names and only where their gate is on; the gcum/msk columns that the
+    windows cover; the constant tables), each output element written once
+    (bp and v_final; the debug values are not part of a timed launch), and
+    the lane history written once (`scratch`: NL lanes of value and arg per
+    position; its window reads are not counted again).  An exon
+    convolution's band counts only the begins in [smin, smax] of each
+    variant at its gated positions (gcum columns, lv_pack entries, Hv lanes
+    of sp_convH, hint window columns, operations): the others score NEG
+    whatever their inputs.  The kernel stages whole rows of the j-planes,
+    more than this counts.  With sparse hints, `hint_x` counts the xh/xi
+    lanes that a hinted conv reads at the rows where its gate is on (each
+    (row, lane) once) and `hint_w` each hint window column once per row.
+    Ops count the float adds, multiplies and compares: `dp`, per
+    predecessor of a chain state or lane, one add and one max, and per
+    window entry the score's adds and one max; `hint_quot`, the quotient's
+    terms where this chunk's data needs them (`_hint_quot_ops`)."""
     st = static
     n, S, NL = st.n, st.S, st.NL
     host = {k: planes[k].cpu().numpy() for k in
@@ -274,20 +365,34 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
         on = (gp & 1).astype(bool)
         read["ip_conv"][on, cv.ip_lane + 1: cv.ip_lane + 3] = True
         jj, c, phi = J[on], cls[on], gp[on] >> 1
+        smin, smax = ipc[on, cv.ip_lane + 1], ipc[on, cv.ip_lane + 2]
+        bands = []              # per variant: b0 and the clipped [lo, hi] of w
         for v in cv.variants:
-            b0 = W_PAD + jj + cv.a_off - v.len_hi
+            b0 = jj + cv.a_off - v.len_hi
+            lo = np.maximum(smin - b0, 0)
+            hi = np.minimum(smax - b0, v.width - 1)
+            ne = hi >= lo
+            bands.append((v, b0[ne], lo[ne], hi[ne]))
+            cb, cc, cp = W_PAD + b0[ne], c[ne], phi[ne]
             w1 = min(max(v.g2_from, 0), v.width) if v.g2row >= 0 else v.width
-            cover(c, v.g3row + phi, b0, b0 + w1)
+            cover(cc, v.g3row + cp, cb + lo[ne], cb + np.minimum(hi[ne] + 1, w1))
             if v.g2row >= 0:
-                cover(c, v.g2row + phi, b0 + w1, b0 + v.width)
+                cover(cc, v.g2row + cp, cb + np.maximum(lo[ne], w1),
+                      cb + hi[ne] + 1)
             if v.hv_base >= 0:
-                read["sp_convH"][on, v.hv_base: v.hv_base + v.width] = True
+                w = np.arange(v.width)
+                read["sp_convH"][np.flatnonzero(on)[ne],
+                                 v.hv_base: v.hv_base + v.width] |= \
+                    (w >= lo[ne, None]) & (w <= hi[ne, None])
             else:
                 read["sp_convH"][on, v.h_lane] = True
-            lv_used[v.lv_off: v.lv_off + v.width] = True
+            lvd = np.zeros(v.width + 1, dtype=np.int64)
+            np.add.at(lvd, lo[ne], 1)
+            np.add.at(lvd, hi[ne] + 1, -1)
+            lv_used[v.lv_off: v.lv_off + v.width] |= np.cumsum(lvd)[:-1] > 0
             if cv.frame_mode:
                 lv_used[[v.fm_off, v.fm_off + v.width]] = True
-            ops += int(on.sum()) * v.width * (3 + (v.hv_base >= 0))
+            ops += int((hi[ne] - lo[ne] + 1).sum()) * (3 + (v.hv_base >= 0))
         h = cv.hint
         if h is None:
             continue
@@ -299,12 +404,12 @@ def kernel_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
         xread["xi_plane"][np.ix_(rows, [
             q for (a, _, c) in h.cross + h.ex for q in (a, c)])] = True
         quot_ops += _hint_quot_ops(h, cv, jj, ipc[on], xi_h[on])
-        for v in cv.variants:
-            c1 = W_PAD + jj + cv.a_off - v.len_hi - h.ipo - 1   # bob - 1
+        for v, b0, lo, hi in bands:
+            c1 = W_PAD + b0 + lo - h.ipo - 1                     # bob - 1
             for name in HINT_W_ROWS:
-                c = c1 + (name not in _W_AT_BOB_M1)
-                np.add.at(hdiff, (getattr(h, name), c), 1)
-                np.add.at(hdiff, (getattr(h, name), c + v.width), -1)
+                col = c1 + (name not in _W_AT_BOB_M1)
+                np.add.at(hdiff, (getattr(h, name), col), 1)
+                np.add.at(hdiff, (getattr(h, name), col + hi - lo + 1), -1)
     n_cls = len(np.unique(cls)) if n > 1 else 0
     parts = {k: int(m.sum()) * 4 for k, m in read.items()}
     parts["gcum"] = int((np.cumsum(gdiff, axis=-1)[..., :gw] > 0).sum()) * 4
@@ -404,6 +509,71 @@ def _hint_quot(h, lm, xh, xi, hw, bob: torch.Tensor, lenv: torch.Tensor):
     lpm = torch.where(zc > 0, zc * lm_loc, zero)
     lpm = torch.maximum(lpm, -part_bonus)
     return quot + torch.where(nep >= 4.5, lpm, zero)
+
+
+def conv_quot(cv, j: int, lm, xh, xi, hw):
+    """The hint quotient of a hinted conv at position j, a function of
+    (j, b): once over the union of the variants' bands, b descending from
+    ub1 - 1 to ub0.  (quotient tensor, ub0)."""
+    dev = xh.device
+    ub0 = min(j + cv.a_off - v.len_hi for v in cv.variants)
+    ub1 = max(j + cv.a_off - v.len_hi + v.width for v in cv.variants)
+    bu = torch.arange(ub0, ub1, device=dev)
+    return _hint_quot(cv.hint, lm, xh, xi, hw, bu - cv.hint.ipo,
+                      (j + cv.a_off - bu).to(torch.float32)), ub0
+
+
+def band_score(cv, var, j: int, phi: int, smin: int, smax: int,
+               hv: torch.Tensor, gc: torch.Tensor, lv: torch.Tensor,
+               lv_h: np.ndarray, sph: torch.Tensor, quot=None):
+    """The score of every entry w of one variant's band of an exon
+    convolution at position j (begin b = j + a_off - len_hi + w), NEG where
+    masked, begins outside [smin, smax] included, and the lane offset
+    (frame) of each entry: (score, frames).  hv: the lane history,
+    position-major with W_PAD rows of front padding; gc: gcum of the
+    position's class; sph: its sp_convH row; quot: conv_quot's result for
+    a hinted conv."""
+    dev = hv.device
+    wd = var.width
+    b0 = j + cv.a_off - var.len_hi
+    r0 = b0 - cv.bpl - 1
+    widx = torch.arange(wd, device=dev)
+    fl = torch.zeros(wd, dtype=torch.int64, device=dev)
+    if cv.frame_mode:
+        f0 = 0 if lv_h[var.fm_off] > 0.5 else \
+            (1 if lv_h[var.fm_off + wd] > 0.5 else 2)
+        sgn = 1 if cv.frame_mode == 1 else -1
+        fl = torch.remainder(f0 + sgn * widx, 3)
+        L = hv[W_PAD + r0 + widx, cv.lane + fl]
+    else:
+        L = hv[W_PAD + r0: W_PAD + r0 + wd, cv.lane]
+    G = gc[var.g3row + phi, W_PAD + b0: W_PAD + b0 + wd]
+    if var.g2row >= 0:
+        G2 = gc[var.g2row + phi, W_PAD + b0: W_PAD + b0 + wd]
+        G = torch.where(widx >= var.g2_from, G2, G)
+    lvd = lv[var.lv_off: var.lv_off + wd]
+    bvec = b0 + widx
+    okb = (bvec >= smin) & (bvec <= smax)
+    base = (L + G) + lvd
+    if quot is not None:
+        quot_u, ub0 = quot
+        base = base + quot_u[b0 - ub0: b0 - ub0 + wd]
+    negt = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    if var.hv_base >= 0:
+        Hv = sph[var.hv_base: var.hv_base + wd]
+        return torch.where(okb & (L > GATE) & (G > GATE) & (Hv > GATE),
+                           base + Hv, negt), fl
+    return torch.where(okb & (L > GATE) & (G > GATE), base, negt), fl
+
+
+def variant_best(var, sbest: torch.Tensor, sph: torch.Tensor) -> torch.Tensor:
+    """A variant's value from its band's best score: the band's own H
+    lanes were added per entry, else the scalar H is added here."""
+    negt = torch.tensor(NEG, dtype=torch.float32, device=sbest.device)
+    if var.hv_base >= 0:
+        return torch.where(sbest > GATE, sbest, negt)
+    H = sph[var.h_lane]
+    return torch.where((sbest > GATE) & (H > GATE), sbest + H, negt)
 
 
 def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
@@ -538,59 +708,19 @@ def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
                 continue
             phi = gp >> 1
             smin, smax = int(ipc[cv.ip_lane + 1]), int(ipc[cv.ip_lane + 2])
+            quot = None
             if cv.hint is not None:
-                # the quotient is a function of (j, b): once over the union
-                # of the variants' bands (b descending from ub1 - 1 to ub0)
-                ub0 = min(j + cv.a_off - v.len_hi for v in cv.variants)
-                ub1 = max(j + cv.a_off - v.len_hi + v.width
-                          for v in cv.variants)
-                bu = torch.arange(ub0, ub1, device=dev)
-                quot_u = _hint_quot(cv.hint, lm, xh_all[j], xi_h[j], hw,
-                                    bu - cv.hint.ipo,
-                                    (j + cv.a_off - bu).to(f32))
+                quot = conv_quot(cv, j, lm, xh_all[j], xi_h[j], hw)
             best = NEGt
             for var in cv.variants:
-                wd = var.width
-                b0 = j + cv.a_off - var.len_hi
-                r0 = b0 - cv.bpl - 1
-                widx = torch.arange(wd, device=dev)
-                if cv.frame_mode:
-                    f0 = 0 if lv_h[var.fm_off] > 0.5 else \
-                        (1 if lv_h[var.fm_off + wd] > 0.5 else 2)
-                    sgn = 1 if cv.frame_mode == 1 else -1
-                    fl = torch.remainder(f0 + sgn * widx, 3)
-                    L = hv[W_PAD + r0 + widx, cv.lane + fl]
-                else:
-                    L = hv[W_PAD + r0: W_PAD + r0 + wd, cv.lane]
-                G = gc[var.g3row + phi, W_PAD + b0: W_PAD + b0 + wd]
-                if var.g2row >= 0:
-                    G2 = gc[var.g2row + phi, W_PAD + b0: W_PAD + b0 + wd]
-                    G = torch.where(widx >= var.g2_from, G2, G)
-                lvd = lv[var.lv_off: var.lv_off + wd]
-                bvec = b0 + widx
-                okb = (bvec >= smin) & (bvec <= smax)
-                base = (L + G) + lvd
-                if cv.hint is not None:
-                    base = base + quot_u[b0 - ub0: b0 - ub0 + wd]
-                if var.hv_base >= 0:
-                    Hv = sph[var.hv_base: var.hv_base + wd]
-                    score = torch.where(okb & (L > GATEt) & (G > GATEt)
-                                        & (Hv > GATEt), base + Hv, NEGt)
-                    sbest, ridx = _last_argmax(score)
-                    vbest = torch.where(sbest > GATEt, sbest, NEGt)
-                else:
-                    score = torch.where(okb & (L > GATEt) & (G > GATEt),
-                                        base, NEGt)
-                    sbest, ridx = _last_argmax(score)
-                    H = sph[var.h_lane]
-                    vbest = torch.where((sbest > GATEt) & (H > GATEt),
-                                        sbest + H, NEGt)
+                score, fl = band_score(cv, var, j, phi, smin, smax, hv, gc,
+                                       lv, lv_h, sph, quot)
+                sbest, ridx = _last_argmax(score)
+                vbest = variant_best(var, sbest, sph)
                 if bool(vbest > best):
-                    f = 0
-                    if cv.frame_mode:
-                        f = (f0 + sgn * ridx) % 3
                     best = vbest
-                    pred[s] = ha[W_PAD + r0 + ridx, cv.lane + f]
+                    r0 = j + cv.a_off - var.len_hi - cv.bpl - 1
+                    pred[s] = ha[W_PAD + r0 + ridx, cv.lane + int(fl[ridx])]
                     off[s] = (var.len_hi - cv.a_off + cv.bpl + 1) - ridx
             vnew[s] = best
 
@@ -607,7 +737,7 @@ def viterbi_forward_reference(static: PKStatic, planes: Dict[str, torch.Tensor],
 # --------------------------------------------------------------------------
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
 
 _PLANE_SPECS = {       # name -> (dtype, trailing shape or None)
@@ -665,7 +795,18 @@ def _check(static: PKStatic, planes: Dict[str, torch.Tensor]) -> torch.device:
             if planes[k].dim() != 2 or planes[k].shape[0] < static.n:
                 raise ValueError(f"plane {k} has shape "
                                  f"{tuple(planes[k].shape)}")
+    # what the kernel holds (variants, shared memory), on every
+    # device, so that the CPU refuses what the card would
+    _descriptor(static, planes["sel_pack"].cpu().numpy(), *_hint_widths(
+        static, planes))
     return dev
+
+
+def _hint_widths(static: PKStatic, planes: Dict[str, torch.Tensor]):
+    """(xh lanes, xi lanes) of a hinted chunk's planes, else (0, 0)."""
+    if not static.NHW:
+        return 0, 0
+    return planes["xh_plane"].shape[1], planes["xi_plane"].shape[1]
 
 
 def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
@@ -687,8 +828,10 @@ def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     n = static.n
-    desc = torch.from_numpy(
-        _descriptor(static, planes["sel_pack"].cpu().numpy())).to(dev)
+    nxh, nxi = _hint_widths(static, planes)
+    desc_h = _descriptor(static, planes["sel_pack"].cpu().numpy(), nxh, nxi)
+    smem = smem_layout(static, desc_h.shape[0], nxh, nxi)["bytes"]
+    desc = torch.from_numpy(desc_h).to(dev)
     ltcT = planes["ltc_all"].transpose(1, 2).contiguous()     # [c][s][p]
     lane_tr = planes["lt_T"].t().contiguous()                 # [l][p]
     hs = W_PAD + n
@@ -712,11 +855,10 @@ def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
              p["l0"].data_ptr(), p["a0"].data_ptr(), desc.data_ptr(),
              int(desc.shape[0]), hist_v.data_ptr(), hist_a.data_ptr(),
              bp.data_ptr(), vals.data_ptr() if vals is not None else None,
-             v_final.data_ptr(), n, static.NGR, gw, hs,
-             xh.data_ptr() if hinted else None,
+             v_final.data_ptr(), n, static.NGR, static.NMS, static.NHW, gw,
+             hs, xh.data_ptr() if hinted else None,
              xi.data_ptr() if hinted else None,
-             p["hw_rows"].data_ptr() if hinted else None,
-             xh.shape[1] if hinted else 0, xi.shape[1] if hinted else 0,
+             p["hw_rows"].data_ptr() if hinted else None, nxh, nxi, smem,
              stream)
     if err != 0:
         raise RuntimeError(f"viterbi_forward kernel launch failed: CUDA "

@@ -7,7 +7,8 @@ and exits non-zero on any failure (nothing is caught, nothing falls back to
 the CPU or to a kernel's plain version).  Phases, one JSON line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of csrc/viterbi.cu (set-up time)
+  build   nvcc of csrc/viterbi.cu (set-up time; nvcc's -Xptxas=-v report
+          of registers, shared memory and spills goes to stderr)
   parity  the Viterbi kernel against its plain PyTorch version on the card,
           on 6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
@@ -18,7 +19,8 @@ the CPU or to a kernel's plain version).  Phases, one JSON line each:
           of the gff_hints phase) and 6 kb of HS04636rc.fa with the mirrored
           (minus-strand) hints: per-step values bit-equal (tolerance 0),
           live backpointers equal, final column equal; the kernel's time
-          beside its roofline bound, with the bytes per position
+          and time per position beside its roofline bound, with the bytes
+          per position
   gff     predict_file(..., device="cuda") on HS04636.fa, byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
   gff_hints  the same on HS04636sm.fa with --softmasking=1, its hints
@@ -154,6 +156,7 @@ def phase_parity(device, chunks):
                "max_abs_err": float(np.abs(vk[live] - vp[live]).max()
                                     if live.any() else 0.0),
                "live_values": int(live.sum()), "kernel_ms": kernel_ms,
+               "us_per_position": kernel_ms * 1e3 / n,
                "plain_ms": plain_ms, "bytes": nbytes,
                "bytes_per_position": nbytes / n, "bytes_by_part": parts,
                "ops": ops, "ops_by_part": ops_by_part,

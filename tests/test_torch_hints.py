@@ -191,9 +191,10 @@ def case(request):
     species, which, n = request.param
     je, e = _engines(species, which, n)
     st, arr = pack_tracks(build_tracks(e))
-    bp, vfin, vals = viterbi_forward(st, planes_for(st, arr, "cpu"),
-                                     debug_vals=True)
-    return {"species": species, "jeng": je, "st": st, "bp": bp.numpy(),
+    planes = planes_for(st, arr, "cpu")
+    bp, vfin, vals = viterbi_forward(st, planes, debug_vals=True)
+    return {"species": species, "jeng": je, "st": st, "planes": planes,
+            "bp": bp.numpy(),
             "vfin": vfin.numpy(), "vals": vals.numpy(),
             "scan": _scan(jbuild(je))}
 
@@ -220,6 +221,16 @@ def test_hinted_final_column_equal(case):
     assert np.array_equal(sf, case["vfin"][: case["st"].S])
     switches = int((np.diff(case["jeng"].stairs) != 0).sum())
     assert (switches >= 1) == case["species"].endswith("gc2")
+
+
+def test_hinted_band_clipping_is_exact(case):
+    """The band clipping on the hinted chunks (both strands, gc2): the
+    full band, quotient included, is NEG outside [smin, smax], and the
+    clipped slice gives the same value, pred and off wherever the
+    variant's value exceeds GATE."""
+    from torch_band_check import check_band_clipping
+    st = case["st"]
+    assert check_band_clipping(st, case["planes"], case["vals"]) > 100
 
 
 def test_hinted_against_pallas_interpret():

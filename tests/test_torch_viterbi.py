@@ -100,6 +100,17 @@ def test_final_column_equal(case):
     assert np.array_equal(sf, case["vfin"][: case["st"].S])
 
 
+def test_band_clipping_is_exact(case):
+    """At every gated conv position and variant, the plain version's full
+    band is NEG outside [smin, smax], and wherever the variant's value
+    exceeds GATE its clipped slice (what the kernel walks) gives the same
+    value, pred and off."""
+    from torch_band_check import check_band_clipping
+    st = case["st"]
+    assert check_band_clipping(st, planes_for(st, case["arr"], "cpu"),
+                               case["vals"]) > 100
+
+
 def test_class_switch_exercised(case):
     switches = int((np.diff(case["jeng"].stairs) != 0).sum())
     assert (switches >= 1) == case["species"].endswith("gc2")
@@ -147,8 +158,9 @@ def test_engine_traceback_matches_reference(case):
 
 
 def _reads_of_the_kernel(st, planes):
-    """Every element that csrc/viterbi.cu reads, marked position by
-    position as its code reads it: {plane: bool mask}."""
+    """Every element that csrc/viterbi.cu's phases read, marked position by
+    position as its code reads it (an exon convolution's variant only at
+    the begins in [smin, smax]): {plane: bool mask}."""
     from augustus_tpu_torch.engine.pack import W_PAD
     from augustus_tpu_torch.engine.viterbi import (
         GATE, HINT_W_ROWS, HINT_X_LANES, _W_AT_BOB_M1, _fixed_lanes)
@@ -187,9 +199,15 @@ def _reads_of_the_kernel(st, planes):
                 continue
             seen["ip_conv"][j, cv.ip_lane + 1: cv.ip_lane + 3] = True
             phi = gp >> 1
+            smin, smax = ipc[j, cv.ip_lane + 1], ipc[j, cv.ip_lane + 2]
+            clipped = {}
             for v in cv.variants:
-                w = np.arange(v.width)
-                col = W_PAD + j + cv.a_off - v.len_hi + w
+                # only the begins b in [smin, smax]
+                b0 = j + cv.a_off - v.len_hi
+                w = np.arange(max(smin - b0, 0), min(smax - b0, v.width - 1)
+                              + 1)
+                clipped[v] = w
+                col = W_PAD + b0 + w
                 two = (w >= v.g2_from) if v.g2row >= 0 else w < 0
                 seen["gcum"][c, v.g3row + phi, col[~two]] = True
                 seen["gcum"][c, v.g2row + phi, col[two]] = True
@@ -207,7 +225,7 @@ def _reads_of_the_kernel(st, planes):
                 seen["xh_plane"][j, wl] = True
                 seen["xi_plane"][j, [il, fl]] = True
             for v in cv.variants:
-                bob = j + cv.a_off - v.len_hi + np.arange(v.width) - hr.ipo
+                bob = j + cv.a_off - v.len_hi + clipped[v] - hr.ipo
                 for k in HINT_W_ROWS:
                     off = -1 if k in _W_AT_BOB_M1 else 0
                     seen["hw_rows"][getattr(hr, k), W_PAD + bob + off] = True
@@ -342,3 +360,57 @@ def test_against_pallas_interpret():
     live = pv > -5.0e29
     assert ((pe.backptr[1:n, :S] == bp.numpy()[1:n, :S]) | ~live).all()
     assert np.array_equal(pe.v_final[:S], vfin.numpy()[:S])
+
+
+def test_kernel_sizing_on_the_fixtures():
+    """The wrapper's sizing of the kernel on the fixture statics: the
+    shared-memory layout's regions follow each other inside the block's
+    232,448 bytes, the lessD length vectors take rows of the widest window
+    (59), and the descriptor's header tells the kernel the same layout."""
+    from augustus_tpu_torch.engine.viterbi import (
+        SMEM_LIMIT, STAGES, _descriptor, _LAYOUT_FIELDS, smem_layout)
+    for species in ("repo_fixture", "repo_fixture_gc2"):
+        m = Model.load(_args(species))
+        eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode)
+        eng.prepare(jgenetics.encode(SEQ[:300]))
+        st, arr = pack_tracks(build_tracks(eng))
+        desc = _descriptor(st, arr["sel_pack"])
+        lay = smem_layout(st, len(desc))
+        assert lay["lvw"] == 59
+        order = ["lt", "ltc", "lvl", "f0", "vbuf", "kind", "stage", "warp",
+                 "lpi", "lpc", "chi", "chc"]
+        starts = [lay[k] for k in order]
+        assert starts == sorted(starts) and starts[0] >= len(desc)
+        assert lay["lvl"] + len(st.lessd) * 59 <= lay["f0"]
+        assert lay["stage"] + STAGES * lay["st_w"] <= lay["warp"]
+        assert 0 < lay["bytes"] <= SMEM_LIMIT
+        head = desc[16: 17 + len(_LAYOUT_FIELDS)].tolist()
+        assert head == [st.C] + [lay[k] for k in _LAYOUT_FIELDS]
+
+
+@pytest.mark.parametrize("what", ["variants", "shared_memory"])
+def test_beyond_the_kernel_raises_before_launch(what):
+    """A chunk beyond what the kernel holds (a conv of more than MAX_VAR
+    variants; tables beyond the block's shared memory) is refused with
+    NotImplementedError before any launch, never truncated."""
+    from augustus_tpu_torch.engine.viterbi import MAX_VAR
+    m = Model.load(_args("repo_fixture"))
+    eng = GoldEngine(m.sg, m.cn, m.igp, m.exp, m.inp, m.decomp, m.gcode)
+    eng.prepare(jgenetics.encode(SEQ[:300]))
+    st, arr = pack_tracks(build_tracks(eng))
+    planes = planes_for(st, arr, "cpu")
+    if what == "variants":
+        cv = st.convs[-1]
+        wide = dataclasses.replace(cv, variants=cv.variants * (
+            MAX_VAR // len(cv.variants) + 1))
+        big, match = dataclasses.replace(
+            st, convs=st.convs[:-1] + (wide,)), "variants"
+    else:
+        # the lessD length vectors of a 60,000-position window do not fit
+        d = st.lessd[0]
+        big, match = dataclasses.replace(st, lessd=(dataclasses.replace(
+            d, window=60_000),) + st.lessd[1:]), "shared memory"
+    before = viterbi_forward.launches
+    with pytest.raises(NotImplementedError, match=match):
+        viterbi_forward(big, planes)
+    assert viterbi_forward.launches == before
