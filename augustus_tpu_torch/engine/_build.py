@@ -45,6 +45,33 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
+def _nvcc_cmd(name: str, out: str):
+    return [find_nvcc()] + NVCC_FLAGS + ["-o", out,
+                                         os.path.join(CSRC, name + ".cu")]
+
+
+def build_all(names) -> None:
+    """Build the shared libraries of several kernels at once, one nvcc per
+    source, all started together (a failed build raises)."""
+    todo = [(nm, _lib_path(nm)) for nm in names
+            if not os.path.exists(_lib_path(nm))]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for nm, path in todo:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs.append((nm, path, tmp,
+                      subprocess.Popen(_nvcc_cmd(nm, tmp))))
+    failed = []
+    for nm, path, tmp, proc in procs:
+        if proc.wait() != 0:
+            failed.append(nm)
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"csrc/{nm}.cu" for nm in failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded shared library of csrc/<name>.cu, building it if needed
     (nvcc's messages go to stderr; a failed build raises)."""
@@ -54,9 +81,7 @@ def load(name: str) -> ctypes.CDLL:
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            subprocess.run([find_nvcc()] + NVCC_FLAGS +
-                           ["-o", tmp, os.path.join(CSRC, name + ".cu")],
-                           check=True)
+            subprocess.run(_nvcc_cmd(name, tmp), check=True)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         _loaded[name] = lib

@@ -1,6 +1,10 @@
-"""DP tracks: factorized per-state score arrays (host copy of
+"""DP tracks: factorized per-state score arrays (counterpart of
 augustus_tpu/engine/device.py for the no-UTR architecture, with the hint
 folds and the sparse exon/CDS hint tables of softmasked and hinted runs).
+`build_tracks` runs on numpy (host route) or, inside xputil.use_torch, on
+torch tensors (device route); the sparse exon/CDS hint tables
+(`_build_hint_tables`) are host-only: chunks with such hints take the host
+route.
 
 Exon emissions factorize as
 
@@ -60,7 +64,7 @@ def _pre(x):
     the baseline rebase (_finalize_tracks) keep their compensation term so
     the large-magnitude cancellation happens before the single f32 round."""
     if U.is_dd(x):
-        xp = np
+        xp = U.A.xp
         fin = xp.isfinite(x.hi)
         hi = xp.maximum(xp.where(fin, x.hi, np.float64(F32_NEG)),
                         np.float64(F32_NEG))
@@ -71,7 +75,7 @@ def _pre(x):
 
 
 def _c32(x):
-    return U.sanitize(U.val(x)).astype(np.float32)
+    return U.astype(U.sanitize(U.val(x)), np.float32)
 
 
 def _f32h(x) -> np.ndarray:
@@ -256,6 +260,7 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
     # DP lazily — igenicmodel.cc:318, intronmodel emiProbUnderModel,
     # exonmodel.cc:1294-1311).  Non-separable exon/CDS hint quotients are
     # handled by the sparse machinery below (see HintCorr).
+    xp = U.A.xp
     hints_on = getattr(eng, "hints", None) is not None
     if hints_on:
         eng._device_sparse_hints = any(
@@ -264,15 +269,15 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
         ipc_p, ipc_m = eng.ipb_plus_cum, eng.ipb_minus_cum
         lm = eng.log_malus
     else:
-        ipb_p = ipb_m = np.zeros(n)
-        ipc_p = ipc_m = np.zeros(n + 1)
+        ipb_p = ipb_m = xp.zeros(n)
+        ipc_p = ipc_m = xp.zeros(n + 1)
         lm = {}
 
     # superwindow back-extent: must cover the longest banded variant
     gpad = CONV_CAP + 96
 
     tr = DPTracks(n=n, S=S, n_classes=C, n_lanes=0, gpad=gpad,
-                  stairs=eng.stairs.astype(np.int32),
+                  stairs=U.astype(eng.stairs, np.int32),
                   log_trans=np.stack([_f32h(lt) for lt in eng.log_trans]),
                   log_init=_f32h(eng.log_init), log_term=_f32h(eng.log_term),
                   lane_trans=None, lane_target=None,
@@ -304,7 +309,6 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
 
     # shared lessD/equalD bare lanes by frame-state
     bare_dss_lane: Dict[int, int] = {}   # longdss state idx -> lane
-    xp = np
 
     for s, t in enumerate(types):
         anc = [p for p in range(S) if sg.transitions[p, s] > 0]
@@ -486,17 +490,16 @@ def _finalize_tracks(tr: DPTracks, eng: GoldEngine, pool: Pool) -> None:
     stretches — so f32 rounding stays at the ulp of the local deviation.
     base[p <= 0] = 0, so the synch/init boundary region is unaffected.
     """
-    xp = np
+    xp = U.A.xp
     n = tr.n
-    stairs = tr.stairs.astype(np.int64)
+    stairs = U.astype(tr.stairs, np.int64)
     ig_all = U.stk([eng.ig_track[c] for c in range(len(eng.inp.gc))])
     igj = U.class_pick(ig_all, stairs)
     # dbase[p] = base[p] - base[p-1] exactly (igj with the p=0 entry zeroed)
     dbase = xp.concatenate([xp.zeros(1, dtype=igj.dtype), igj[1:]]) \
         if n > 1 else xp.zeros(n, dtype=igj.dtype)
     base_dd = U.DD.cumsum_dd(dbase)
-    tr.base = np.asarray(U.val(base_dd)) if True \
-        else U.val(base_dd)
+    tr.base = U.val(base_dd)
 
     def base_at(idx):
         bt = base_dd.take(xp.clip(idx, 0, n - 1))
@@ -603,8 +606,8 @@ def _build_lessd(eng: GoldEngine, s: int, t: ST, lane: int,
                    ~T.is_possible_rdss_sh(sp.rdss_ok, c_ebi))
     guard = bbi > 1
 
-    xp = np
-    c64_ = codes.astype(np.int64)
+    xp = U.A.xp
+    c64_ = U.astype(codes, np.int64)
 
     def ch_sh(c):
         idx = j + c
@@ -613,39 +616,41 @@ def _build_lessd(eng: GoldEngine, s: int, t: ST, lane: int,
 
     def ch(idx):
         ok = (idx >= 0) & (idx < n)
-        return xp.where(ok, codes[xp.clip(idx, 0, n - 1)].astype(np.int64),
+        return xp.where(ok, U.astype(codes[xp.clip(idx, 0, n - 1)], np.int64),
                         np.int64(genetics.N))
+
+    def i8(x):
+        return U.astype(x, np.int8)
 
     past = ebi >= n - 2
     r1 = xp.where(past, np.int64(genetics.N), ch_sh(c_ebi + 1))
     r2 = xp.where(past, np.int64(genetics.N), ch_sh(c_ebi + 2))
     comp = U.asarr(genetics.COMPLEMENT)
     A, G, Tb, Nb = genetics.A, genetics.G, genetics.T, genetics.N
-    b_stop = np.zeros(n, dtype=np.int8)
-    j_sel = np.zeros(n, dtype=np.int8)
+    b_stop = xp.zeros(n, dtype=np.int8)
+    j_sel = xp.zeros(n, dtype=np.int8)
     if t == ST.lessD1:
         l0 = ch_sh(c_bbi - 1)
-        b_stop = (guard & (l0 == Tb)).astype(np.int8)
-        j_sel = (((r1 == A) & ((r2 == A) | (r2 == G))) |
-                 ((r1 == G) & (r2 == A))).astype(np.int8)
+        b_stop = i8(guard & (l0 == Tb))
+        j_sel = i8(((r1 == A) & ((r2 == A) | (r2 == G))) |
+                   ((r1 == G) & (r2 == A)))
     elif t == ST.lessD2:
         l0 = ch_sh(c_bbi - 2)
         l1 = ch_sh(c_bbi - 1)
         case_ta = guard & (l0 == Tb) & (l1 == A)
         case_tg = guard & (l0 == Tb) & (l1 == G)
-        b_stop = case_ta.astype(np.int8) | (case_tg.astype(np.int8) << 1)
+        b_stop = i8(case_ta) | (i8(case_tg) << 1)
         # stop iff (ta & r1 in {a,g}) | (tg & r1==a)
-        j_sel = ((r1 == A) | (r1 == G)).astype(np.int8) | \
-            ((r1 == A).astype(np.int8) << 1)
+        j_sel = i8((r1 == A) | (r1 == G)) | (i8(r1 == A) << 1)
     elif t == ST.rlessD0:
         l1 = ch_sh(c_bbi - 1)
         l2 = ch_sh(c_bbi - 2)
         c1 = comp[xp.clip(l1, 0, 4)]
         c2 = comp[xp.clip(l2, 0, 4)]
-        b_stop = (guard & (((c1 == A) & ((c2 == A) | (c2 == G))) |
-                           ((c1 == G) & (c2 == A)))).astype(np.int8)
+        b_stop = i8(guard & (((c1 == A) & ((c2 == A) | (c2 == G))) |
+                             ((c1 == G) & (c2 == A))))
         cr1 = comp[xp.clip(r1, 0, 4)]
-        j_sel = (cr1 == Tb).astype(np.int8)
+        j_sel = i8(cr1 == Tb)
     elif t == ST.rlessD1:
         l1 = ch_sh(c_bbi - 1)
         c2 = comp[xp.clip(l1, 0, 4)]
@@ -653,9 +658,9 @@ def _build_lessd(eng: GoldEngine, s: int, t: ST, lane: int,
         cr2 = comp[xp.clip(r2, 0, 4)]
         case_ta = (cr2 == Tb) & (cr1 == A)
         case_tg = (cr2 == Tb) & (cr1 == G)
-        b_stop = (guard & ((c2 == A) | (c2 == G))).astype(np.int8) | \
-            ((guard & (c2 == A)).astype(np.int8) << 1)
-        j_sel = case_ta.astype(np.int8) | (case_tg.astype(np.int8) << 1)
+        b_stop = i8(guard & ((c2 == A) | (c2 == G))) | \
+            (i8(guard & (c2 == A)) << 1)
+        j_sel = i8(case_ta) | (i8(case_tg) << 1)
         # NB: mapping for lessD2/rlessD1: stop iff
         #   (j_sel bit0 & b_stop bit0) ... see kernel `_lessd_stop_mask`
 
@@ -780,7 +785,7 @@ def _build_pinned(eng: GoldEngine, s: int, t: ST, lane: int, gpad: int
     (reference exonmodel.cc:1044).  Vectorized over all j from the dense
     tracks (gold oracle: gold._not_end_part at start_min == start_max,
     gold.py:951-952)."""
-    xp = np
+    xp = U.A.xp
     cn, n = eng.cn, eng.n
     g = eng.geom[t]
     C = len(eng.inp.gc)
@@ -894,7 +899,7 @@ def _build_pinned(eng: GoldEngine, s: int, t: ST, lane: int, gpad: int
     live = score_c[0] > NEG_INF
     for sc in score_c[1:]:
         live = live | (sc > NEG_INF)
-    eop_arr = xp.where(live, eop, -1).astype(np.int32)
+    eop_arr = U.astype(xp.where(live, eop, -1), np.int32)
     return ExonPinnedState(state=s, lane=lane, eop=eop_arr,
                            score=_f32(score))
 
@@ -937,7 +942,7 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
 
     hints_on = getattr(eng, "hints", None) is not None
     lm = eng.log_malus if hints_on else {}
-    xp = np
+    xp = U.A.xp
 
     def _site_adj(track, shift, oob):
         """track[i+shift] where in range else oob (site hint fades/malus);
@@ -1049,7 +1054,7 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
                             end_part + lm["exon"] + lm["CDS"], end_part)
         lm_lin = lm["exonpart"] + lm["CDSpart"]
 
-    end_gate = (end_part > NEG_INF).any(axis=0)
+    end_gate = xp.any(end_part > NEG_INF, axis=0)
 
     # ---------------- length distribution -------------------------------
     kind = {ST.singleG: "single", ST.initial0: "initial",
@@ -1087,7 +1092,7 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
     def initpat_fwd_c(c):
         ids = eng.kmer_ids_full(k)
         m_ids = ids.shape[0]
-        sel = np.arange(m_ids)
+        sel = U.arange(m_ids)
         ok = ids >= 0
         lpls = U.asarr(eng.log_pls(c, k - 1))   # log gathered, not recomputed
         idc = xp.where(ok, ids, 0)
@@ -1106,7 +1111,7 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
     def initpat_rev_c(c):
         rids = eng.rc_kmer_ids_full(k)
         m_ids = rids.shape[0]
-        sel = np.arange(m_ids)
+        sel = U.arange(m_ids)
         ok = rids >= 0
         lpls = U.asarr(eng.log_pls(c, k - 1))
         idc = xp.where(ok, rids, 0)
@@ -1284,8 +1289,8 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
         f_eon = (g.win - 1 - (j + g.base_offset) + eon) % 3
     else:
         f_eon = (g.win + 1 + (j + g.base_offset) - eon) % 3
-    orf_left = T.leftmost_exon_begin(eng.orf, f_eon, eon, fwd, cn,
-                                     n).astype(np.int64)
+    orf_left = U.astype(T.leftmost_exon_begin(eng.orf, f_eon, eon, fwd, cn,
+                                              n), np.int64)
     smax = (j + g.base_offset) + g.inner_part_offset - cn.min_exon_length + 1
     smax = xp.minimum(smax, j + g.begin_part_len)
     smin = xp.where(orf_left <= 0, 0, orf_left + g.inner_part_offset)
@@ -1294,8 +1299,8 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
         state=s, etype=int(t), bpl=g.begin_part_len, a_off=a_off,
         phase_const=phase_const, phase_sign=phase_sign,
         frame_mode=frame_mode, win=g.win, lane=lane,
-        end_gate=end_gate, start_min=smin.astype(np.int32),
-        start_max=smax.astype(np.int32), variants=variants)
+        end_gate=end_gate, start_min=U.astype(smin, np.int32),
+        start_max=U.astype(smax, np.int32), variants=variants)
     if hints_on and getattr(eng, "_device_sparse_hints", False):
         ecs.hint_strand = "+" if fwd else "-"
         ecs.hint_ipo = g.inner_part_offset

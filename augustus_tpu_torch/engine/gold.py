@@ -1,13 +1,15 @@
-"""Host track preparation for the semi-Markov Viterbi decode.
+"""Track preparation for the semi-Markov Viterbi decode.
 
-Host copy of the preparation half of `augustus_tpu/engine/gold.py`
+Counterpart of the preparation half of `augustus_tpu/engine/gold.py`
 (`GoldEngine.prepare`, `_prepare_tracks`, `_build_hint_tracks`,
-`_apply_signal_hint_terms`, `set_boundaries`): float64 numpy tracks of ORF
+`_apply_signal_hint_terms`, `set_boundaries`): float64 tracks of ORF
 barriers, splice scores, content cumsums, signal sensors and the hint
 bonus/malus terms of softmasking and hints files, which engine/device.py
-factorizes into the DP tracks.  The float64 host DP
-of the reference package (`run`, `traceback`, sampling) is not part of this
-package: the decode runs in engine/viterbi.py.
+factorizes into the DP tracks.  `prepare` is the host route (numpy);
+`_prepare_tracks` and the track builders under it also run on torch
+tensors for the device route (engine/jgold.py, xputil.use_torch).  The
+float64 host DP of the reference package (`run`, `traceback`, sampling) is
+not part of this package: the decode runs in engine/viterbi.py.
 """
 
 from __future__ import annotations
@@ -32,6 +34,18 @@ LOG4 = float(np.log(4.0))
 
 def mod3(x):
     return np.mod(x, 3)
+
+
+def _log_bin(tb, p):
+    """log(tb.factor(p)): the binned TIS probability of per-base p.  On
+    tensors the bin is found on the device and its log gathered from the
+    host's log of the bin averages (the same numpy log of the same
+    values)."""
+    from . import xputil as U
+    if U.A.is_torch:
+        return U.asarr(T._safe_log_np(np.asarray(tb.avprobs)))[
+            U.A.xp.searchsorted(np.asarray(tb.boundaries), p, side="right")]
+    return T._safe_log(tb.factor(p))
 
 
 @dataclass
@@ -146,13 +160,21 @@ class GoldEngine:
     # ------------------------------------------------------------------
     def prepare(self, codes: np.ndarray, softmask=None,
                 gff_hints=None) -> None:
-        """Precompute all tracks for one sequence.
+        """Precompute all tracks for one sequence on the host (numpy).
 
         softmask: optional boolean per-base array (lowercase in the input).
         With softmasking on, masked runs become nonexonpart "RM" hints
         favoring intergenic/intron states (reference
         SequenceFeatureCollection::prepare, extrinsicinfo.cc:1697-1723).
         """
+        self.collect_hints(codes, softmask, gff_hints)
+        self.prepare_collected()
+
+    def collect_hints(self, codes: np.ndarray, softmask=None,
+                      gff_hints=None) -> None:
+        """The chunk's codes and SeqHints (.codes, .n, .has_hints, .hints):
+        the first half of `prepare`, which the device route also needs for
+        the overlays and the evidence output."""
         cn, n = self.cn, codes.shape[0]
         self.codes = codes
         self.n = n
@@ -177,20 +199,25 @@ class GoldEngine:
         if self.has_hints and self.ext_cfg is not None:
             from ..hints.system import SeqHints
             self.hints = SeqHints(feats, self.ext_cfg, codes)
+
+    def prepare_collected(self) -> None:
+        """The second half of `prepare`: the host route's tracks."""
+        if self.hints is not None:
             self._build_hint_tracks()
-        self.stairs = gcmod.compute_stairs(codes, cn, self.decomp)
-        self._prepare_tracks(codes)
+        self.stairs = gcmod.compute_stairs(self.codes, self.cn, self.decomp)
+        self._prepare_tracks(self.codes)
 
     # ------------------------------------------------------------------
     def _prepare_tracks(self, codes: np.ndarray) -> None:
         """Sequence-content track building (ORF barriers, splice scores,
-        content cumsums, signal sensors) in float64 numpy."""
+        content cumsums, signal sensors) in float64, on numpy or on the
+        tensors of xputil.use_torch."""
         from . import xputil as U
-        xp = np
+        xp = U.A.xp
         cn, n = self.cn, self.n
         self.orf = T.nearest_stop_arrays(codes, self.gcode)
-        hinted = None
-        if self.hints is not None:
+        hinted = getattr(self, "_hinted_override", None)
+        if hinted is None and self.hints is not None:
             h = self.hints
             hinted = (h.hinted_fD, h.hinted_rD, h.hinted_fA, h.hinted_rA)
         self.splice = T.build_splice_tracks(codes, self.inp, cn,
@@ -317,53 +344,55 @@ class GoldEngine:
         igp = self.igp
         k = igp.k
         from . import xputil as U
-        xp = np
+        xp = U.A.xp
         tied = (cn.tie_igenic_intron and self.inp.gc
                 and self.inp.gc[c].emiprobs.size > 0 and self.inp.k == k)
         table = self.inp.gc[c].emiprobs if tied else igp.gc[c].emiprobs
         out = T.kmer_lookup_log(codes, k + 1, table, T.LOG_QUARTER)
         # j <= k prefix: conditional short-pattern probabilities, replicating
-        # the reference sibling-index arithmetic (static loop)
+        # the reference sibling-index arithmetic (static loop; numpy on the
+        # first k+1 bases on either backend)
         n_ = codes.shape[0]
         pls = igp.gc[c].pls
+        head_codes = U.host(codes[: k + 1])
         head = []
         for j in range(min(k + 1, n_)):
-            window = codes[: j + 1].astype(np.int64)
+            window = head_codes[: j + 1].astype(np.int64)
             bad = (window == genetics.N).any()
-            idx = xp.zeros((), dtype=np.int64 if xp is np else np.int32)
+            idx = np.zeros((), dtype=np.int64)
             for bi in range(j + 1):
-                idx = (idx << 2) | xp.where(window[bi] == genetics.N, 0,
+                idx = (idx << 2) | np.where(window[bi] == genetics.N, 0,
                                             window[bi])
-            vals = U.asarr(pls[j])
+            vals = np.asarray(pls[j])
             sz = pls[j].size
             denom_base = idx // 4
             denom = (vals[denom_base]
-                     + vals[xp.minimum(denom_base + 1, sz - 1)]
-                     + vals[xp.minimum(denom_base + 2, sz - 1)]
-                     + vals[xp.minimum(denom_base + 3, sz - 1)])
+                     + vals[np.minimum(denom_base + 1, sz - 1)]
+                     + vals[np.minimum(denom_base + 2, sz - 1)]
+                     + vals[np.minimum(denom_base + 3, sz - 1)])
             vi = vals[idx]
             good = (~bad) & (denom > 0) & (vi > 0)
-            val = xp.where(good,
-                           T._safe_log(xp.where(good, vi, 1.0) /
-                                       xp.where(denom > 0, denom, 1.0)),
+            val = np.where(good,
+                           T._safe_log(np.where(good, vi, 1.0) /
+                                       np.where(denom > 0, denom, 1.0)),
                            T.LOG_QUARTER)
-            head.append(xp.reshape(val, (1,)))
+            head.append(np.reshape(val, (1,)))
         if head:
-            out = xp.concatenate([xp.concatenate(head),
+            out = xp.concatenate([U.asarr(np.concatenate(head)),
                                   out[len(head):]])
         return out
 
     # ------------------------------------------------------------------
     def _build_signal_tracks(self, codes: np.ndarray) -> None:
         from . import xputil as U
-        xp = np
+        xp = U.A.xp
         cn, n = self.cn, self.n
         gcode = self.gcode
         cds = codes
 
         # stop-codon endPart for terminal/singleG ending at DP base j:
         # stop codon at stppos = j-2 (reference exonmodel.cc:1276-1311)
-        c64 = cds.astype(np.int64)
+        c64 = U.astype(cds, np.int64)
         # translation-table gating (reference exonmodel.cc:216 'give the
         # chosen translation table priority over {ochre,amber,opal}prob'):
         # a codon only scores as a stop if the table says it is one
@@ -386,8 +415,8 @@ class GoldEngine:
             stop_log = xp.concatenate(
                 [xp.full(2, NEG_INF, dtype=U.ftype()), per_pos[: n - 2]])
         else:
-            self.stop_at_log = np.full(max(n - 2, 0), NEG_INF)
-            stop_log = np.full(n, NEG_INF)
+            self.stop_at_log = xp.full(max(n - 2, 0), NEG_INF, dtype=U.ftype())
+            stop_log = xp.full(n, NEG_INF, dtype=U.ftype())
         self.end_stop_fwd = stop_log
 
         # reverse stop codon beginPart (rsingleG/rterminal) at beginOfBioExon
@@ -402,7 +431,7 @@ class GoldEngine:
             rstop = xp.concatenate(
                 [rhead, xp.full(2, NEG_INF, dtype=U.ftype())])
         else:
-            rstop = np.full(n, NEG_INF)
+            rstop = xp.full(n, NEG_INF, dtype=U.ftype())
         self.begin_rstop = rstop
 
         # start codons
@@ -413,26 +442,25 @@ class GoldEngine:
                 start_prob[pn] = p
         else:
             start_prob[14] = 1.0   # atg
-        start_prob_t = U.asarr(start_prob)
         if n >= 3:
             cod = (c64[:-2] * 16 + c64[1:-1] * 4 + c64[2:])
             valid = (c64[:-2] != genetics.N) & (c64[1:-1] != genetics.N) & \
                 (c64[2:] != genetics.N)
             sf = xp.where(valid,
-                          T._safe_log(start_prob_t[xp.where(valid, cod, 0)]),
+                          T.log_take(start_prob, xp.where(valid, cod, 0)),
                           NEG_INF)
             tail2 = xp.full(2, NEG_INF, dtype=U.ftype())
             start_fwd = xp.concatenate([sf, tail2])
             # reverse: codon read as rc of [pos, pos+2]
-            comp = U.asarr(genetics.COMPLEMENT)[cds].astype(np.int64)
+            comp = U.astype(U.asarr(genetics.COMPLEMENT)[cds], np.int64)
             rcod = comp[2:] * 16 + comp[1:-1] * 4 + comp[:-2]
-            sr = xp.where(valid,
-                          T._safe_log(start_prob_t[xp.where(valid, rcod, 0)]),
+            sr = xp.where(valid, T.log_take(start_prob,
+                                            xp.where(valid, rcod, 0)),
                           NEG_INF)
             start_rev = xp.concatenate([sr, tail2])
         else:
-            start_fwd = np.full(n, NEG_INF)     # atg starting at pos
-            start_rev = np.full(n, NEG_INF)     # 'cat' starting at pos
+            start_fwd = xp.full(n, NEG_INF, dtype=U.ftype())   # atg at pos
+            start_rev = xp.full(n, NEG_INF, dtype=U.ftype())   # 'cat' at pos
 
         # TIS begin (initial/singleG): beginOfBioExon = bob needs start codon
         # at bob plus the upstream translation-initiation motif
@@ -455,9 +483,8 @@ class GoldEngine:
             tb = self.exp.gc[c].tis_bin
             if tb.nbins > 0:
                 ok = val > NEG_INF
-                binned = T._safe_log(tb.factor(xp.exp(xp.where(ok, val,
-                                                               0.0))))
-                val = xp.where(ok, binned, val)
+                val = xp.where(
+                    ok, _log_bin(tb, xp.exp(xp.where(ok, val, 0.0))), val)
             self.tis_begin_fwd[c] = val
 
             # reverse TIS endPart at DP base j: startpos = j - tw - 3 + 1
@@ -475,9 +502,8 @@ class GoldEngine:
             val = val + motif_term
             if tb.nbins > 0:
                 okv = val > NEG_INF
-                binned = T._safe_log(tb.factor(xp.exp(xp.where(okv, val,
-                                                               0.0))))
-                val = xp.where(okv, binned, val)
+                val = xp.where(okv, _log_bin(tb, xp.exp(xp.where(okv, val,
+                                                                 0.0))), val)
             self.tis_end_rev[c] = val
 
         self.start_fwd_log = start_fwd

@@ -1,10 +1,12 @@
 """Packing of the DP tracks into the Viterbi kernel's planes.
 
-Port of `augustus_tpu/engine/pallas_pack.py`.  `pack_tracks` stays host
-numpy and yields the same static description (`PKStatic`) and the same
-compact arrays as the reference; `expand_arrays` materializes the dense
-j-indexed planes and the front-padded b-indexed windows on the tensors'
-device with torch gathers and pads.
+Port of `augustus_tpu/engine/pallas_pack.py`.  `pack_tracks` yields the
+same static description (`PKStatic`) and the same compact arrays as the
+reference, as numpy arrays on the host route or, inside xputil.use_torch,
+with the per-position arrays as tensors already on the card (the model
+constants stay numpy); `expand_arrays` materializes the dense j-indexed
+planes and the front-padded b-indexed windows on the tensors' device with
+torch gathers and pads.
 
 Layout (S <= 64 states, NL <= 64 lanes):
   sp_state (n_pad,128) f32   per-state scalar: chain/fixed emissions, lessD
@@ -174,8 +176,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 def pack_tracks(tr: DPTracks):
-    """(static, arrays): kernel inputs from DPTracks (host numpy)."""
+    """(static, arrays): kernel inputs from DPTracks (see the module
+    docstring for the backends)."""
     from .scan import split_tracks
+    xp = U.A.xp
     st, arr = split_tracks(tr)       # the consolidated scalar tables
     n, S, C = st.n, tr.S, st.C
     NL = tr.n_lanes
@@ -209,11 +213,11 @@ def pack_tracks(tr: DPTracks):
     xtra_i: List[np.ndarray] = []
 
     def xscol(vals) -> int:
-        xtra_s.append(np.asarray(vals).astype(np.float32))
+        xtra_s.append(U.astype(xp.asarray(vals), np.float32))
         return stab.shape[1] + len(xtra_s) - 1
 
     def xicol(vals) -> int:
-        xtra_i.append(np.asarray(vals).astype(np.int32))
+        xtra_i.append(U.astype(xp.asarray(vals), np.int32))
         return itab.shape[1] + len(xtra_i) - 1
 
     pos = U.arange(n)
@@ -233,15 +237,15 @@ def pack_tracks(tr: DPTracks):
     groups: List[PKFixedGroup] = []
     # splice-signal emissions feed the bare lanes consumed by equalD: a
     # finite lane value at j-D requires a finite fixed-state emission there
-    dss_any = np.zeros(n, dtype=bool)
+    dss_any = xp.zeros(n, dtype=bool)
     for fs in st.fixed:
         dss_any = dss_any | (stab[:, fs.emi_col] > float(NEG) / 2)
-    gb = np.zeros(n, dtype=np.int32)
+    gb = xp.zeros(n, dtype=np.int32)
     for gi, (key, fss) in enumerate(sorted(by_key.items())):
         jump, kind = key
         selA = np.full((64, 64), NEG, dtype=np.float32)
         selB = np.full((64, 64), NEG, dtype=np.float32)
-        any_emi = np.zeros(n, dtype=bool)
+        any_emi = xp.zeros(n, dtype=bool)
         for fs in fss:
             s = fs.state
             m_sp_state[s] = fs.emi_col
@@ -261,15 +265,15 @@ def pack_tracks(tr: DPTracks):
             # lane source is a bare dss value at j - jump; at j == jump the
             # lane holds the initial value l0 instead
             if jump < n:
-                src = np.concatenate([np.zeros(jump, dtype=bool),
+                src = xp.concatenate([xp.zeros(jump, dtype=bool),
                                       dss_any[: n - jump]])
             else:
-                src = np.zeros(n, dtype=bool)
+                src = xp.zeros(n, dtype=bool)
             src = src | (pos == min(jump, n - 1))
             gate = any_emi & src & (pos >= jump)
         else:
             gate = any_emi & (pos >= jump)
-        gb = gb | (gate.astype(np.int32) << gi)
+        gb = gb | (U.astype(gate, np.int32) << gi)
         groups.append(PKFixedGroup(jump=jump, kind=kind, sel_idx=sel_idx,
                                    selb_idx=selb_idx, gate_bit=gi,
                                    states=tuple(fs.state for fs in fss)))
@@ -294,8 +298,8 @@ def pack_tracks(tr: DPTracks):
     from .device import END_PAD
     GPAD = G_all.shape[-1] - n - END_PAD
     NGR = _round_up(NG * 3 + NCU, 8)
-    G_src = np.asarray(G_all[:, :, :, GPAD: GPAD + n])
-    cum_src = np.asarray(cum_all[:, :, GPAD + 1: GPAD + 1 + n])  # cum1[p]
+    G_src = G_all[:, :, :, GPAD: GPAD + n]
+    cum_src = cum_all[:, :, GPAD + 1: GPAD + 1 + n]     # cum1[p]
 
     # ---- lessD ----------------------------------------------------------
     lessd_list: List[PKLessD] = []
@@ -312,14 +316,14 @@ def pack_tracks(tr: DPTracks):
         # fold j_gate into psi: all scores NEG when the end is gated off
         psi = stab[:, lsd.psi_col]
         jgate = itab[:, lsd.jgate_col] != 0
-        m_sp_state[lsd.state] = xscol(np.where(jgate, psi, NEG))
+        m_sp_state[lsd.state] = xscol(xp.where(jgate, psi, NEG))
         lessd_list.append(PKLessD(
             state=lsd.state, lane=lane_of[lsd.lane], window=lsd.window,
             cum_row=NG * 3 + lsd.cum_id, valid_row=2 * li,
             stop_row=2 * li + 1, lv_off=off, jsel_lane=8 + li))
         m_ip_misc[8 + li] = lsd.jsel_col
-    bv_src = np.stack(bv_rows) if bv_rows else np.zeros((0, n), np.int8)
-    bs_src = np.stack(bs_rows) if bs_rows else np.zeros((0, n), np.int8)
+    bv_src = xp.stack(bv_rows) if bv_rows else xp.zeros((0, n), np.int8)
+    bs_src = xp.stack(bs_rows) if bs_rows else xp.zeros((0, n), np.int8)
 
     # ---- pinned ------------------------------------------------------------
     # PHW: the reference kernel's pinned-history ring, sized to the furthest
@@ -383,7 +387,7 @@ def pack_tracks(tr: DPTracks):
     NHW = hw_all.shape[0]
     NHWp = _round_up(max(NHW, 1), 8)
     gp_scan = hw_all.shape[1] - n - END_PAD
-    hw_src = np.asarray(hw_all[:, gp_scan: gp_scan + n])
+    hw_src = hw_all[:, gp_scan: gp_scan + n]
 
     conv_list: List[PKConv] = []
     _next_h = [0]
@@ -514,10 +518,10 @@ def pack_tracks(tr: DPTracks):
 
     arrays = {
         "stab": stab, "itab": itab,
-        "xstab": (np.stack(xtra_s, axis=1) if xtra_s
-                  else np.zeros((n, 0), np.float32)),
-        "xitab": (np.stack(xtra_i, axis=1) if xtra_i
-                  else np.zeros((n, 0), np.int32)),
+        "xstab": (xp.stack(xtra_s, axis=1) if xtra_s
+                  else xp.zeros((n, 0), np.float32)),
+        "xitab": (xp.stack(xtra_i, axis=1) if xtra_i
+                  else xp.zeros((n, 0), np.int32)),
         "m_sp_state": m_sp_state, "m_sp_geo": m_sp_geo,
         "m_sp_convH": m_sp_convH, "m_ip_conv": m_ip_conv,
         "m_ip_misc": m_ip_misc,
@@ -545,11 +549,18 @@ KERNEL_CONSTANTS = ("ltc_all", "lt_T", "sel_pack", "lv_pack", "v0", "l0",
 HINT_INPUTS = ("m_xh", "m_xi", "hw_src")
 
 
-def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """One host->device copy of the compact arrays the decode needs."""
-    return {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
-            for k in PLANE_INPUTS + KERNEL_CONSTANTS + HINT_INPUTS
-            if k in arrays}
+def to_device(arrays: Dict[str, object], device) -> Dict[str, torch.Tensor]:
+    """The compact arrays the decode needs as contiguous tensors on
+    `device`: one host->device copy of each numpy array; tensors already
+    there (the device route's) stay."""
+    out = {}
+    for k in PLANE_INPUTS + KERNEL_CONSTANTS + HINT_INPUTS:
+        if k in arrays:
+            v = arrays[k]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = v.to(device).contiguous()
+    return out
 
 
 def expand_arrays(st: PKStatic, a: Dict[str, torch.Tensor]

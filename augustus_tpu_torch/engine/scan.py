@@ -1,13 +1,15 @@
-"""Scalar-table consolidation of the DP tracks (host numpy).
+"""Scalar-table consolidation of the DP tracks (numpy, or torch tensors
+inside xputil.use_torch).
 
-Host copy of `split_tracks` from `augustus_tpu/engine/scan.py`: the per-state
+Counterpart of `split_tracks` from `augustus_tpu/engine/scan.py`: the per-state
 track lists of a DPTracks are consolidated into one (n, NSC) float32 table
 and one (n, NIC) int32 table (GC class baked in per position), plus the
 G/cum pools and lessD masks, and the sparse exon/CDS hint machinery (window
 rows `hw_all`, per-position hint columns and the `HintConvStatic` of every
-hinted conv).  engine/pack.py turns these into the Viterbi kernel's
-planes.  The XLA scan engines of the reference module (the general Viterbi
-and the logsumexp forward) are later slices of the port.
+hinted conv, host route only).  engine/pack.py turns these into the
+Viterbi kernel's planes.  The XLA scan engines of the reference module
+(the general Viterbi and the logsumexp forward) are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -131,12 +133,12 @@ class ScanStatic:
 
 def split_tracks(tr: DPTracks):
     """(static, arrays) decomposition with scalar-table consolidation."""
-    xp = np
+    xp = U.A.xp
     GPAD = tr.gpad
     PAD = GPAD
     C = tr.n_classes
     n = tr.n
-    cls = tr.stairs.astype(np.int64)
+    cls = U.astype(tr.stairs, np.int64)
     pos = U.arange(n)
 
     # columns are collected contiguously and stacked once at the end:
@@ -147,11 +149,11 @@ def split_tracks(tr: DPTracks):
     int_cols: List[np.ndarray] = []
 
     def scol(values: np.ndarray) -> int:
-        scal_cols.append(xp.asarray(values).astype(np.float32))
+        scal_cols.append(U.astype(xp.asarray(values), np.float32))
         return len(scal_cols) - 1
 
     def icol(values: np.ndarray) -> int:
-        int_cols.append(xp.asarray(values).astype(np.int32))
+        int_cols.append(U.astype(xp.asarray(values), np.int32))
         return len(int_cols) - 1
 
     cls_col = icol(cls)
@@ -210,10 +212,10 @@ def split_tracks(tr: DPTracks):
         else:
             G_list.append(pad_last(xp.asarray(a)))
     arrays["G_all"] = xp.stack(G_list) if G_list else \
-        np.zeros((0, C, 3, GPAD + n + END_PAD), np.float32)
+        xp.zeros((0, C, 3, GPAD + n + END_PAD), np.float32)
     arrays["cum_all"] = xp.stack(
         [pad_last(tr.pool[pid]) for pid in cum_ids]) if cum_ids else \
-        np.zeros((0, C, GPAD + n + 1 + END_PAD), np.float32)
+        xp.zeros((0, C, GPAD + n + 1 + END_PAD), np.float32)
 
     # H factors become scalar columns (class baked in)
     h_cols: Dict[int, int] = {}
@@ -244,12 +246,12 @@ def split_tracks(tr: DPTracks):
     if tr.lessd:
         arrays["lessd_bvalid_all"] = xp.stack([
             xp.concatenate([xp.zeros(PAD, np.int8),
-                            ls.b_valid.astype(np.int8),
+                            U.astype(ls.b_valid, np.int8),
                             xp.zeros(END_PAD, np.int8)])
             for ls in tr.lessd])
         arrays["lessd_bstop_all"] = xp.stack([
             xp.concatenate([xp.zeros(PAD, np.int8),
-                            xp.asarray(ls.b_stopflag).astype(np.int8),
+                            U.astype(xp.asarray(ls.b_stopflag), np.int8),
                             xp.zeros(END_PAD, np.int8)])
             for ls in tr.lessd])
 
@@ -374,14 +376,14 @@ def split_tracks(tr: DPTracks):
             state=ecs.state, bpl=ecs.bpl, a_off=ecs.a_off, lane=ecs.lane,
             frame_mode=ecs.frame_mode,
             smin_col=icol(ecs.start_min), smax_col=icol(ecs.start_max),
-            gate_col=icol(ecs.end_gate.astype(np.int32) +
-                          (phi.astype(np.int32) << 1)),
+            gate_col=icol(U.astype(ecs.end_gate, np.int32) +
+                          (U.astype(phi, np.int32) << 1)),
             variants=tuple(vs), hint=hint_static(ecs)))
 
     arrays["scalar_table"] = xp.stack(scal_cols, axis=1)    # (n, NSC)
     arrays["int_table"] = xp.stack(int_cols, axis=1)        # (n, NIC)
     arrays["hw_all"] = xp.stack(hw_rows) if hw_rows else \
-        np.zeros((0, GPAD + n + END_PAD), np.float32)
+        xp.zeros((0, GPAD + n + END_PAD), np.float32)
     arrays["n_true"] = np.int32(n)      # overwritten by bucketed callers
 
     hint_lm = None

@@ -1,9 +1,15 @@
-"""Viterbi traceback on the host, from the packed backpointer plane.
+"""Viterbi traceback from the packed backpointer plane.
 
-Port of `augustus_tpu/engine/traceback.py`.  The reference walks the path on
-the device with a backwards `lax.scan` (`make_trace_fn`); here the (n, 64)
-backpointer plane is copied to the host once and walked with numpy.  The
-walk emits one packed int32 per base j = 1 .. n-1, as the reference does:
+Port of `augustus_tpu/engine/traceback.py`, two walks:
+
+* the event walk K4 (`event_walk`, counterpart of `make_event_trace_fn`),
+  the device route's: on the card it runs csrc/trace.cu over the plane
+  where the kernel left it, and only the events and two ints come back;
+  `condensed_path_events` builds the PathState list from them.
+* the per-base walk of the host route (`trace_packed`): the reference
+  walks on the device with a backwards `lax.scan` (`make_trace_fn`); here
+  the (n, 64) plane is copied to the host once and walked with numpy.  It
+  emits one packed int32 per base j = 1 .. n-1, as the reference does:
 
     bits 0..7   state id at this base
     bit  30     set if a raw segment ENDS here (a backpointer was read)
@@ -16,11 +22,14 @@ exact segment list / condensed PathState list from the emits.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 FLAG_BIT = 30
+M_EVENTS = 16384         # the event walk's bound (the reference's M)
 
 
 def trace_packed(bp: np.ndarray, state0: int, n: int
@@ -121,4 +130,130 @@ def condensed_path(packed: np.ndarray, final_base: int, dnalen: int, types):
             trunc |= probe2.truncated
         st.truncated = trunc
         out.append(st)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the event walk K4: CUDA kernel and plain version
+# --------------------------------------------------------------------------
+
+def walk_breaks(bp: torch.Tensor, n: int) -> torch.Tensor:
+    """brk (64, n-1) int32, lane-major: brk[s, i] is the last base j' <=
+    i+1 whose read of state s is not a self loop (off == 1 and pred == s;
+    base 1 always reads), the running maximum of the reference's `jcol`
+    table (torch.cummax as lax.cummax there: exact on integers).  Each
+    state's row is one contiguous scan (a scan down the columns of the
+    (n, 64) plane runs one thread per state)."""
+    body = bp[1:n].t().contiguous()                 # (64, n-1)
+    lane = torch.arange(body.shape[0], dtype=torch.int32, device=bp.device)
+    selfrun = ((body & 0xFFFFF) == 1) & ((body >> 20) == lane[:, None])
+    selfrun[:, 0] = False
+    jj = torch.arange(1, n, dtype=torch.int32, device=bp.device)
+    jcol = torch.where(selfrun, torch.zeros_like(body), jj[None, :])
+    return torch.cummax(jcol, dim=1).values
+
+
+def event_walk_reference(bp: torch.Tensor, brk: torch.Tensor, state0: int,
+                         n: int, M: int = M_EVENTS):
+    """The walk of `make_event_trace_fn`, one Python step per event: (events
+    (M, 5) int32, final base, count).  Event rows are [run_lo, run_hi,
+    seg_lo, seg_hi, state], end to begin; rows past count are 0."""
+    ev = torch.zeros((M, 5), dtype=torch.int32, device=bp.device)
+    base, state, count = n - 1, int(state0), 0
+    while count < M and base > 0:
+        p = int(bp[base, state])
+        selfrun = base >= 2 and (p & 0xFFFFF) == 1 and (p >> 20) == state
+        b2 = int(brk[state, base - 1]) if selfrun else base
+        packed = int(bp[b2, state])
+        off, pred = packed & 0xFFFFF, packed >> 20
+        ev[count] = torch.tensor([b2 + 1, base, b2 - off + 1, b2, state],
+                                 dtype=torch.int32)
+        base, state = b2 - off, pred
+        count += 1
+    return ev, base, count
+
+
+def event_walk(bp: torch.Tensor, state0: int, n: int, M: int = M_EVENTS):
+    """(events (count, 5) numpy int32, final base, count) of the walk from
+    state0 at base n-1 over the kernel's plane bp ((n, 64) int32, row j =
+    base j).  count == M means the bound was reached (the caller walks per
+    base instead).  CPU tensors run the plain version; CUDA tensors launch
+    csrc/trace.cu (and raise if it does not build or launch).
+    `event_walk.launches` counts kernel launches."""
+    if bp.dtype != torch.int32 or bp.dim() != 2 or bp.shape[1] != 64 \
+            or bp.shape[0] < n:
+        raise ValueError(f"bp must be (n, 64) int32, got "
+                         f"{tuple(bp.shape)} {bp.dtype}")
+    if n < 2:
+        return np.zeros((0, 5), np.int32), n - 1, 0
+    brk = walk_breaks(bp, n).contiguous()
+    if bp.device.type == "cpu":
+        ev, fb, cnt = event_walk_reference(bp, brk, state0, n, M)
+        return ev[:cnt].numpy(), fb, cnt
+    if bp.device.type != "cuda":
+        raise ValueError(f"unsupported device {bp.device}")
+    ev, res = launch_event_walk(bp.contiguous(), brk, state0, n, M)
+    fb, cnt = (int(v) for v in res.cpu())
+    return ev[:cnt].cpu().numpy(), fb, cnt
+
+
+def launch_event_walk(bp: torch.Tensor, brk: torch.Tensor, state0: int,
+                      n: int, M: int = M_EVENTS):
+    """One launch of csrc/trace.cu on CUDA tensors (bp (n, 64) and brk
+    (64, n-1) int32, contiguous): (events (M, 5), [final base, count]) on
+    the card, not synchronized."""
+    from ._build import load
+    fn = load("trace").event_walk_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ev = torch.zeros((M, 5), dtype=torch.int32, device=bp.device)
+    res = torch.zeros(2, dtype=torch.int32, device=bp.device)
+    err = fn(bp.data_ptr(), brk.data_ptr(), n, int(state0), M,
+             ev.data_ptr(), res.data_ptr(),
+             torch.cuda.current_stream(bp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"event_walk kernel launch failed: CUDA error "
+                           f"{err}")
+    event_walk.launches += 1
+    return ev, res
+
+
+event_walk.launches = 0
+
+
+def condensed_path_events(events: np.ndarray, count: int, final_base: int,
+                          dnalen: int, types):
+    """List[PathState] from the event walk's output; identical to
+    condensed_path on the per-base packed emits (chain runs expand to
+    per-base raw segments, then adjacent same-type non-coding-exon runs
+    merge: they are by construction the same merged run)."""
+    from ..output.genes import (PathState, set_trunc_flag, is_coding_exon)
+    ev = np.asarray(events[:count][::-1])          # begin-to-end order
+    if ev.shape[0] == 0:
+        return []
+    # per event: read segment [seg_lo, seg_hi], then run [run_lo, run_hi]
+    segs: List[Tuple[int, int, int]] = []
+    for run_lo, run_hi, seg_lo, seg_hi, st_ in ev:
+        segs.append((int(seg_lo), int(seg_hi), int(st_)))
+        if run_hi >= run_lo:
+            t = types[int(st_)]
+            if is_coding_exon(t):      # never self-runs; safety expansion
+                segs.extend((p, p, int(st_))
+                            for p in range(int(run_lo), int(run_hi) + 1))
+            else:
+                segs.append((int(run_lo), int(run_hi), int(st_)))
+    out = []
+    for b, e, s in segs:
+        t = types[s]
+        if out and out[-1].type == t and not is_coding_exon(t):
+            out[-1].end = e
+            continue
+        out.append(PathState(begin=b, end=e, type=t))
+    # truncation flags: only the first/last raw segments can set them
+    for st in out:
+        probe = PathState(begin=st.begin, end=st.end, type=st.type)
+        set_trunc_flag(probe, st.begin - 1, dnalen)
+        st.truncated = probe.truncated
     return out

@@ -1,5 +1,5 @@
-"""Per-sequence dense log-score tracks (host copy of
-augustus_tpu/engine/tracks.py, numpy only).
+"""Per-sequence dense log-score tracks (counterpart of
+augustus_tpu/engine/tracks.py, on numpy or on torch tensors: xputil.A).
 
 Instead of evaluating emission
 probabilities lazily per DP candidate (reference: ExonModel::seqProb
@@ -12,8 +12,10 @@ we precompute for the whole sequence
     initiation, stop codons) as dense tracks,
   * open-reading-frame stop barriers (nearest in-frame stop per frame/strand).
 
-Everything is float64 log space on the host; the Viterbi kernel consumes the
-same tracks as float32 device arrays.
+Everything is float64 log space on either backend; the Viterbi kernel
+consumes the same tracks as float32 device arrays.  On tensors, logs of
+model tables are taken on the host and gathered, so that no per-base
+transcendental runs on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 from .. import genetics
 from ..constants import Constants, ASS_MIDDLE, DSS_MIDDLE, STOPCODON_LEN
 from ..model.pbl import IntronParams, Motif
-from .xputil import DD, asarr, ftype
+from .xputil import A, DD, asarr, astype, ftype
 
 NEG_INF = float("-inf")
 LOG_QUARTER = float(np.log(0.25))
@@ -43,17 +45,33 @@ def _safe_log_np(x: np.ndarray) -> np.ndarray:
         return np.log(x)
 
 
+def log_take(table: np.ndarray, idx):
+    """log(table[idx]) for a model table: on numpy the log of the gathered
+    values (the reference's order), on tensors a gather from the host's
+    log of the table (the same numpy log of the same values)."""
+    if A.is_torch:
+        return asarr(_safe_log_np(np.asarray(table)))[idx]
+    return _safe_log(np.asarray(table)[idx])
+
+
+def _cummax(x):
+    """Running maximum along the only axis."""
+    if A.is_torch:
+        return A.xp.torch.cummax(x, dim=0).values
+    return np.maximum.accumulate(x)
+
+
 def kmer_lookup_log(codes: np.ndarray, k1: int, table: np.ndarray,
                     invalid_log: float) -> np.ndarray:
     """log table[pattern ending at j] for j in [k1-1, n-1]; positions j<k1-1
     and windows containing N get `invalid_log`.  Returns full length n."""
-    xp = np
+    xp = A.xp
     n = codes.shape[0]
     if n < k1:
-        return np.full(n, invalid_log)
+        return xp.full(n, invalid_log, dtype=ftype())
     ids = genetics.kmer_ids(codes, k1)          # pattern starting at i
     valid = ids >= 0
-    logs = xp.where(valid, _safe_log(asarr(table)[xp.where(valid, ids, 0)]),
+    logs = xp.where(valid, log_take(table, xp.where(valid, ids, 0)),
                     invalid_log)
     head = xp.full((k1 - 1,), invalid_log, dtype=ftype())
     return xp.concatenate([head, logs])          # ends at j = i + k1 - 1
@@ -63,13 +81,13 @@ def rc_kmer_lookup_log(codes: np.ndarray, k1: int, table: np.ndarray,
                        invalid_log: float) -> np.ndarray:
     """log table[rc pattern starting at j] for j in [0, n-k1]; tail positions
     (window crossing the end) and N windows get `invalid_log`."""
-    xp = np
+    xp = A.xp
     n = codes.shape[0]
     if n < k1:
-        return np.full(n, invalid_log)
+        return xp.full(n, invalid_log, dtype=ftype())
     ids = genetics.rc_kmer_ids(codes, k1)
     valid = ids >= 0
-    logs = xp.where(valid, _safe_log(asarr(table)[xp.where(valid, ids, 0)]),
+    logs = xp.where(valid, log_take(table, xp.where(valid, ids, 0)),
                     invalid_log)
     tail = xp.full((k1 - 1,), invalid_log, dtype=ftype())
     return xp.concatenate([logs, tail])
@@ -87,7 +105,7 @@ def phase_cumsum(per_frame: np.ndarray, reverse: bool):
     with ~0.06 absolute noise — see xputil.DD).
     """
     from . import xputil as U
-    xp = np
+    xp = A.xp
     _, n = per_frame.shape
     pos = U.arange(n)
     rows = []
@@ -109,11 +127,11 @@ def motif_score_fwd(codes: np.ndarray, motif: Motif) -> np.ndarray:
     Window positions whose pattern contains N or crosses the sequence end
     contribute 0.25 (reference Motif::seqProb per-position catch).
     Defined for s in [k, n-1]; s < k gets -inf (callers gate on that)."""
-    xp = np
+    xp = A.xp
     n = codes.shape[0]
     k1 = motif.k + 1
     if n <= motif.k:
-        return np.full(n, NEG_INF)
+        return xp.full(n, NEG_INF, dtype=ftype())
     ids_part = genetics.kmer_ids(codes, k1)     # start i -> [i, i+k]
     ids = xp.concatenate([ids_part, xp.full((n - ids_part.shape[0],), -1,
                                             dtype=ids_part.dtype)])
@@ -139,11 +157,11 @@ def motif_score_rc(codes: np.ndarray, motif: Motif) -> np.ndarray:
     """log Motif::seqProb(seq + s, reverse=True, complement=True) per start s:
     product over i of windowProbs[n-1-i][rc pattern starting at s+i]; window
     positions crossing the end or containing N contribute 0.25."""
-    xp = np
+    xp = A.xp
     n = codes.shape[0]
     k1 = motif.k + 1
     if n == 0:
-        return np.full(n, NEG_INF)
+        return xp.full(n, NEG_INF, dtype=ftype())
     ids_part = genetics.rc_kmer_ids(codes, k1)  # start i -> rc of [i, i+k]
     ids = xp.concatenate([ids_part, xp.full((n - ids_part.shape[0],), -1,
                                             dtype=ids_part.dtype)]) \
@@ -175,7 +193,7 @@ class SpliceTracks:
 
 
 def dinuc_at(codes: np.ndarray, a: int, b: int) -> np.ndarray:
-    xp = np
+    xp = A.xp
     n = codes.shape[0]
     head = (codes[:-1] == a) & (codes[1:] == b)
     return xp.concatenate([head, xp.zeros(min(n, 1), dtype=bool)])
@@ -219,7 +237,7 @@ def is_possible_dss(dss_ok: np.ndarray, pos) -> np.ndarray:
     'gt' at [pos, pos+1] (hints add sites later)."""
     n = dss_ok.shape[0]
     ok = (pos >= 1) & (pos <= n - 2)
-    return ok & dss_ok[np.clip(pos, 0, n - 1)]
+    return ok & dss_ok[A.xp.clip(pos, 0, n - 1)]
 
 
 def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants,
@@ -227,7 +245,7 @@ def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants,
     """hinted: optional (fD, rD, fA, rA) boolean arrays of hint-enabled
     splice sites (reference isPossibleDSS merges genomic consensus with
     hinted sites, include/statemodel.hh:98-117)."""
-    xp = np
+    xp = A.xp
     n = codes.shape[0]
     A_, C_, G_, T_ = genetics.A, genetics.C, genetics.G, genetics.T
 
@@ -251,15 +269,15 @@ def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants,
     base = U.arange(n)
 
     from . import xputil as U
-    c64 = codes.astype(np.int64)
+    c64 = astype(codes, np.int64)
     comp_t = asarr(genetics.COMPLEMENT)
-    comp64 = comp_t[codes].astype(np.int64)
+    comp64 = astype(comp_t[codes], np.int64)
     pos_i = U.arange(n)
 
     def window_ids(offsets):
         """Pattern id from STATIC integer offsets (big-endian), -1 where
         any base is N or out of range; shifts instead of gathers."""
-        ids = xp.zeros(n, dtype=np.int64 if xp is np else np.int32)
+        ids = xp.zeros(n, dtype=np.int64)
         bad = xp.zeros(n, dtype=bool)
         for off in offsets:
             inr = (pos_i + off >= 0) & (pos_i + off < n)
@@ -270,7 +288,7 @@ def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants,
 
     def rc_ids(offsets):
         # complement bases, given in already-reversed offset order
-        ids = xp.zeros(n, dtype=np.int64 if xp is np else np.int32)
+        ids = xp.zeros(n, dtype=np.int64)
         bad = xp.zeros(n, dtype=bool)
         for off in offsets:
             inr = (pos_i + off >= 0) & (pos_i + off < n)
@@ -385,21 +403,22 @@ def nearest_stop_arrays(codes: np.ndarray, code: genetics.GeneticCode
                         ) -> Dict[str, np.ndarray]:
     """reference OpenReadingFrame ctor (src/exonmodel.cc:167): per position i
     (stepping by 3 within each frame lane), the largest stop-codon start
-    <= i in the same lane; -1 if none.  Plus the tail fixups."""
-    xp = np
+    <= i in the same lane; -1 if none.  Plus the tail fixups.  On tensors
+    the lane maxima are torch.cummax (exact on integers)."""
+    xp = A.xp
     n = codes.shape[0]
     stops_f = code.stop_at(codes)
     stops_r = code.rc_stop_at(codes)
     limit = n - STOPCODON_LEN
-    fwd = np.full(n, -1, dtype=np.int64)
-    rev = np.full(n, -1, dtype=np.int64)
+    fwd = xp.full(n, -1, dtype=np.int64)
+    rev = xp.full(n, -1, dtype=np.int64)
     for lane in range(3):
-        pos = np.arange(lane, limit + 1, 3)
-        if pos.size == 0:
+        pos = xp.arange(lane, limit + 1, 3)
+        if pos.shape[0] == 0:
             continue
         for arr, stops in ((fwd, stops_f), (rev, stops_r)):
-            hit = np.where(np.asarray(stops)[pos], pos, -1)
-            arr[pos] = np.maximum.accumulate(hit)
+            hit = xp.where(stops[pos], pos, -1)
+            arr[pos] = _cummax(hit)
     if n > 5:
         fwd[limit + 1] = fwd[limit - 2]
         fwd[limit + 2] = fwd[limit - 1]
@@ -411,7 +430,7 @@ def nearest_stop_arrays(codes: np.ndarray, code: genetics.GeneticCode
 def leftmost_exon_begin(orf: Dict[str, np.ndarray], frame, base, forward: bool,
                         cn: Constants, n: int):
     """reference OpenReadingFrame::leftmostExonBegin (vectorized)."""
-    xp = np
+    xp = A.xp
     if forward:
         pos = xp.where((frame == 0) | (frame == 1), base - frame - 3,
                        base - frame)

@@ -884,12 +884,15 @@ def planes_for(static: PKStatic, arrays: Dict[str, np.ndarray],
 
 class ViterbiEngine:
     """Pack one chunk's tracks, run the forward pass on `device`, and walk
-    the backpointers (the port's counterpart of PallasEngine)."""
+    the backpointers (the port's counterpart of PallasEngine).  `packed`:
+    pack_tracks' result when the caller packed already (the device route
+    packs on the card)."""
 
-    def __init__(self, tracks: DPTracks, device):
+    def __init__(self, tracks: DPTracks, device, packed=None):
         self.tracks = tracks
         self.device = torch.device(device)
-        self.static, self.arrays = pack_tracks(tracks)
+        self.static, self.arrays = packed if packed is not None \
+            else pack_tracks(tracks)
         self.n, self.S = self.static.n, self.static.S
 
     def run(self, debug_vals: bool = False) -> None:
@@ -925,3 +928,20 @@ class ViterbiEngine:
         packed, fb = self.trace_packed()
         return condensed_path(packed, fb, dnalen,
                               self.tracks.gold.sg.state_types)
+
+    def traceback_events(self, dnalen: int):
+        """The condensed path by the event walk K4 over the plane where the
+        kernel left it; a walk that reaches its bound (a path of more than
+        M_EVENTS segments) walks per base on the host instead."""
+        from .. import stats
+        from .traceback import (M_EVENTS, condensed_path,
+                                condensed_path_events, event_walk,
+                                trace_packed)
+        types = self.tracks.gold.sg.state_types
+        state0 = self._walk_start()
+        ev, fb, cnt = event_walk(self.bp, state0, self.n, M_EVENTS)
+        if cnt < M_EVENTS:
+            return condensed_path_events(ev, cnt, fb, dnalen, types)
+        stats.count("trace_overflow")
+        packed, fb = trace_packed(self.bp.cpu().numpy(), state0, self.n)
+        return condensed_path(packed, fb, dnalen, types)

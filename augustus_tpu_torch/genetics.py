@@ -53,12 +53,13 @@ def kmer_ids(codes: np.ndarray, k: int) -> np.ndarray:
 
     Positions whose window contains a non-acgt base get index -1.
     First base is the most significant digit (reference Seq2Int::operator())."""
-    xp = np
+    from .engine.xputil import A, astype
+    xp = A.xp
     n = codes.shape[0]
     if n < k:
-        return np.empty(0, dtype=np.int64)
-    c64 = codes.astype(np.int64)
-    ids = xp.zeros(n - k + 1, dtype=np.int64 if xp is np else np.int32)
+        return xp.zeros(0, dtype=np.int64)
+    c64 = astype(codes, np.int64)
+    ids = xp.zeros(n - k + 1, dtype=np.int64)
     bad = xp.zeros(n - k + 1, dtype=bool)
     for i in range(k):
         ids = (ids << 2) | xp.where(c64[i:n - k + 1 + i] == N, 0,
@@ -72,12 +73,13 @@ def rc_kmer_ids(codes: np.ndarray, k: int) -> np.ndarray:
 
     Matches reference Seq2Int::rc: digit i (significance 4**i) is the
     complement of base i of the window."""
-    xp = np
+    from .engine.xputil import A, astype
+    xp = A.xp
     n = codes.shape[0]
     if n < k:
-        return np.empty(0, dtype=np.int64)
-    comp = np.asarray(COMPLEMENT)[codes].astype(np.int64)
-    ids = xp.zeros(n - k + 1, dtype=np.int64 if xp is np else np.int32)
+        return xp.zeros(0, dtype=np.int64)
+    comp = astype(xp.asarray(COMPLEMENT)[codes], np.int64)
+    ids = xp.zeros(n - k + 1, dtype=np.int64)
     bad = xp.zeros(n - k + 1, dtype=bool)
     for i in range(k):
         ids = ids | (xp.where(comp[i:n - k + 1 + i] == N, 0,
@@ -178,11 +180,12 @@ class GeneticCode:
 
         Length n; last two positions are False.
         """
-        xp = np
+        from .engine.xputil import A, astype
+        xp = A.xp
         n = codes.shape[0]
         if n < 3:
-            return np.zeros(n, dtype=bool)
-        c = codes.astype(np.int64)
+            return xp.zeros(n, dtype=bool)
+        c = astype(codes, np.int64)
         idx = c[:-2] * 16 + c[1:-1] * 4 + c[2:]
         valid = (c[:-2] != N) & (c[1:-1] != N) & (c[2:] != N)
         head = valid & xp.asarray(self.is_stop)[xp.where(valid, idx, 0)]
@@ -192,12 +195,13 @@ class GeneticCode:
         """True at i if codes[i:i+3] is the reverse complement of a stop codon
         (i.e. a stop codon read on the minus strand): tta, cta, tca for the
         standard code."""
-        xp = np
+        from .engine.xputil import A, astype
+        xp = A.xp
         n = codes.shape[0]
         if n < 3:
-            return np.zeros(n, dtype=bool)
-        c = codes.astype(np.int64)
-        comp = xp.asarray(COMPLEMENT)[codes].astype(np.int64)
+            return xp.zeros(n, dtype=bool)
+        c = astype(codes, np.int64)
+        comp = astype(xp.asarray(COMPLEMENT)[codes], np.int64)
         # reverse complement codon = comp(b2) comp(b1) comp(b0)
         idx = comp[2:] * 16 + comp[1:-1] * 4 + comp[:-2]
         valid = (c[:-2] != N) & (c[1:-1] != N) & (c[2:] != N)

@@ -216,3 +216,14 @@ def tiled_hinted(data_dir: str) -> Tuple[FastaRecord, List[str]]:
                 c[3], c[4] = str(int(c[3]) + off), str(int(c[4]) + off)
                 hints.append("\t".join(c))
     return FastaRecord(TILED_HINTED_NAME, seq.decode()), hints
+
+
+EXON_HINT_TYPES = ("exonpart", "CDSpart", "exon", "CDS")
+
+
+def exon_free_hints(lines: List[str]) -> List[str]:
+    """The GFF hint lines without exonpart, CDSpart, exon and CDS hints:
+    a hint set whose chunks take the device route (engine/device_prep.py)."""
+    return [l for l in lines
+            if l.startswith("#") or len(l.split("\t")) < 3
+            or l.split("\t")[2] not in EXON_HINT_TYPES]

@@ -1,11 +1,14 @@
 """Stage timers for the prediction pipeline.
 
-Port of `augustus_tpu/stats.py`: a per-stage breakdown (prep / track build /
-pack / expand / kernel / traceback / gene projection / printing), enabled by
-`reset(True)`; `predict` and the engine call `stage(name)` unconditionally
-(a no-op when disabled).  `stage(name, device)` on a CUDA device times the
-enclosed work with CUDA events and synchronizes at its end, so the number
-is device time; elsewhere it is host wall time.
+Port of `augustus_tpu/stats.py`: a per-stage breakdown (prep / dev_prep /
+track build / pack / expand / kernel / traceback / gene projection /
+printing), enabled by `reset(True)`; `predict` and the engine call
+`stage(name)` unconditionally (a no-op when disabled).  `stage(name,
+device)` on a CUDA device times the enclosed work with CUDA events and
+synchronizes at its end, so the number is device time; elsewhere it is host
+wall time.  `count(name)` counts events: the route of every piece
+(`device_prep` or `host_prep`) and the event walks that reached their
+bound (`trace_overflow`).
 """
 
 from __future__ import annotations
@@ -16,12 +19,19 @@ from typing import Dict
 
 _ENABLED = False
 TIMES: Dict[str, float] = {}
+COUNTS: Dict[str, int] = {}
 
 
 def reset(enabled: bool = True) -> None:
     global _ENABLED
     _ENABLED = enabled
     TIMES.clear()
+    COUNTS.clear()
+
+
+def count(name: str, k: int = 1) -> None:
+    if _ENABLED:
+        COUNTS[name] = COUNTS.get(name, 0) + k
 
 
 def add(name: str, seconds: float) -> None:
@@ -57,4 +67,6 @@ def report() -> str:
     total = sum(TIMES.values())
     parts = [f"{k}={v:.2f}s" for k, v in
              sorted(TIMES.items(), key=lambda kv: -kv[1])]
-    return f"stages({total:.2f}s tracked): " + " ".join(parts)
+    counts = " ".join(f"{k}={v}" for k, v in sorted(COUNTS.items()))
+    return f"stages({total:.2f}s tracked): " + " ".join(parts) + \
+        (f" counts: {counts}" if counts else "")

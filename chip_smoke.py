@@ -2,13 +2,15 @@
 """Drive the PyTorch/CUDA port (augustus_tpu_torch) on one NVIDIA H100.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-It needs one CUDA card, builds the kernel from the sources in the checkout,
-and exits non-zero on any failure (nothing is caught, nothing falls back to
-the CPU or to a kernel's plain version).  Phases, one JSON line each:
+It needs one CUDA card, builds the kernels from the sources in the
+checkout, and exits non-zero on any failure (nothing is caught, nothing
+falls back to the CPU or to a kernel's plain version).  Phases, one JSON
+line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of csrc/viterbi.cu (set-up time; nvcc's -Xptxas=-v report
-          of registers, shared memory and spills goes to stderr)
+  build   nvcc of csrc/viterbi.cu, prefix.cu and trace.cu, all started
+          together (set-up time; nvcc's -Xptxas=-v report of registers,
+          shared memory and spills goes to stderr)
   parity  the Viterbi kernel against its plain PyTorch version on the card,
           on 6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
@@ -21,20 +23,43 @@ the CPU or to a kernel's plain version).  Phases, one JSON line each:
           live backpointers equal, final column equal; the kernel's time
           and time per position beside its roofline bound, with the bytes
           per position
-  gff     predict_file(..., device="cuda") on HS04636.fa, byte-equal to
+  prep_parity  the device route's tables (engine/device_prep.py: track
+          preparation on the card, float64, prefix.cu for the cumulative
+          sums) against the host route's (numpy) on the card, for all of
+          HS04636.fa, the gc2 6 kb chunk, HS04636sm.fa softmasked with the
+          exon-free subset of its hints, and the full 1.02 Mb tiled_record:
+          PKStatic equal, integer tables exact, float tables held to
+          augustus_tpu's device-route tolerance 4e-3 + 3e-6*|x|, with the
+          count of entries that are not bit-equal and the largest difference
+  kernels_new  on the full cell: prefix.cu against its plain version
+          (torch.cumsum on the CPU) and np.cumsum on every row that the
+          device route sums (bit-equal), with torch.cumsum on the card as
+          the library call and the count of float32 table entries it would
+          have changed; trace.cu (the event walk K4) against its plain
+          version on the full cell's backpointer plane (events, count and
+          final base equal), beside the host walk it replaces
+  gff     prediction on HS04636.fa on the card (device route), cold and
+          warm, each byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
   gff_hints  the same on HS04636sm.fa with --softmasking=1, its hints
-          file and extrinsic.M.RM.E.W.cfg, evidence blocks included,
-          byte-equal to repo_fixture_HS04636sm_hints.gff
+          file and extrinsic.M.RM.E.W.cfg (exon hints: host route),
+          evidence blocks included, byte-equal to
+          repo_fixture_HS04636sm_hints.gff
   full    ab-initio prediction on the 1,023,095-base sequence of
-          augustus_tpu_torch/io/tiled.py: one cold run, then one warm run
-          with the per-stage breakdown, each byte-equal to
+          augustus_tpu_torch/io/tiled.py (device route): one cold run, then
+          one warm run with the per-stage breakdown, each byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_tiled.gff
-  full_hints  the same letters softmasked, with the EST hints of every
-          inserted gene (io/tiled.py:tiled_hinted), cold and warm, each
-          byte-equal to repo_fixture_tiled_hints.gff
-Then the kernels line, the card line and the final status line.  The GFF
-comparisons leave out comment lines.
+  full_sm the same letters softmasked (io/tiled.py:tiled_hinted) with the
+          hints of data/hints/tiled_sm.E.gff without their exonpart,
+          CDSpart, exon and CDS lines: the device route cold and warm, then
+          the host route (Model.route = "host") cold and warm, all four
+          GFF texts byte-equal, evidence blocks included
+  full_hints  the softmasked letters with all the EST hints of every
+          inserted gene (host route), cold and warm, each byte-equal to
+          repo_fixture_tiled_hints.gff
+Every prediction phase prints the route of each piece (stats counts) and
+asserts the one it expects.  Then the kernels line, the card line and the
+final status line.  The golden comparisons leave out comment lines.
 """
 
 from __future__ import annotations
@@ -53,9 +78,14 @@ HINTS = os.path.join(ROOT, "augustus_tpu_torch", "data", "hints")
 DATA = os.path.join(ROOT, "tests", "data")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
-# float32 rate outside the tensor cores
+# the float32 and float64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+KERNELS = ("viterbi", "prefix", "trace")
+EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
+EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
+                            "HS04636sm.exon_free.gff")
 
 
 def emit(obj) -> None:
@@ -71,8 +101,9 @@ def card_line() -> str:
 
 
 def model_args(species: str, hints=None) -> dict:
-    """The species' arguments; with a hints file name, softmasking on and
-    the EST hints with extrinsic.M.RM.E.W.cfg."""
+    """The species' arguments; with a hints file (a name in data/hints or a
+    path), softmasking on and the EST hints with
+    extrinsic.M.RM.E.W.cfg."""
     if hints is None:
         return {"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
                 "UTR": "off", "softmasking": "0"}
@@ -80,6 +111,18 @@ def model_args(species: str, hints=None) -> dict:
             "UTR": "off", "softmasking": "1",
             "hintsfile": os.path.join(HINTS, hints),
             "extrinsicCfgFile": "extrinsic.M.RM.E.W.cfg"}
+
+
+def write_exon_free(src: str, dst: str) -> int:
+    """dst: the hint lines of data/hints/src without exonpart, CDSpart, exon
+    and CDS lines (io/tiled.py:exon_free_hints); returns their count."""
+    from augustus_tpu_torch.io.tiled import exon_free_hints
+    with open(os.path.join(HINTS, src)) as fh:
+        lines = exon_free_hints(fh.read().splitlines(True))
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as fh:
+        fh.write("".join(lines))
+    return len(lines)
 
 
 def golden_body(name: str) -> str:
@@ -170,22 +213,220 @@ def phase_parity(device, chunks):
     return rows
 
 
-def phase_full(phase, model, rec, golden, card, extra):
-    """One cold and one warm prediction of rec, each held to golden."""
+def compare_tables(host, dev):
+    """The device route's packed tables against the host route's: (static
+    equal, {table: integer entries that differ}, {table: float entries not
+    bit-equal}, largest float difference, all floats within augustus_tpu's
+    device-route tolerance)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    (hst, harr), (dst, darr) = host, dev
+    static_equal = dataclasses.asdict(hst) == dataclasses.asdict(dst)
+    int_diff, not_bit_equal, max_diff, within = {}, {}, 0.0, True
+
+    def npy(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np.asarray(a)
+    for k, v in harr.items():
+        h, d = npy(v), npy(darr[k])
+        if h.shape != d.shape or h.dtype != d.dtype:
+            raise AssertionError(f"table {k}: {h.shape} {h.dtype} on the "
+                                 f"host route, {d.shape} {d.dtype} on the "
+                                 "device route")
+        if h.dtype.kind != "f":
+            bad = int((h != d).sum())
+            if bad:
+                int_diff[k] = bad
+            continue
+        bad = int((h.view(np.int32) != d.view(np.int32)).sum())
+        if not bad:
+            continue
+        not_bit_equal[k] = bad
+        hf = np.maximum(np.nan_to_num(h, neginf=-1e30), -1e30)
+        df = np.maximum(np.nan_to_num(d, neginf=-1e30), -1e30)
+        live = hf > -1e29
+        within &= bool((live == (df > -1e29)).all())
+        diff = np.abs(np.where(live, hf - df, 0.0))
+        max_diff = max(max_diff, float(diff.max()))
+        within &= bool((diff <= 4e-3 + 3e-6 * np.abs(
+            np.where(live, hf, 0.0))).all())
+    return static_equal, int_diff, not_bit_equal, max_diff, within
+
+
+def phase_prep_parity(device, chunks, card):
+    import torch
+    from augustus_tpu_torch.predict import piece_tables
+    for name, model, rec, n in chunks:
+        t0 = time.perf_counter()
+        host, _ = piece_tables(model, rec, n, device)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dev, gold = piece_tables(model, rec, n, device, route="device")
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        if dev is None:
+            raise AssertionError(f"{name}: outside the device route")
+        static_equal, int_diff, nbe, max_diff, within = compare_tables(
+            host, dev)
+        emit({"phase": "prep_parity", "chunk": name, "n": host[0].n,
+              "hints": gold.hints is not None, "static_equal": static_equal,
+              "int_entries_differing": int_diff,
+              "float_entries_not_bit_equal": sum(nbe.values()),
+              "not_bit_equal_by_table": nbe, "max_abs_diff": max_diff,
+              "within_tolerance": within, "host_route_s": host_s,
+              "device_route_s": dev_s,
+              "device_route_peak_mem_bytes":
+                  torch.cuda.max_memory_allocated(), "card": card})
+        if not static_equal or int_diff or not within:
+            raise AssertionError(f"{name}: the device route's tables differ "
+                                 "from the host route's beyond the "
+                                 "tolerance")
+
+
+def phase_kernels_new(device, model, rec, card):
+    """prefix.cu and trace.cu against their plain versions on the full
+    cell's inputs; returns their rows of the kernels line (launches are
+    filled in from the main path)."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine import xputil as U
+    from augustus_tpu_torch.engine.viterbi import planes_for, viterbi_forward
+    from augustus_tpu_torch.predict import piece_tables
+
+    # ---- prefix.cu on every row the full cell's device route sums ----
+    rows, kernel = [], U.prefix_sum_f64
+
+    def capture(x):
+        rows.append(x.clone())
+        return kernel(x)
+
+    def library(x):
+        return torch.cumsum(x, dim=-1)
+    # the kernel counts its launches on the function its module name holds
+    capture.launches = library.launches = 0
+    U.prefix_sum_f64 = capture
+    try:
+        packed, gold = piece_tables(model, rec, None, device, route="device")
+    finally:
+        U.prefix_sum_f64 = kernel
+    err = 0.0
+    for x in rows:
+        got = kernel(x).cpu()
+        plain = U.prefix_sum_f64_reference(x.cpu())
+        npsum = np.cumsum(x.cpu().numpy(), axis=-1)
+        if not (torch.equal(got.view(torch.int64), plain.view(torch.int64))
+                and np.array_equal(got.numpy().view(np.int64),
+                                   npsum.view(np.int64))):
+            raise AssertionError(f"prefix_sum_f64 differs from its plain "
+                                 f"version on a {tuple(x.shape)} input")
+        err = max(err, float((got - plain).abs().max()))
+    cpu_rows = [x.cpu() for x in rows]
+    k_ms = time_cuda(lambda: [kernel(x) for x in rows], 3)
+    lib_ms = time_cuda(lambda: [torch.cumsum(x, dim=-1) for x in rows], 3)
+    t0 = time.perf_counter()
+    for x in cpu_rows:
+        U.prefix_sum_f64_reference(x)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(2 * 8 * x.numel() for x in rows)
+    ops = sum(x.numel() for x in rows)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F64_OPS_PER_S * 1e3
+    # the same route with torch.cumsum on the card in place of the kernel
+    U.prefix_sum_f64 = library
+    try:
+        lib_packed, _ = piece_tables(model, rec, None, device,
+                                     route="device")
+    finally:
+        U.prefix_sum_f64 = kernel
+    _, _, changed, lib_diff, _ = compare_tables(packed, lib_packed)
+    prefix_row = {
+        "phase": "kernels_new", "kernel": "prefix_sum_f64", "calls": len(rows),
+        "rows": sum(int(np.prod(x.shape[:-1])) for x in rows),
+        "entries": ops, "parity": "bit-exact (also np.cumsum)",
+        "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+        "plain_on": "CPU (torch.cumsum)", "library_ms": lib_ms,
+        "bytes": nbytes, "bound_bytes_ms": bound_bytes,
+        "bound_ops_ms": bound_ops, "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_changed_f32_entries": sum(changed.values()),
+        "library_changed_by_table": changed,
+        "library_max_abs_diff": lib_diff, "card": card}
+    emit(prefix_row)
+
+    # ---- trace.cu on the full cell's backpointer plane ----------------
+    st, arr = packed
+    n, S = st.n, st.S
+    planes = planes_for(st, arr, device)
+    bp, vfin, _ = viterbi_forward(st, planes)
+    lt = np.asarray(gold.log_term[:S], dtype=np.float32)
+    last = vfin[:S].cpu().numpy() + np.where(np.isfinite(lt), lt,
+                                             np.float32(-1.0e30))
+    state0 = int(np.argmax(last))
+    brk = tb.walk_breaks(bp, n).contiguous()
+    ev, res = tb.launch_event_walk(bp, brk, state0, n)
+    fb, cnt = (int(v) for v in res.cpu())
+    bp_h = bp.cpu()
+    brk_h = tb.walk_breaks(bp_h, n)
+    if not torch.equal(brk_h, brk.cpu()):
+        raise AssertionError("walk_breaks differs between the card and CPU")
+    t0 = time.perf_counter()
+    ev_p, fb_p, cnt_p = tb.event_walk_reference(bp_h, brk_h, state0, n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if (fb, cnt) != (fb_p, cnt_p) or not torch.equal(ev.cpu(), ev_p):
+        raise AssertionError("event_walk differs from its plain version")
+    if cnt >= tb.M_EVENTS or cnt < 100:
+        raise AssertionError(f"event walk of {cnt} events on the full cell")
+    k_ms = time_cuda(lambda: tb.launch_event_walk(bp, brk, state0, n), 3)
+    brk_ms = time_cuda(lambda: tb.walk_breaks(bp, n), 3)
+    t0 = time.perf_counter()
+    packed_emits, _ = tb.trace_packed(bp.cpu().numpy(), state0, n)
+    host_walk_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = cnt * (3 * 4 + 5 * 4) + 8
+    trace_row = {
+        "phase": "kernels_new", "kernel": "event_walk", "n": n,
+        "events": cnt, "final_base": fb, "parity": "exact",
+        "max_abs_err": 0, "ms": k_ms, "walk_breaks_ms": brk_ms,
+        "plain_ms": plain_ms, "plain_on": "CPU (one step per event)",
+        "host_walk_ms": host_walk_ms, "library_ms": None, "bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "card": card}
+    emit(trace_row)
+    return prefix_row, trace_row
+
+
+def run_predict(model, rec, route):
+    """One prediction with stats on: (gff, stage times, counts, wall s,
+    peak device bytes); asserts that every piece took `route`."""
     import torch
     from augustus_tpu_torch import stats
     from augustus_tpu_torch.predict import predict_records
-    runs = []
-    for label in ("cold", "warm"):
-        torch.cuda.reset_peak_memory_stats()
-        stats.reset(True)
-        t0 = time.perf_counter()
-        gff_full = predict_records(model, [rec], device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        tm = dict(stats.TIMES)
-        stats.reset(False)
-        if strip_comments(gff_full) != golden:
+    torch.cuda.reset_peak_memory_stats()
+    stats.reset(True)
+    t0 = time.perf_counter()
+    gff = predict_records(model, [rec], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tm, counts = dict(stats.TIMES), dict(stats.COUNTS)
+    stats.reset(False)
+    routes = {k: v for k, v in counts.items() if k.endswith("_prep")}
+    if set(routes) != {route}:
+        raise AssertionError(f"pieces took the routes {routes}, expected "
+                             f"{route}")
+    return gff, tm, counts, wall, torch.cuda.max_memory_allocated()
+
+
+def phase_full(phase, model, rec, golden, card, extra, route,
+               labels=("cold", "warm")):
+    """Cold and warm predictions of rec on `route`, each held to golden
+    (the GFF body) when it is given; returns the rows and the GFF texts."""
+    runs, texts = [], []
+    for label in labels:
+        gff_full, tm, counts, wall, peak = run_predict(model, rec, route)
+        if golden is not None and strip_comments(gff_full) != golden:
             raise AssertionError(f"{phase} {label} run: the full-size GFF "
                                  "differs from the committed golden")
         genes = gff_full.count("\tgene\t")
@@ -193,21 +434,52 @@ def phase_full(phase, model, rec, golden, card, extra):
             raise AssertionError(f"{phase}: no gene predicted")
         host_prep = tm.get("prep", 0) + tm.get("build_tracks", 0) + \
             tm.get("pack", 0)
-        row = {"phase": phase, "run": label, "length": len(rec.sequence),
-               "genes": genes, "equal_to_golden": True, **extra,
+        row = {"phase": phase, "run": label, "route": route,
+               "length": len(rec.sequence), "genes": genes,
+               "equal_to_golden": golden is not None, **extra,
                "host_prep_s": host_prep,
+               "dev_prep_ms": tm.get("dev_prep", 0) * 1e3,
                "expand_ms": tm.get("expand", 0) * 1e3,
                "kernel_ms": tm.get("kernel", 0) * 1e3,
                "traceback_ms": tm.get("traceback", 0) * 1e3,
                "output_s": tm.get("project", 0) + tm.get("print", 0),
                "wall_s": wall, "mb_per_s": len(rec.sequence) / 1e6 / wall,
-               "device_busy_share": (tm.get("expand", 0) +
-                                     tm.get("kernel", 0)) / wall,
-               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-               "stages_s": tm, "card": card}
+               "device_stage_share": (tm.get("dev_prep", 0) +
+                                      tm.get("expand", 0) +
+                                      tm.get("kernel", 0)) / wall,
+               "peak_mem_bytes": peak, "stages_s": tm, "counts": counts,
+               "card": card}
         emit(row)
         runs.append(row)
-    return runs
+        texts.append(gff_full)
+    return runs, texts
+
+
+def predict_phase(phase, model, path, golden_name, route, need_evidence):
+    """A cold and a warm prediction of the first record of `path`, each
+    byte-equal to the golden (comment lines left out)."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    rec = read_fasta(path)[0]
+    for label in ("cold", "warm"):
+        gff, tm, counts, wall, _ = run_predict(model, rec, route)
+        if strip_comments(gff) != golden_body(golden_name):
+            raise AssertionError(f"{phase} {label} run: GFF differs from "
+                                 "the committed golden")
+        ngenes = gff.count("\tgene\t")
+        if ngenes < 1 or (need_evidence and
+                          "# Evidence for and against" not in gff):
+            raise AssertionError(f"{phase}: no gene or no evidence block")
+        emit({"phase": phase, "run": label, "route": route, "genes": ngenes,
+              "equal_to_golden": True, "seconds": wall, "counts": counts,
+              "stages_s": tm})
+
+
+def kernel_row(name, source, replaces, launches, r, parity):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "parity": parity,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
 def main() -> int:
@@ -216,9 +488,12 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
     from augustus_tpu_torch.engine import _build
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine import xputil as U
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
-    from augustus_tpu_torch.predict import Model, predict_file
+    from augustus_tpu_torch.predict import Model
 
     device = torch.device("cuda")
     card = card_line()
@@ -228,8 +503,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    _build.load("viterbi")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    _build.build_all(KERNELS)
+    for name in KERNELS:
+        _build.load(name)
+    emit({"phase": "build", "kernels": list(KERNELS),
+          "seconds": time.perf_counter() - t0})
 
     # the chunks of length None (the whole sequence) are the gff and
     # gff_hints phases' inputs
@@ -240,75 +518,93 @@ def main() -> int:
         ("repo_fixture", "HS04636sm.fa", None, "HS04636sm.E.gff"),
         ("repo_fixture", "HS04636rc.fa", 6000, "HS04636rc.E.gff")])
 
+    model = Model.load(model_args("repo_fixture"))
+    gc2 = Model.load(model_args("repo_fixture_gc2"))
+    write_exon_free("HS04636sm.E.gff", EXON_FREE_SM)
+    sm_model = Model.load(model_args("repo_fixture", EXON_FREE_SM))
+    hs04636 = read_fasta(os.path.join(DATA, "HS04636.fa"))[0]
+    hs04636sm = read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0]
+    rec = tiled_record(DATA)
+    phase_prep_parity(device, [
+        ("HS04636", model, hs04636, None), ("gc2_6kb", gc2, hs04636, 6000),
+        ("HS04636sm_exon_free", sm_model, hs04636sm, None),
+        ("full", model, rec, None)], card)
+    prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
+
     # ---- main path: GFF parity, then full size; counts from here on ----
     viterbi_forward.launches = 0
     viterbi_forward.hinted_launches = 0
-    model = Model.load(model_args("repo_fixture"))
-    t0 = time.perf_counter()
-    gff = predict_file(model, os.path.join(DATA, "HS04636.fa"),
-                       device="cuda")
-    if strip_comments(gff) != golden_body("repo_fixture_HS04636.gff"):
-        raise AssertionError("GFF differs from the committed golden")
-    ngenes = gff.count("\tgene\t")
-    if ngenes < 1:
-        raise AssertionError("no gene predicted on HS04636")
-    emit({"phase": "gff", "genes": ngenes, "equal_to_golden": True,
-          "seconds": time.perf_counter() - t0,
-          "launches": viterbi_forward.launches})
-
+    U.prefix_sum_f64.launches = 0
+    tb.event_walk.launches = 0
+    predict_phase("gff", model, os.path.join(DATA, "HS04636.fa"),
+                  "repo_fixture_HS04636.gff", "device_prep", False)
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
-    t0 = time.perf_counter()
-    before = viterbi_forward.hinted_launches
-    gff = predict_file(hmodel, os.path.join(DATA, "HS04636sm.fa"),
-                       device="cuda")
-    if strip_comments(gff) != golden_body(
-            "repo_fixture_HS04636sm_hints.gff"):
-        raise AssertionError("hinted GFF differs from the committed golden")
-    ngenes = gff.count("\tgene\t")
-    if ngenes < 1 or "# Evidence for and against" not in gff:
-        raise AssertionError("no gene or no evidence block on HS04636sm")
-    emit({"phase": "gff_hints", "genes": ngenes, "equal_to_golden": True,
-          "seconds": time.perf_counter() - t0,
-          "hinted_launches": viterbi_forward.hinted_launches - before})
+    predict_phase("gff_hints", hmodel, os.path.join(DATA, "HS04636sm.fa"),
+                  "repo_fixture_HS04636sm_hints.gff", "host_prep", True)
 
-    rec = tiled_record(DATA)
-    phase_full("full", model, rec, golden_body(
-        "repo_fixture_tiled.gff"), card, {})
+    phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
+               card, {}, "device_prep")
+
     hrec, hint_lines = tiled_hinted(DATA)
     with open(os.path.join(HINTS, "tiled_sm.E.gff")) as fh:
         if fh.read() != "".join(hint_lines):
             raise AssertionError("tiled_sm.E.gff is not tiled_hinted's hints")
-    hmodel = Model.load(model_args("repo_fixture", "tiled_sm.E.gff"))
-    counts = {"hints": len(hint_lines),
-              "rm_runs": len(re.findall("[acgtn]+", hrec.sequence)),
+    counts = {"rm_runs": len(re.findall("[acgtn]+", hrec.sequence)),
               "softmasked_share": sum(map(str.islower, hrec.sequence))
               / len(hrec.sequence)}
+    sm_counts = dict(counts, hints=write_exon_free("tiled_sm.E.gff",
+                                                   EXON_FREE))
+    sm_dev = Model.load(model_args("repo_fixture", EXON_FREE))
+    sm_host = Model.load(model_args("repo_fixture", EXON_FREE))
+    sm_host.route = "host"
+    _, dev_texts = phase_full("full_sm", sm_dev, hrec, None, card,
+                              sm_counts, "device_prep")
+    _, host_texts = phase_full("full_sm", sm_host, hrec, None, card,
+                               sm_counts, "host_prep")
+    if len(set(dev_texts + host_texts)) != 1:
+        raise AssertionError("full_sm: the device and host routes' GFF "
+                             "texts differ")
+    if "# Evidence for and against" not in dev_texts[0]:
+        raise AssertionError("full_sm: no evidence block")
+    emit({"phase": "full_sm", "routes_equal": True,
+          "genes": dev_texts[0].count("\tgene\t")})
+
+    hmodel = Model.load(model_args("repo_fixture", "tiled_sm.E.gff"))
     phase_full("full_hints", hmodel, hrec, golden_body(
-        "repo_fixture_tiled_hints.gff"), card, counts)
+        "repo_fixture_tiled_hints.gff"), card,
+        dict(counts, hints=len(hint_lines)), "host_prep")
     launches = viterbi_forward.launches
     hinted = viterbi_forward.hinted_launches
-    if launches < 1 or hinted < 1:
-        raise AssertionError(f"the main path launched the kernel {launches} "
-                             f"times, {hinted} of them with hints")
+    prefix_launches = U.prefix_sum_f64.launches
+    walk_launches = tb.event_walk.launches
+    if min(launches, hinted, prefix_launches, walk_launches) < 1:
+        raise AssertionError(
+            f"the main path launched viterbi_forward {launches} times "
+            f"({hinted} with hints), prefix_sum_f64 {prefix_launches} and "
+            f"event_walk {walk_launches} times")
 
     p, ph = parity[2], parity[3]
-    emit({"kernels": [{
-        "name": "viterbi_forward", "route": "cuda",
-        "source": "augustus_tpu_torch/csrc/viterbi.cu",
-        "replaces": "augustus_tpu/engine/pallas_scan.py:128",
-        "launches": launches, "parity": "bit-exact",
-        "max_abs_err": max(r["max_abs_err"] for r in parity),
-        "ms": p["kernel_ms"], "kernel_ms": p["kernel_ms"],
-        "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-        "bound_by": p["bound_by"], "library_ms": None}, {
-        "name": "viterbi_forward:hint_quot", "route": "cuda",
-        "source": "augustus_tpu_torch/csrc/viterbi.cu",
-        "replaces": "augustus_tpu/engine/pallas_scan.py:134",
-        "launches": hinted, "parity": "bit-exact",
-        "max_abs_err": max(r["max_abs_err"] for r in parity[3:]),
-        "ms": ph["kernel_ms"], "kernel_ms": ph["kernel_ms"],
-        "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
-        "bound_by": ph["bound_by"], "library_ms": None}]})
+    vrow = {"max_abs_err": max(r["max_abs_err"] for r in parity),
+            "ms": p["kernel_ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": None}
+    hrow = dict(vrow, max_abs_err=max(r["max_abs_err"] for r in parity[3:]),
+                ms=ph["kernel_ms"], plain_ms=ph["plain_ms"],
+                bound_ms=ph["bound_ms"], bound_by=ph["bound_by"])
+    emit({"kernels": [
+        kernel_row("viterbi_forward", "augustus_tpu_torch/csrc/viterbi.cu",
+                   "augustus_tpu/engine/pallas_scan.py:128", launches, vrow,
+                   "bit-exact"),
+        kernel_row("viterbi_forward:hint_quot",
+                   "augustus_tpu_torch/csrc/viterbi.cu",
+                   "augustus_tpu/engine/pallas_scan.py:134", hinted, hrow,
+                   "bit-exact"),
+        kernel_row("prefix_sum_f64", "augustus_tpu_torch/csrc/prefix.cu",
+                   "augustus_tpu/engine/xputil.py:188", prefix_launches,
+                   prefix_row, "bit-exact"),
+        kernel_row("event_walk", "augustus_tpu_torch/csrc/trace.cu",
+                   "augustus_tpu/engine/traceback.py:116", walk_launches,
+                   trace_row, "exact")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -85,3 +85,59 @@ def test_predict_file_on_the_card_reproduces_the_golden(cuda):
     def body(t):
         return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
     assert body(got) == body(golden)
+
+
+@pytest.mark.cuda
+def test_prefix_sum_kernel_equals_plain_version(cuda):
+    """csrc/prefix.cu adds each row left to right: bit-equal to torch.cumsum
+    on the CPU and to np.cumsum, ragged tiles included."""
+    from augustus_tpu_torch.engine import xputil as U
+    rng = np.random.default_rng(0)
+    for shape in [(1, 1), (3, 257), (2, 1000), (5, 70001)]:
+        x = torch.from_numpy(rng.standard_normal(shape) * 10).to(cuda)
+        before = U.prefix_sum_f64.launches
+        got = U.prefix_sum_f64(x).cpu()
+        assert U.prefix_sum_f64.launches == before + 1
+        plain = U.prefix_sum_f64_reference(x.cpu())
+        assert torch.equal(got.view(torch.int64), plain.view(torch.int64))
+        ref = np.cumsum(x.cpu().numpy(), axis=-1)
+        assert np.array_equal(got.numpy().view(np.int64), ref.view(np.int64))
+
+
+@pytest.mark.cuda
+def test_event_walk_kernel_equals_plain_version(cuda):
+    """csrc/trace.cu on the plane of a decode on the card: events, count and
+    final base equal to the plain version's."""
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    st, planes = _planes("repo_fixture", None, cuda)
+    bp, vfin, _ = viterbi_forward(st, planes)
+    state0, n = int(torch.argmax(vfin[: st.S])), st.n
+    brk = tb.walk_breaks(bp, n).contiguous()
+    before = tb.event_walk.launches
+    ev, res = tb.launch_event_walk(bp, brk, state0, n)
+    assert tb.event_walk.launches == before + 1
+    bh = bp.cpu()
+    rev, rfb, rcnt = tb.event_walk_reference(bh, tb.walk_breaks(bh, n),
+                                             state0, n)
+    assert res.cpu().tolist() == [rfb, rcnt] and rcnt > 3
+    assert torch.equal(ev.cpu(), rev)
+
+
+@pytest.mark.cuda
+def test_device_route_tables_equal_to_host_route_on_the_card(cuda):
+    import dataclasses
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_tables
+    m = Model.load({"species": "repo_fixture_gc2",
+                    "AUGUSTUS_CONFIG_PATH": CONFIG, "UTR": "off",
+                    "softmasking": "0"})
+    rec = read_fasta(os.path.join(ROOT, "tests", "data", "HS04636.fa"))[0]
+    (hst, harr), _ = piece_tables(m, rec, 6000, cuda)
+    (dst, darr), _ = piece_tables(m, rec, 6000, cuda, route="device")
+    assert dataclasses.asdict(hst) == dataclasses.asdict(dst)
+    for k, v in harr.items():
+        got = darr[k]
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        assert np.array_equal(np.asarray(got).view(np.uint8),
+                              np.asarray(v).view(np.uint8)), k
