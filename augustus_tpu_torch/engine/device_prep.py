@@ -35,10 +35,11 @@ DEVICE_MODEL_CLASSES = ("igenicmodel", "intronmodel", "exonmodel")
 
 
 def prepare_on_device(gold: GoldEngine, codes: np.ndarray, softmask,
-                      gff_hints, device):
+                      gff_hints, device, prefix_sum=None):
     """The device route's tables of one chunk: (tracks, pack_tracks'
     (static, arrays) with the arrays on `device`), or None when the chunk
-    lies outside the route (then nothing ran on the device).
+    lies outside the route (then nothing ran on the device).  `prefix_sum`:
+    see xputil.use_torch.
 
     Side effect on `gold` in both cases: `collect_hints` sets .codes, .n,
     .has_hints and .hints (host SeqHints), which the host route continues
@@ -61,7 +62,7 @@ def prepare_on_device(gold: GoldEngine, codes: np.ndarray, softmask,
                    gold.decomp, gold.gcode, ext_cfg=gold.ext_cfg)
         jg.log_init = gold.log_init.copy()
         jg.log_term = gold.log_term.copy()
-        with U.use_torch(device):
+        with U.use_torch(device, prefix_sum):
             codes_d = torch.from_numpy(np.ascontiguousarray(codes)).to(
                 device).long()
             stairs_d = torch.from_numpy(stairs).to(device)

@@ -208,6 +208,12 @@ class GoldEngine:
         self._prepare_tracks(self.codes)
 
     # ------------------------------------------------------------------
+    def _extra_cum_rows(self, zero) -> dict:
+        """{attribute: (n+1,) row} of cumulative tracks that _prepare_tracks
+        sums together with the content rows and sets as attributes; the
+        host route sums its hint tracks where it builds them."""
+        return {}
+
     def _prepare_tracks(self, codes: np.ndarray) -> None:
         """Sequence-content track building (ORF barriers, splice scores,
         content cumsums, signal sensors) in float64, on numpy or on the
@@ -228,10 +234,9 @@ class GoldEngine:
         classes = list(range(len(self.inp.gc)))
         self.classes = classes
 
-        def cum0(x):
-            c = U.DD.cumsum_dd(xp.concatenate(
-                [xp.zeros(1, dtype=U.ftype()), x]))
-            return c.hi
+        # every row to be summed, gathered for one ordered prefix sum
+        z = xp.zeros(1, dtype=U.ftype())
+        rows = self._extra_cum_rows(z)
 
         # content tracks per class
         self.ig_track: Dict[int, np.ndarray] = {}
@@ -253,8 +258,8 @@ class GoldEngine:
             self.intron_f_nb[c] = itf
             self.intron_f[c] = itf
             self.intron_r[c] = itr
-            self.cum_intron_f[c] = cum0(itf)
-            self.cum_intron_r[c] = cum0(itr)
+            rows[("intron", c, True)] = xp.concatenate([z, itf])
+            rows[("intron", c, False)] = xp.concatenate([z, itr])
 
             gcp = self.exp.gc[c]
             for name, table in (("emi", gcp.emiprobs),
@@ -266,10 +271,18 @@ class GoldEngine:
                 per_frame_r = U.stk([
                     T.rc_kmer_lookup_log(codes, k + 1, table[f], log_n_coding)
                     for f in range(3)])
-                self.cum_exon[(c, name, True)] = T.phase_cumsum(per_frame_f,
-                                                                reverse=False)
-                self.cum_exon[(c, name, False)] = T.phase_cumsum(per_frame_r,
-                                                                 reverse=True)
+                rows[(c, name, True)] = T.phase_rows(per_frame_f,
+                                                     reverse=False)
+                rows[(c, name, False)] = T.phase_rows(per_frame_r,
+                                                      reverse=True)
+        for key, cum in U.cumsum_rows(rows).items():
+            if isinstance(key, str):
+                setattr(self, key, cum)
+            elif key[0] == "intron":
+                (self.cum_intron_f if key[2] else self.cum_intron_r)[
+                    key[1]] = cum
+            else:
+                self.cum_exon[key] = cum
 
         # signal tracks
         self._build_signal_tracks(codes)

@@ -281,11 +281,6 @@ class JGold(GoldEngine):
              ("ig_gen", -1, m_gen))))
         self.ipb_plus = expand(interval_runs(ov, n, (("ipb_p", 1),)))
         self.ipb_minus = expand(interval_runs(ov, n, (("ipb_m", 1),)))
-        z = xp.zeros(1)
-        self.ipb_plus_cum = U.DD.cumsum_dd(
-            xp.concatenate([z, self.ipb_plus])).hi
-        self.ipb_minus_cum = U.DD.cumsum_dd(
-            xp.concatenate([z, self.ipb_minus])).hi
         # the coverage counts of exonpart/CDSpart hints (cumcov_cp_*) feed
         # only the sparse exon-hint tables: such chunks take the host route
 
@@ -295,6 +290,15 @@ class JGold(GoldEngine):
 
         self._hinted_override = (pmask("fD"), pmask("rD"), pmask("fA"),
                                  pmask("rA"))
+
+    def _extra_cum_rows(self, zero) -> dict:
+        """The intronpart-bonus cums ipb_plus_cum / ipb_minus_cum, summed in
+        _prepare_tracks' one prefix sum with the content rows."""
+        if not self.has_hints:
+            return {}
+        xp = U.A.xp
+        return {"ipb_plus_cum": xp.concatenate([zero, self.ipb_plus]),
+                "ipb_minus_cum": xp.concatenate([zero, self.ipb_minus])}
 
     # -- device signal hint folding (gold._apply_signal_hint_terms twin) --
     def _apply_signal_hint_terms(self) -> None:

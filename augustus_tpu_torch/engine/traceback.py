@@ -4,7 +4,8 @@ Port of `augustus_tpu/engine/traceback.py`, two walks:
 
 * the event walk K4 (`event_walk`, counterpart of `make_event_trace_fn`),
   the device route's: on the card it runs csrc/trace.cu over the plane
-  where the kernel left it, and only the events and two ints come back;
+  where the kernel left it, in launches of at most M_EVENTS events, and
+  only the events and three ints a launch come back;
   `condensed_path_events` builds the PathState list from them.
 * the per-base walk of the host route (`trace_packed`): the reference
   walks on the device with a backwards `lax.scan` (`make_trace_fn`); here
@@ -154,12 +155,14 @@ def walk_breaks(bp: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def event_walk_reference(bp: torch.Tensor, brk: torch.Tensor, state0: int,
-                         n: int, M: int = M_EVENTS):
-    """The walk of `make_event_trace_fn`, one Python step per event: (events
-    (M, 5) int32, final base, count).  Event rows are [run_lo, run_hi,
-    seg_lo, seg_hi, state], end to begin; rows past count are 0."""
+                         n: int, M: int = M_EVENTS, base0=None):
+    """The walk of `make_event_trace_fn` from state0 at base0 (n-1 when
+    None), one Python step per event, for at most M events: (events (M, 5)
+    int32, final base, final state, count).  Event rows are [run_lo,
+    run_hi, seg_lo, seg_hi, state], end to begin; rows past count are 0."""
     ev = torch.zeros((M, 5), dtype=torch.int32, device=bp.device)
-    base, state, count = n - 1, int(state0), 0
+    base = n - 1 if base0 is None else int(base0)
+    state, count = int(state0), 0
     while count < M and base > 0:
         p = int(bp[base, state])
         selfrun = base >= 2 and (p & 0xFFFFF) == 1 and (p >> 20) == state
@@ -170,47 +173,57 @@ def event_walk_reference(bp: torch.Tensor, brk: torch.Tensor, state0: int,
                                  dtype=torch.int32)
         base, state = b2 - off, pred
         count += 1
-    return ev, base, count
+    return ev, base, state, count
 
 
 def event_walk(bp: torch.Tensor, state0: int, n: int, M: int = M_EVENTS):
-    """(events (count, 5) numpy int32, final base, count) of the walk from
-    state0 at base n-1 over the kernel's plane bp ((n, 64) int32, row j =
-    base j).  count == M means the bound was reached (the caller walks per
-    base instead).  CPU tensors run the plain version; CUDA tensors launch
-    csrc/trace.cu (and raise if it does not build or launch).
-    `event_walk.launches` counts kernel launches."""
+    """(events (count, 5) numpy int32, final base, count) of the whole walk
+    from state0 at base n-1 over the kernel's plane bp ((n, 64) int32, row
+    j = base j).  The walk runs in steps of at most M events (the
+    reference's bound), each step starting where the last one stopped,
+    until it reaches base 0; every step runs where bp lies.  CPU tensors run
+    the plain version; CUDA tensors launch csrc/trace.cu (and raise if it
+    does not build or launch).  `event_walk.launches` counts kernel
+    launches."""
     if bp.dtype != torch.int32 or bp.dim() != 2 or bp.shape[1] != 64 \
             or bp.shape[0] < n:
         raise ValueError(f"bp must be (n, 64) int32, got "
                          f"{tuple(bp.shape)} {bp.dtype}")
+    if bp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {bp.device}")
     if n < 2:
         return np.zeros((0, 5), np.int32), n - 1, 0
     brk = walk_breaks(bp, n).contiguous()
-    if bp.device.type == "cpu":
-        ev, fb, cnt = event_walk_reference(bp, brk, state0, n, M)
-        return ev[:cnt].numpy(), fb, cnt
-    if bp.device.type != "cuda":
-        raise ValueError(f"unsupported device {bp.device}")
-    ev, res = launch_event_walk(bp.contiguous(), brk, state0, n, M)
-    fb, cnt = (int(v) for v in res.cpu())
-    return ev[:cnt].cpu().numpy(), fb, cnt
+    bpc = bp.contiguous()
+    parts, base, state = [], n - 1, int(state0)
+    while base > 0:
+        if bp.device.type == "cpu":
+            ev, base, state, cnt = event_walk_reference(bpc, brk, state, n,
+                                                        M, base)
+        else:
+            ev, res = launch_event_walk(bpc, brk, state, n, M, base)
+            base, state, cnt = (int(v) for v in res.cpu())
+        parts.append(ev[:cnt].cpu().numpy())
+    events = np.concatenate(parts)
+    return events, base, events.shape[0]
 
 
 def launch_event_walk(bp: torch.Tensor, brk: torch.Tensor, state0: int,
-                      n: int, M: int = M_EVENTS):
+                      n: int, M: int = M_EVENTS, base0=None):
     """One launch of csrc/trace.cu on CUDA tensors (bp (n, 64) and brk
-    (64, n-1) int32, contiguous): (events (M, 5), [final base, count]) on
+    (64, n-1) int32, contiguous), from state0 at base0 (n-1 when None), for
+    at most M events: (events (M, 5), [final base, final state, count]) on
     the card, not synchronized."""
     from ._build import load
     fn = load("trace").event_walk_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ev = torch.zeros((M, 5), dtype=torch.int32, device=bp.device)
-    res = torch.zeros(2, dtype=torch.int32, device=bp.device)
-    err = fn(bp.data_ptr(), brk.data_ptr(), n, int(state0), M,
+    res = torch.zeros(3, dtype=torch.int32, device=bp.device)
+    err = fn(bp.data_ptr(), brk.data_ptr(), n,
+             n - 1 if base0 is None else int(base0), int(state0), M,
              ev.data_ptr(), res.data_ptr(),
              torch.cuda.current_stream(bp.device).cuda_stream)
     if err != 0:

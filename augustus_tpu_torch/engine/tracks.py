@@ -28,7 +28,7 @@ import numpy as np
 from .. import genetics
 from ..constants import Constants, ASS_MIDDLE, DSS_MIDDLE, STOPCODON_LEN
 from ..model.pbl import IntronParams, Motif
-from .xputil import A, DD, asarr, astype, ftype
+from .xputil import A, asarr, astype, ftype
 
 NEG_INF = float("-inf")
 LOG_QUARTER = float(np.log(0.25))
@@ -93,16 +93,16 @@ def rc_kmer_lookup_log(codes: np.ndarray, k1: int, table: np.ndarray,
     return xp.concatenate([logs, tail])
 
 
-def phase_cumsum(per_frame: np.ndarray, reverse: bool):
-    """Build prefix sums for the 3 frame phases.
+def phase_rows(per_frame: np.ndarray, reverse: bool):
+    """The rows whose prefix sums are the 3 frame phases' cumulative exon
+    content.
 
     per_frame: (3, n) log emission of position j if its frame were f.
-    Returns cum: (3, n+1) with cum[phi, j+1] = sum_{i<=j} per_frame[frame(phi,i), i]
-    where frame(phi,i) = (phi+i)%3 forward, (phi-i)%3 reverse.
-
-    Host: plain float64 ndarray.  Device tracing: a DD double-float32 pair
-    (the raw cums reach O(1.4e6) at megabase scale; f32 alone would rebase
-    with ~0.06 absolute noise — see xputil.DD).
+    Returns rows: (3, n+1) with rows[phi, 0] = 0 and rows[phi, i+1] =
+    per_frame[frame(phi,i), i], where frame(phi,i) = (phi+i)%3 forward,
+    (phi-i)%3 reverse; their prefix sums (xputil.cumsum_rows) are cum with
+    cum[phi, j+1] = sum_{i<=j} per_frame[frame(phi,i), i], in float64 (the
+    raw cums reach O(1.4e6) at megabase scale).
     """
     from . import xputil as U
     xp = A.xp
@@ -116,8 +116,7 @@ def phase_cumsum(per_frame: np.ndarray, reverse: bool):
         sel = xp.where(f == 0, per_frame[0],
                        xp.where(f == 1, per_frame[1], per_frame[2]))
         rows.append(xp.concatenate([z, sel]))
-    cum = DD.cumsum_dd(xp.stack(rows), axis=-1)
-    return cum.hi
+    return xp.stack(rows)
 
 
 def motif_score_fwd(codes: np.ndarray, motif: Motif) -> np.ndarray:

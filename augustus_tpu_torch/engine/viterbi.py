@@ -931,17 +931,8 @@ class ViterbiEngine:
 
     def traceback_events(self, dnalen: int):
         """The condensed path by the event walk K4 over the plane where the
-        kernel left it; a walk that reaches its bound (a path of more than
-        M_EVENTS segments) walks per base on the host instead."""
-        from .. import stats
-        from .traceback import (M_EVENTS, condensed_path,
-                                condensed_path_events, event_walk,
-                                trace_packed)
-        types = self.tracks.gold.sg.state_types
-        state0 = self._walk_start()
-        ev, fb, cnt = event_walk(self.bp, state0, self.n, M_EVENTS)
-        if cnt < M_EVENTS:
-            return condensed_path_events(ev, cnt, fb, dnalen, types)
-        stats.count("trace_overflow")
-        packed, fb = trace_packed(self.bp.cpu().numpy(), state0, self.n)
-        return condensed_path(packed, fb, dnalen, types)
+        kernel left it."""
+        from .traceback import condensed_path_events, event_walk
+        ev, fb, cnt = event_walk(self.bp, self._walk_start(), self.n)
+        return condensed_path_events(ev, cnt, fb, dnalen,
+                                     self.tracks.gold.sg.state_types)

@@ -46,10 +46,12 @@ A = _Accessor()
 class use_torch:
     """Run the track builders on torch tensors on `device`.  Inside, the
     default float type is float64, so that torch promotes Python floats
-    with integer tensors as numpy does."""
+    with integer tensors as numpy does.  `prefix_sum` (prefix_sum_f64 when
+    None) is the function DD.cumsum_dd calls, for a caller that records or
+    replaces the prefix sums."""
 
-    def __init__(self, device):
-        self.xp = TorchXP(device)
+    def __init__(self, device, prefix_sum=None):
+        self.xp = TorchXP(device, prefix_sum)
 
     def __enter__(self):
         import torch
@@ -86,10 +88,11 @@ class TorchXP:
     scalars become Python scalars, which torch types weakly as numpy 2
     does."""
 
-    def __init__(self, device):
+    def __init__(self, device, prefix_sum=None):
         import torch
         self.torch = torch
         self.device = torch.device(device)
+        self.prefix_sum = prefix_sum or prefix_sum_f64
 
     # ---- conversion --------------------------------------------------
     def _t(self, x):
@@ -306,9 +309,15 @@ def _two_sum(a, b):
 
 def prefix_sum_f64_reference(x):
     """np.cumsum along the last axis of a float64 tensor: torch.cumsum on
-    the CPU adds left to right, as numpy does."""
+    the CPU adds left to right, as numpy does, but from +0.0, so a row's
+    leading run of -0.0 (which np.cumsum keeps) is set back to -0.0."""
     import torch
-    return torch.cumsum(x, dim=-1)
+    out = torch.cumsum(x, dim=-1)
+    if not x.numel() or not bool(torch.signbit(x[..., 0]).any()):
+        return out
+    neg_zero = (x == 0) & torch.signbit(x)
+    lead = torch.cummin(neg_zero.to(torch.int8), dim=-1).values.bool()
+    return torch.where(lead, torch.full_like(out, -0.0), out)
 
 
 def prefix_sum_f64(x):
@@ -374,7 +383,7 @@ class DD:
             raise NotImplementedError("cumsum along the last axis only")
         if xp is np:
             return DD(np.cumsum(np.asarray(x, dtype=ftype()), axis=-1))
-        return DD(prefix_sum_f64(xp.asarray(x, dtype=ftype())))
+        return DD(xp.prefix_sum(xp.asarray(x, dtype=ftype())))
 
     @property
     def shape(self):
@@ -424,6 +433,21 @@ class DD:
     def value(self):
         """Collapse to a plain float64 array."""
         return self.hi + self.lo
+
+
+def cumsum_rows(rows):
+    """{key: prefix sum of rows[key] along its last axis}, added left to
+    right, for a dict of 1-D and 2-D float64 arrays of one length: all rows
+    in one DD.cumsum_dd call, so on the card one launch of the prefix-sum
+    kernel runs every row at once."""
+    xp = A.xp
+    flat = [r if r.ndim == 2 else r[None] for r in rows.values()]
+    cum = DD.cumsum_dd(xp.concatenate(flat, axis=0)).hi
+    out, at = {}, 0
+    for (key, r), f in zip(rows.items(), flat):
+        out[key] = cum[at: at + f.shape[0]] if r.ndim == 2 else cum[at]
+        at += f.shape[0]
+    return out
 
 
 class LinRamp:

@@ -25,6 +25,7 @@ alternative transcripts and GenBank evaluation.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -147,9 +148,7 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
     from .engine.device import build_tracks
     from .engine.device_prep import try_device_decode
     from .engine.viterbi import ViterbiEngine
-    if route not in ("auto", "host"):
-        raise ValueError(f"route {route!r}: 'auto' or 'host'")
-    if route == "auto":
+    if _auto_route(route):
         path = try_device_decode(gold, codes, softmask, gff_hints, device)
         if path is not None:
             stats.count("device_prep")
@@ -167,6 +166,13 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
     eng.run()
     with stats.stage("traceback"):
         return eng.traceback_path(codes.shape[0])
+
+
+def _auto_route(route: str) -> bool:
+    """Model.route: True for "auto", False for "host"."""
+    if route not in ("auto", "host"):
+        raise ValueError(f"route {route!r}: 'auto' or 'host'")
+    return route == "auto"
 
 
 def _new_gold(model: Model, init_synch: bool, term_synch: bool) -> GoldEngine:
@@ -254,31 +260,35 @@ def _piece_input(model: Model, rec: FastaRecord, n: Optional[int]):
 
 
 def piece_tables(model: Model, rec: FastaRecord, n: Optional[int], device,
-                 route: str = "host"):
-    """pack_tracks' (static, arrays) of the first n bases of rec on the
-    host route (numpy arrays) or the device route (tensors on `device`;
-    None when the piece lies outside that route), and the piece's
-    GoldEngine."""
+                 prefix_sum=None):
+    """The first n bases of rec (all of it when n is None) prepared on the
+    route that _decode takes for them under `model.route`: (pack_tracks'
+    (static, arrays), the piece's GoldEngine, the route: "device_prep",
+    arrays as tensors on `device`, or "host_prep", numpy arrays).
+    `prefix_sum`: see xputil.use_torch."""
     from .engine.device import build_tracks
     from .engine.device_prep import prepare_on_device
     from .engine.pack import pack_tracks
     codes, softmask, gff_hints = _piece_input(model, rec, n)
     gold = _new_gold(model, False, False)
-    if route == "device":
+    if _auto_route(model.route):
         got = prepare_on_device(gold, codes, softmask, gff_hints,
-                                resolve_device(device))
-        return (None if got is None else got[1]), gold
-    if route != "host":
-        raise ValueError(f"route {route!r}: 'host' or 'device'")
-    gold.prepare(codes, softmask=softmask, gff_hints=gff_hints)
-    return pack_tracks(build_tracks(gold)), gold
+                                resolve_device(device), prefix_sum)
+        if got is not None:
+            return got[1], gold, "device_prep"
+    else:
+        gold.collect_hints(codes, softmask, gff_hints)
+    gold.prepare_collected()
+    return pack_tracks(build_tracks(gold)), gold, "host_prep"
 
 
 def piece_planes(model: Model, rec: FastaRecord, n: Optional[int], device):
     """The Viterbi kernel's inputs for the first n bases of rec on the host
     route: (static, planes on `device`, the piece's GoldEngine)."""
     from .engine.viterbi import planes_for
-    (st, arr), gold = piece_tables(model, rec, n, device)
+    (st, arr), gold, _ = piece_tables(dataclasses.replace(model,
+                                                          route="host"),
+                                      rec, n, device)
     return st, planes_for(st, arr, device), gold
 
 

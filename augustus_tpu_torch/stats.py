@@ -7,8 +7,7 @@ printing), enabled by `reset(True)`; `predict` and the engine call
 device)` on a CUDA device times the enclosed work with CUDA events and
 synchronizes at its end, so the number is device time; elsewhere it is host
 wall time.  `count(name)` counts events: the route of every piece
-(`device_prep` or `host_prep`) and the event walks that reached their
-bound (`trace_overflow`).
+(`device_prep` or `host_prep`).
 """
 
 from __future__ import annotations

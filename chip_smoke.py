@@ -28,16 +28,18 @@ line each:
           sums) against the host route's (numpy) on the card, for all of
           HS04636.fa, the gc2 6 kb chunk, HS04636sm.fa softmasked with the
           exon-free subset of its hints, and the full 1.02 Mb tiled_record:
-          PKStatic equal, integer tables exact, float tables held to
-          augustus_tpu's device-route tolerance 4e-3 + 3e-6*|x|, with the
-          count of entries that are not bit-equal and the largest difference
+          PKStatic equal, integer tables exact, float tables bit-equal (the
+          count of entries that are not and the largest difference are
+          printed)
   kernels_new  on the full cell: prefix.cu against its plain version
           (torch.cumsum on the CPU) and np.cumsum on every row that the
           device route sums (bit-equal), with torch.cumsum on the card as
           the library call and the count of float32 table entries it would
           have changed; trace.cu (the event walk K4) against its plain
-          version on the full cell's backpointer plane (events, count and
-          final base equal), beside the host walk it replaces
+          version on the full cell's backpointer plane (events, count,
+          final base and state equal), and the walk with a bound of
+          count // 3 + 1 events (three launches, each from where the last
+          stopped) equal to one launch, beside the host walk it replaces
   gff     prediction on HS04636.fa on the card (device route), cold and
           warm, each byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
@@ -64,6 +66,7 @@ final status line.  The golden comparisons leave out comment lines.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -216,14 +219,12 @@ def phase_parity(device, chunks):
 def compare_tables(host, dev):
     """The device route's packed tables against the host route's: (static
     equal, {table: integer entries that differ}, {table: float entries not
-    bit-equal}, largest float difference, all floats within augustus_tpu's
-    device-route tolerance)."""
-    import dataclasses
+    bit-equal}, largest float difference)."""
     import numpy as np
     import torch
     (hst, harr), (dst, darr) = host, dev
     static_equal = dataclasses.asdict(hst) == dataclasses.asdict(dst)
-    int_diff, not_bit_equal, max_diff, within = {}, {}, 0.0, True
+    int_diff, not_bit_equal, max_diff = {}, {}, 0.0
 
     def npy(a):
         return a.cpu().numpy() if isinstance(a, torch.Tensor) \
@@ -245,13 +246,9 @@ def compare_tables(host, dev):
         not_bit_equal[k] = bad
         hf = np.maximum(np.nan_to_num(h, neginf=-1e30), -1e30)
         df = np.maximum(np.nan_to_num(d, neginf=-1e30), -1e30)
-        live = hf > -1e29
-        within &= bool((live == (df > -1e29)).all())
-        diff = np.abs(np.where(live, hf - df, 0.0))
+        diff = np.abs(np.where((hf > -1e29) | (df > -1e29), hf - df, 0.0))
         max_diff = max(max_diff, float(diff.max()))
-        within &= bool((diff <= 4e-3 + 3e-6 * np.abs(
-            np.where(live, hf, 0.0))).all())
-    return static_equal, int_diff, not_bit_equal, max_diff, within
+    return static_equal, int_diff, not_bit_equal, max_diff
 
 
 def phase_prep_parity(device, chunks, card):
@@ -259,31 +256,32 @@ def phase_prep_parity(device, chunks, card):
     from augustus_tpu_torch.predict import piece_tables
     for name, model, rec, n in chunks:
         t0 = time.perf_counter()
-        host, _ = piece_tables(model, rec, n, device)
+        host, _, _ = piece_tables(dataclasses.replace(model, route="host"),
+                                  rec, n, device)
         host_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        dev, gold = piece_tables(model, rec, n, device, route="device")
+        dev, gold, route = piece_tables(model, rec, n, device)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-        if dev is None:
+        if route != "device_prep":
             raise AssertionError(f"{name}: outside the device route")
-        static_equal, int_diff, nbe, max_diff, within = compare_tables(
-            host, dev)
+        static_equal, int_diff, nbe, max_diff = compare_tables(host, dev)
         emit({"phase": "prep_parity", "chunk": name, "n": host[0].n,
               "hints": gold.hints is not None, "static_equal": static_equal,
               "int_entries_differing": int_diff,
               "float_entries_not_bit_equal": sum(nbe.values()),
               "not_bit_equal_by_table": nbe, "max_abs_diff": max_diff,
-              "within_tolerance": within, "host_route_s": host_s,
+              "host_route_s": host_s,
               "device_route_s": dev_s,
               "device_route_peak_mem_bytes":
                   torch.cuda.max_memory_allocated(), "card": card})
-        if not static_equal or int_diff or not within:
-            raise AssertionError(f"{name}: the device route's tables differ "
-                                 "from the host route's beyond the "
-                                 "tolerance")
+        if not static_equal or int_diff or nbe:
+            raise AssertionError(f"{name}: the device route's tables are not "
+                                 f"equal to the host route's (integer "
+                                 f"{int_diff}, float {nbe}, largest "
+                                 f"difference {max_diff})")
 
 
 def phase_kernels_new(device, model, rec, card):
@@ -304,15 +302,7 @@ def phase_kernels_new(device, model, rec, card):
         rows.append(x.clone())
         return kernel(x)
 
-    def library(x):
-        return torch.cumsum(x, dim=-1)
-    # the kernel counts its launches on the function its module name holds
-    capture.launches = library.launches = 0
-    U.prefix_sum_f64 = capture
-    try:
-        packed, gold = piece_tables(model, rec, None, device, route="device")
-    finally:
-        U.prefix_sum_f64 = kernel
+    packed, gold, _ = piece_tables(model, rec, None, device, capture)
     err = 0.0
     for x in rows:
         got = kernel(x).cpu()
@@ -336,13 +326,9 @@ def phase_kernels_new(device, model, rec, card):
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / F64_OPS_PER_S * 1e3
     # the same route with torch.cumsum on the card in place of the kernel
-    U.prefix_sum_f64 = library
-    try:
-        lib_packed, _ = piece_tables(model, rec, None, device,
-                                     route="device")
-    finally:
-        U.prefix_sum_f64 = kernel
-    _, _, changed, lib_diff, _ = compare_tables(packed, lib_packed)
+    lib_packed, _, _ = piece_tables(model, rec, None, device,
+                                    lambda x: torch.cumsum(x, dim=-1))
+    _, _, changed, lib_diff = compare_tables(packed, lib_packed)
     prefix_row = {
         "phase": "kernels_new", "kernel": "prefix_sum_f64", "calls": len(rows),
         "rows": sum(int(np.prod(x.shape[:-1])) for x in rows),
@@ -368,27 +354,40 @@ def phase_kernels_new(device, model, rec, card):
     state0 = int(np.argmax(last))
     brk = tb.walk_breaks(bp, n).contiguous()
     ev, res = tb.launch_event_walk(bp, brk, state0, n)
-    fb, cnt = (int(v) for v in res.cpu())
+    fb, fs, cnt = (int(v) for v in res.cpu())
     bp_h = bp.cpu()
     brk_h = tb.walk_breaks(bp_h, n)
     if not torch.equal(brk_h, brk.cpu()):
         raise AssertionError("walk_breaks differs between the card and CPU")
     t0 = time.perf_counter()
-    ev_p, fb_p, cnt_p = tb.event_walk_reference(bp_h, brk_h, state0, n)
+    ev_p, fb_p, fs_p, cnt_p = tb.event_walk_reference(bp_h, brk_h, state0, n)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if (fb, cnt) != (fb_p, cnt_p) or not torch.equal(ev.cpu(), ev_p):
+    if (fb, fs, cnt) != (fb_p, fs_p, cnt_p) or \
+            not torch.equal(ev.cpu(), ev_p):
         raise AssertionError("event_walk differs from its plain version")
     if cnt >= tb.M_EVENTS or cnt < 100:
         raise AssertionError(f"event walk of {cnt} events on the full cell")
+    # past its bound: the walk relaunches from where each launch stopped
+    bound = cnt // 3 + 1
+    before = tb.event_walk.launches
+    ev_b, fb_b, cnt_b = tb.event_walk(bp, state0, n, bound)
+    relaunches = tb.event_walk.launches - before
+    if (fb_b, cnt_b) != (fb, cnt) or \
+            not np.array_equal(ev_b, ev[:cnt].cpu().numpy()) or \
+            relaunches != -(-cnt // bound):
+        raise AssertionError(f"the event walk with a bound of {bound} "
+                             "events differs from one launch")
     k_ms = time_cuda(lambda: tb.launch_event_walk(bp, brk, state0, n), 3)
     brk_ms = time_cuda(lambda: tb.walk_breaks(bp, n), 3)
     t0 = time.perf_counter()
     packed_emits, _ = tb.trace_packed(bp.cpu().numpy(), state0, n)
     host_walk_ms = (time.perf_counter() - t0) * 1e3
-    nbytes = cnt * (3 * 4 + 5 * 4) + 8
+    nbytes = cnt * (3 * 4 + 5 * 4) + 12
     trace_row = {
         "phase": "kernels_new", "kernel": "event_walk", "n": n,
         "events": cnt, "final_base": fb, "parity": "exact",
+        "bounded_walk": {"bound": bound, "launches": relaunches,
+                         "equal": True},
         "max_abs_err": 0, "ms": k_ms, "walk_breaks_ms": brk_ms,
         "plain_ms": plain_ms, "plain_on": "CPU (one step per event)",
         "host_walk_ms": host_walk_ms, "library_ms": None, "bytes": nbytes,
@@ -555,8 +554,7 @@ def main() -> int:
     sm_counts = dict(counts, hints=write_exon_free("tiled_sm.E.gff",
                                                    EXON_FREE))
     sm_dev = Model.load(model_args("repo_fixture", EXON_FREE))
-    sm_host = Model.load(model_args("repo_fixture", EXON_FREE))
-    sm_host.route = "host"
+    sm_host = dataclasses.replace(sm_dev, route="host")
     _, dev_texts = phase_full("full_sm", sm_dev, hrec, None, card,
                               sm_counts, "device_prep")
     _, host_texts = phase_full("full_sm", sm_host, hrec, None, card,

@@ -90,11 +90,14 @@ def test_predict_file_on_the_card_reproduces_the_golden(cuda):
 @pytest.mark.cuda
 def test_prefix_sum_kernel_equals_plain_version(cuda):
     """csrc/prefix.cu adds each row left to right: bit-equal to torch.cumsum
-    on the CPU and to np.cumsum, ragged tiles included."""
+    on the CPU and to np.cumsum, ragged tiles and a leading -0.0 included."""
     from augustus_tpu_torch.engine import xputil as U
     rng = np.random.default_rng(0)
-    for shape in [(1, 1), (3, 257), (2, 1000), (5, 70001)]:
-        x = torch.from_numpy(rng.standard_normal(shape) * 10).to(cuda)
+    xs = [torch.full((1, 1), -0.0, dtype=torch.float64)] + [
+        torch.from_numpy(rng.standard_normal(shape) * 10)
+        for shape in [(1, 1), (3, 257), (2, 1000), (5, 70001)]]
+    for x in xs:
+        x = x.to(cuda)
         before = U.prefix_sum_f64.launches
         got = U.prefix_sum_f64(x).cpu()
         assert U.prefix_sum_f64.launches == before + 1
@@ -106,8 +109,8 @@ def test_prefix_sum_kernel_equals_plain_version(cuda):
 
 @pytest.mark.cuda
 def test_event_walk_kernel_equals_plain_version(cuda):
-    """csrc/trace.cu on the plane of a decode on the card: events, count and
-    final base equal to the plain version's."""
+    """csrc/trace.cu on the plane of a decode on the card: events, count,
+    final base and final state equal to the plain version's."""
     from augustus_tpu_torch.engine import traceback as tb
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     st, planes = _planes("repo_fixture", None, cuda)
@@ -118,10 +121,26 @@ def test_event_walk_kernel_equals_plain_version(cuda):
     ev, res = tb.launch_event_walk(bp, brk, state0, n)
     assert tb.event_walk.launches == before + 1
     bh = bp.cpu()
-    rev, rfb, rcnt = tb.event_walk_reference(bh, tb.walk_breaks(bh, n),
-                                             state0, n)
-    assert res.cpu().tolist() == [rfb, rcnt] and rcnt > 3
+    rev, rfb, rst, rcnt = tb.event_walk_reference(bh, tb.walk_breaks(bh, n),
+                                                  state0, n)
+    assert res.cpu().tolist() == [rfb, rst, rcnt] and rcnt > 3
     assert torch.equal(ev.cpu(), rev)
+
+
+@pytest.mark.cuda
+def test_event_walk_past_its_bound_on_the_card(cuda):
+    """With a bound of 7 events the walk relaunches on the card from where
+    each launch stopped: the same events as one walk on the CPU."""
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    st, planes = _planes("repo_fixture", None, cuda)
+    bp, vfin, _ = viterbi_forward(st, planes)
+    state0, n = int(torch.argmax(vfin[: st.S])), st.n
+    before = tb.event_walk.launches
+    ev, fb, cnt = tb.event_walk(bp, state0, n, 7)
+    assert tb.event_walk.launches - before == (cnt + 6) // 7 and cnt > 14
+    rev, rfb, rcnt = tb.event_walk(bp.cpu(), state0, n)
+    assert (fb, cnt) == (rfb, rcnt) and np.array_equal(ev, rev)
 
 
 @pytest.mark.cuda
@@ -133,8 +152,10 @@ def test_device_route_tables_equal_to_host_route_on_the_card(cuda):
                     "AUGUSTUS_CONFIG_PATH": CONFIG, "UTR": "off",
                     "softmasking": "0"})
     rec = read_fasta(os.path.join(ROOT, "tests", "data", "HS04636.fa"))[0]
-    (hst, harr), _ = piece_tables(m, rec, 6000, cuda)
-    (dst, darr), _ = piece_tables(m, rec, 6000, cuda, route="device")
+    (hst, harr), _, hroute = piece_tables(
+        dataclasses.replace(m, route="host"), rec, 6000, cuda)
+    (dst, darr), _, droute = piece_tables(m, rec, 6000, cuda)
+    assert (hroute, droute) == ("host_prep", "device_prep")
     assert dataclasses.asdict(hst) == dataclasses.asdict(dst)
     for k, v in harr.items():
         got = darr[k]

@@ -24,6 +24,7 @@ from augustus_tpu.engine.gold import GoldEngine as JGoldEngine
 from augustus_tpu.model import gc as jgc
 from augustus_tpu.predict import Model as JModel, predict_file as jpredict
 from augustus_tpu_torch import stats
+from augustus_tpu_torch.engine import xputil as U
 from augustus_tpu_torch.engine.jgold import build_overlays
 from augustus_tpu_torch.io.fasta import read_fasta
 from augustus_tpu_torch.io.tiled import exon_free_hints
@@ -104,13 +105,19 @@ def routes(request, hint_files):
     rec = read_fasta(os.path.join(DATA, fasta))[0]
     _, je = _jax_host_gold(args, rec, n)
     jst, jarr = jpack.pack_tracks(jbuild(je))
-    got, gold = piece_tables(Model.load(args), rec, n, "cpu", route="device")
-    return request.param, (jst, jarr), got, gold
+    calls = []
+
+    def prefix_sum(x):
+        calls.append(tuple(x.shape))
+        return U.prefix_sum_f64(x)
+    got, gold, route = piece_tables(Model.load(args), rec, n, "cpu",
+                                    prefix_sum)
+    return request.param, (jst, jarr), got, gold, route, calls
 
 
 def test_device_route_taken(routes):
-    name, _, got, gold = routes
-    assert got is not None
+    name, _, got, gold, route, _ = routes
+    assert route == "device_prep"
     st, arr = got
     assert isinstance(arr["stab"], torch.Tensor)
     assert (gold.hints is not None) == (CHUNKS[name][3] is not None)
@@ -119,14 +126,14 @@ def test_device_route_taken(routes):
 
 
 def test_static_equal_to_host_prep(routes):
-    _, (jst, _), (st, _), _ = routes
+    _, (jst, _), (st, _), _, _, _ = routes
     assert dataclasses.asdict(jst) == dataclasses.asdict(st)
 
 
 def test_tables_equal_to_host_prep(routes):
     """Integer tables exact; float tables bit-equal, but for the tables in
     NOT_BIT_EQUAL, held to augustus_tpu's device-route tolerance."""
-    name, (_, jarr), (_, arr), _ = routes
+    name, (_, jarr), (_, arr), _, _, _ = routes
     assert set(arr) <= set(jarr)
     for k, v in arr.items():
         got, ref = _host(v), np.asarray(jarr[k])
@@ -137,6 +144,30 @@ def test_tables_equal_to_host_prep(routes):
             assert np.all(np.abs(got - ref) <= tol(ref)), k
         else:
             assert np.array_equal(got.view(np.int32), ref.view(np.int32)), k
+
+
+def test_prefix_sums_in_two_calls(routes):
+    """Every cumulative row of a piece goes to one prefix sum (one kernel
+    launch on the card): per GC class the two intron rows and three rows for
+    each of the six exon content cums, and with hints the two intronpart
+    rows; the igenic base potential is the second call."""
+    name, _, (st, _), gold, _, calls = routes
+    rows = 20 * st.C + (2 if gold.hints is not None else 0)
+    assert calls == [(rows, st.n + 1), (st.n,)]
+
+
+@pytest.mark.parametrize("case", ["neg_zero", "neg_zero_run", "random"])
+def test_prefix_sum_equal_to_np_cumsum(case):
+    """The prefix sum's plain version (what a CPU tensor runs) is np.cumsum
+    bit for bit, a row's leading run of -0.0 included."""
+    rng = np.random.default_rng(3)
+    x = {"neg_zero": np.array([[-0.0]]),
+         "neg_zero_run": np.array([[-0.0, -0.0, 0.0, -0.0, 2.5],
+                                   [-0.0, -0.0, -0.0, -1.0, 1.0]]),
+         "random": rng.standard_normal((3, 2049)) * 10}[case]
+    got = U.prefix_sum_f64(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.int64),
+                          np.cumsum(x, axis=-1).view(np.int64))
 
 
 def test_overlays_equal_to_the_reference(hint_files):
@@ -191,8 +222,8 @@ def test_within_tolerance_of_the_jax_device_route(hint_files):
                         {k: jnp.asarray(v) for k, v in ov.items()},
                         jnp.asarray(cls_blk))
     darr = jax.tree_util.tree_map(np.asarray, darr)
-    (st, arr), _ = piece_tables(Model.load(args), rec, n, "cpu",
-                                route="device")
+    (st, arr), _, route = piece_tables(Model.load(args), rec, n, "cpu")
+    assert route == "device_prep"
     for f in ("S", "NL", "C", "NGR", "NMS", "NSEL", "LVP", "chain_states",
               "fixed_groups", "lessd", "pinned", "convs", "gate_lane",
               "cls_lane", "NHW", "PHW", "n", "n_pad"):
@@ -258,8 +289,9 @@ def test_exon_hinted_chunk_takes_the_host_route(hint_files):
     args = _args("repo_fixture", "all", hint_files)
     model = Model.load(args)
     rec = read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0]
-    got, gold = piece_tables(model, rec, 2500, "cpu", route="device")
-    assert got is None and gold.hints is not None
+    (_, arr), gold, route = piece_tables(model, rec, 2500, "cpu")
+    assert route == "host_prep" and gold.hints is not None
+    assert isinstance(arr["stab"], np.ndarray)
     stats.reset(True)
     try:
         codes, softmask, hints = _piece_input(model, rec, 2500)

@@ -1,8 +1,8 @@
 """The port's event walk K4 (plain version) against augustus_tpu's
 make_event_trace_fn on the same backpointer planes: events, count and final
 base equal; the condensed path from the events equal to the port's
-condensed_path of the per-base host walk; the bound and its per-base
-fallback."""
+condensed_path of the per-base host walk; a walk longer than its bound
+continues from where each step stopped."""
 
 import os
 
@@ -14,7 +14,6 @@ import jax.numpy as jnp
 
 from augustus_tpu.engine import traceback as jtb
 from augustus_tpu.model.state_config import ST as JST
-from augustus_tpu_torch import stats
 from augustus_tpu_torch.engine import traceback as tb
 from augustus_tpu_torch.model.state_config import ST
 
@@ -51,8 +50,8 @@ def _walks(bp: np.ndarray, state0: int, n: int, M: int):
     ref_ev, ref_fb, ref_cnt = jtb.make_event_trace_fn(n, 0, M)(
         jnp.asarray(bp), state0)
     t = torch.from_numpy(bp)
-    ev, fb, cnt = tb.event_walk_reference(t, tb.walk_breaks(t, n), state0,
-                                          n, M)
+    ev, fb, _, cnt = tb.event_walk_reference(t, tb.walk_breaks(t, n),
+                                             state0, n, M)
     return (np.asarray(ref_ev), int(ref_fb), int(ref_cnt)), \
         (ev.numpy(), fb, cnt)
 
@@ -119,34 +118,22 @@ def test_condensed_path_events_equal_to_the_reference(seed):
         [(s.begin, s.end, int(s.type), s.truncated) for s in ref]
 
 
-def test_bound_reached_walks_per_base(decoded, monkeypatch):
-    """A walk of more events than the bound falls back to the per-base
-    walk, and stats counts it."""
-    from augustus_tpu_torch.engine.viterbi import ViterbiEngine
+@pytest.mark.parametrize("M", [1, 3, 5])
+def test_event_walk_past_its_bound(decoded, M):
+    """A walk of more events than the bound M runs in steps of M events,
+    each from the base and state where the last stopped: the same events,
+    count and final base as one unbounded walk, and the same path as the
+    per-base host walk."""
     bp, state0, n, types = decoded
+    ev, fb, cnt = tb.event_walk(bp, state0, n, M)
+    ref_ev, ref_fb, ref_cnt = tb.event_walk(bp, state0, n, n)
+    assert cnt > 2 * M and (cnt, fb) == (ref_cnt, ref_fb)
+    assert np.array_equal(ev, ref_ev)
     packed, pfb = tb.trace_packed(bp.numpy(), state0, n)
     ref = tb.condensed_path(packed, pfb, n, types)
-
-    class _Gold:
-        class sg:
-            state_types = types
-
-    class _Tracks:
-        gold = _Gold
-        log_term = np.zeros(len(types), np.float32)
-
-    eng = ViterbiEngine.__new__(ViterbiEngine)
-    eng.tracks, eng.bp, eng.n = _Tracks, bp, n
-    eng._walk_start = lambda: state0
-    monkeypatch.setattr(tb, "M_EVENTS", 5)
-    stats.reset(True)
-    try:
-        got = eng.traceback_events(n)
-        assert stats.COUNTS.get("trace_overflow") == 1
-    finally:
-        stats.reset(False)
-    assert [(s.begin, s.end, int(s.type)) for s in got] == \
-        [(s.begin, s.end, int(s.type)) for s in ref]
+    got = tb.condensed_path_events(ev, cnt, fb, n, types)
+    assert [(s.begin, s.end, int(s.type), s.truncated) for s in got] == \
+        [(s.begin, s.end, int(s.type), s.truncated) for s in ref]
 
 
 def test_event_walk_checks_its_plane():
