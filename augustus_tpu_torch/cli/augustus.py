@@ -3,10 +3,16 @@
 Usage: python -m augustus_tpu_torch.cli.augustus [--key=value ...] [--device=cpu|cuda] queryfile
 Mirrors `augustus_tpu/cli/augustus.py` (reference src/augustus.cc):
 --species is required, input is FASTA, output is GFF/GTF on stdout.
---device selects where the Viterbi kernel runs (default cuda).  Softmasking
+--device selects where the kernels run (default cuda).  Softmasking
 (--softmasking=1) and hints (--hintsfile, --extrinsicCfgFile) as in the
-reference.  Comparative gene prediction (--alnfile), GenBank input and
-evaluation are not ported.
+reference.  Sampling as in the reference: --sample=N (N >= 10 paths drawn
+from the forward table, fewer is none), --alternatives-from-sampling=true
+(report the sampled alternative transcripts), --keep_viterbi,
+--minexonintronprob, --minmeanexonintronprob (posterior filters) and
+--temperature=0..7 (heat the forward table and the walk by (8 - t) / 8).
+Comparative gene prediction (--alnfile), MEA (--mea), alternatives from
+evidence (--alternatives-from-evidence), GenBank input and evaluation are
+not ported.
 """
 
 from __future__ import annotations

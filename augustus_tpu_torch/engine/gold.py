@@ -1,15 +1,21 @@
-"""Track preparation for the semi-Markov Viterbi decode.
+"""Track preparation for the semi-Markov decode, and the sampling walk.
 
-Counterpart of the preparation half of `augustus_tpu/engine/gold.py`
-(`GoldEngine.prepare`, `_prepare_tracks`, `_build_hint_tracks`,
-`_apply_signal_hint_terms`, `set_boundaries`): float64 tracks of ORF
+Counterpart of `augustus_tpu/engine/gold.py` less its float64 host DP
+(`run`, `traceback`): the decode runs in engine/viterbi.py.
+`GoldEngine.prepare`, `_prepare_tracks`, `_build_hint_tracks`,
+`_apply_signal_hint_terms` and `set_boundaries` build float64 tracks of ORF
 barriers, splice scores, content cumsums, signal sensors and the hint
 bonus/malus terms of softmasking and hints files, which engine/device.py
 factorizes into the DP tracks.  `prepare` is the host route (numpy);
 `_prepare_tracks` and the track builders under it also run on torch
-tensors for the device route (engine/jgold.py, xputil.use_torch).  The
-float64 host DP of the reference package (`run`, `traceback`, sampling) is
-not part of this package: the decode runs in engine/viterbi.py.
+tensors for the device route (engine/jgold.py, xputil.use_torch).
+
+`sample_path` draws a path from a forward table `.f` (engine/forward.py)
+by the reference's ancestral sampling: for the state at hand it enumerates
+the candidates (`_state_cands`: predecessor state and end of the previous
+segment, in the reference's iteration order) over the host tracks of
+`prepare` and draws one with the glibc rand() stream of crand.py.  Host
+numpy only.
 """
 
 from __future__ import annotations
@@ -630,3 +636,686 @@ class GoldEngine:
 
     # ------------------------------------------------------------------
     # main DP
+
+    # ------------------------------------------------------------------
+    # sampling walk over a forward table (host numpy)
+    # ------------------------------------------------------------------
+    def _classify_states(self) -> None:
+        types = self.sg.state_types
+        self._kind = []
+        for s in range(self.S):
+            t = types[s]
+            mc = self.sg.model_class[s]
+            if t == ST.igenic or t in (
+                    ST.geometric0, ST.geometric1, ST.geometric2,
+                    ST.rgeometric0, ST.rgeometric1, ST.rgeometric2):
+                self._kind.append("chain")
+            elif t in (ST.lessD0, ST.lessD1, ST.lessD2,
+                       ST.rlessD0, ST.rlessD1, ST.rlessD2):
+                self._kind.append("lessd")
+            elif mc == "intronmodel":
+                self._kind.append("fixed")
+            elif mc == "exonmodel":
+                self._kind.append("exon")
+            else:
+                self._kind.append("other")
+
+    def _state_cands(self, j, c, s, table):
+        """Candidate (weights, pred states, pred end positions) for state s
+        at position j, in reference iteration order (argmax-first ==
+        reference strictly-greater update order)."""
+        kind = self._kind[s]
+        t = self.sg.state_types[s]
+        if kind == "chain":
+            return self._chain_cands(j, c, s, table)
+        if kind == "fixed":
+            return self._fixed_intron_cands(j, c, s, t, table)
+        if kind == "lessd":
+            return self._lessd_cands(j, c, s, t, table)
+        if kind == "exon":
+            return self._exon_cands(j, c, s, t, table)
+        return None
+
+    # ------------------------------------------------------------------
+    def sample_path(self, rng) -> List[Tuple[int, int, ST]]:
+        """Ancestral sampling from the forward table (reference
+        NAMGene::getSampledPath, src/namgene.cc:367).
+
+        ``rng`` is a crand.GlibcRand replicating the reference's unseeded C
+        rand() stream; options are stable-sorted by descending probability
+        before drawing (OptionsList::prepareSampling/sample,
+        include/vitmatrix.hh:794, src/vitmatrix.cc:295), so posterior
+        probabilities reproduce the reference byte-exactly.
+        """
+        assert self.f is not None, "fill .f with a forward table first"
+        n, S = self.n, self.S
+        last = self.f[n - 1] + self.log_term
+        state = self._sample_options(rng, last)
+        segs: List[Tuple[int, int, ST]] = []
+        base = n - 1
+        types = self.sg.state_types
+        while base > 0:
+            c = int(self.stairs[base])
+            res = self._heat_cands(
+                self.f, self._state_cands(base, c, state, self.f))
+            if res is None:
+                raise RuntimeError(
+                    f"sampling stuck at base {base} state {state}")
+            w, preds, eops = res
+            k = self._sample_options(rng, w)
+            segs.append((int(eops[k]) + 1, base, types[state]))
+            base, state = int(eops[k]), int(preds[k])
+        segs.reverse()
+        return segs
+
+    def _heat_cands(self, table, res):
+        """Sampling-temperature heating (reference include/types.hh:387,
+        lldouble.hh heated(): transEmiProb^((8-temperature)/8) in the
+        FORWARD recursion and the sampling walk only; Viterbi is
+        unheated).  Candidate totals are pv + transEmi-log with
+        pv = table[max(eop, 0), pred] (every candidate builder's
+        convention), so the heat factor applies to (w - pv)."""
+        t = getattr(self.cn, "temperature", 0)
+        if res is None or not t:
+            return res
+        h = (8.0 - t) / 8.0
+        w, preds, eops = res
+        pv = table[np.maximum(np.asarray(eops), 0), preds]
+        wh = np.where(w > NEG_INF, pv + h * (w - pv), NEG_INF)
+        return wh, preds, eops
+
+    @staticmethod
+    def _sample_options(rng, logw: np.ndarray) -> int:
+        """Draw one option index (into logw, insertion order) the way
+        OptionsList::sample does: z = u * cumprob * 0.99999 with cumprob
+        summed in insertion order, then first sorted-descending option whose
+        running sum exceeds z; fallback to the largest option."""
+        sel = np.flatnonzero(logw > NEG_INF)
+        if sel.shape[0] == 0:
+            raise RuntimeError("sampling from empty option list")
+        w = logw[sel]
+        m = float(np.max(w))
+        q = np.exp(w - m)
+        cumprob = float(np.cumsum(q)[-1])        # insertion-order sum
+        z = rng.uniform() * cumprob * 0.99999
+        order = np.argsort(-q, kind="stable")    # stable: ties keep order
+        csum = np.cumsum(q[order])
+        hit = np.flatnonzero(z < csum)
+        pick = int(order[hit[0]]) if hit.shape[0] else int(order[0])
+        return int(sel[pick])
+
+    def _chain_cands(self, j, c, s, table):
+        """Candidates for per-base chain states; returns (w, preds, eops)."""
+        types = self.sg.state_types
+        anc = self.ancestors[s]
+        emi = (self.ig_track[c][j] if types[s] == ST.igenic
+               else self.intron_f[c][j])
+        if self.hints is not None and types[s] != ST.igenic:
+            if types[s] in (ST.geometric0, ST.geometric1, ST.geometric2):
+                emi = emi + self.ipb_plus[j]
+            else:
+                emi = emi + self.ipb_minus[j]
+        w = table[j - 1][anc] + self.log_trans[c][anc, s] + emi
+        return w, anc, np.full(anc.shape[0], j - 1)
+
+    def _fixed_intron_cands(self, j, c, s, t, table):
+        cn = self.cn
+        sp = self.splice
+        dsl = self.d_state_len
+        n = self.n
+        if t in (ST.longdss0, ST.longdss1, ST.longdss2):
+            eop = j - cn.dss_whole_size
+            if eop < 0 or not T.is_possible_dss(
+                    sp.dss_ok, j - cn.dss_end - DSS_MIDDLE + 1):
+                return None
+            emi = sp.dss_score[j - cn.dss_whole_size + 1]
+        elif t in (ST.rlongdss0, ST.rlongdss1, ST.rlongdss2):
+            eop = j - cn.dss_whole_size
+            if eop < 0 or not T.is_possible_rdss(sp.rdss_ok,
+                                                 j - cn.dss_start):
+                return None
+            emi = sp.rdss_score[j - cn.dss_whole_size + 1]
+        elif t in (ST.equalD0, ST.equalD1, ST.equalD2):
+            eop = j - dsl
+            if eop < 0:
+                return None
+            emi = self.cum_intron_f[c][j + 1] - self.cum_intron_f[c][eop + 1]
+        elif t in (ST.requalD0, ST.requalD1, ST.requalD2):
+            # quirk: requalD uses forward-strand patterns
+            # (reference IntronModel::seqProb generic branch)
+            eop = j - dsl
+            if eop < 0:
+                return None
+            emi = self.cum_intron_f[c][j + 1] - self.cum_intron_f[c][eop + 1]
+        elif t in (ST.longass0, ST.longass1, ST.longass2):
+            eop = j - cn.ass_whole_size - cn.ass_upwindow_size
+            if eop < 0 or not T.is_possible_ass(sp.ass_ok, j - cn.ass_end):
+                return None
+            emi = sp.ass_score[c][eop + 1]
+        elif t in (ST.rlongass0, ST.rlongass1, ST.rlongass2):
+            eop = j - cn.ass_whole_size - cn.ass_upwindow_size
+            if eop < 0 or not T.is_possible_rass(
+                    sp.rass_ok,
+                    j - cn.ass_upwindow_size - cn.ass_start - ASS_MIDDLE + 1):
+                return None
+            emi = sp.rass_score[c][eop + 1]
+        else:
+            return None
+        if emi == NEG_INF:
+            return None
+        if self.hints is not None:
+            # intronic sub-range of the splice windows
+            # (reference intron emiProbUnderModel: intronBegin/intronEnd)
+            fwd_t = t in (ST.longdss0, ST.longdss1, ST.longdss2,
+                          ST.longass0, ST.longass1, ST.longass2,
+                          ST.equalD0, ST.equalD1, ST.equalD2)
+            smc = self.ipb_plus_cum if fwd_t else self.ipb_minus_cum
+            if t in (ST.longdss0, ST.longdss1, ST.longdss2):
+                emi = emi + smc[j + 1] - smc[j - DSS_MIDDLE - cn.dss_end + 1]
+            elif t in (ST.rlongdss0, ST.rlongdss1, ST.rlongdss2):
+                emi = emi + smc[j - cn.dss_start + 1] - smc[eop + 1]
+            elif t in (ST.longass0, ST.longass1, ST.longass2):
+                emi = emi + smc[j - cn.ass_end + 1] - smc[eop + 1]
+            elif t in (ST.rlongass0, ST.rlongass1, ST.rlongass2):
+                emi = emi + smc[j + 1] - smc[eop + 1 + cn.ass_end]
+            elif t in (ST.equalD0, ST.equalD1, ST.equalD2,
+                       ST.requalD0, ST.requalD1, ST.requalD2):
+                emi = emi + smc[j + 1] - smc[eop + 1] \
+                    + self.log_malus["intron"]
+        anc = self.ancestors[s]
+        w = table[eop][anc] + self.log_trans[c][anc, s] + emi
+        return w, anc, np.full(anc.shape[0], eop)
+
+    def _lessd_cands(self, j, c, s, t, table):
+        cn, n = self.cn, self.n
+        sp = self.splice
+        dsl = self.d_state_len
+        fwd = t in (ST.lessD0, ST.lessD1, ST.lessD2)
+        if fwd:
+            ebi = j + cn.ass_upwindow_size + cn.ass_start + ASS_MIDDLE
+            if ebi - ASS_MIDDLE + 1 < n - 1 and not T.is_possible_ass(
+                    sp.ass_ok, ebi):
+                return None
+        else:
+            ebi = j + cn.dss_end + DSS_MIDDLE
+            if ebi - DSS_MIDDLE + 1 < n - 1 and not T.is_possible_rdss(
+                    sp.rdss_ok, ebi):
+                return None
+        lo = max(j - dsl, 0)
+        eops = np.arange(j - 1, lo - 1, -1)       # descending like reference
+        if eops.size == 0:
+            return None
+        begins = eops + 1
+        if fwd:
+            bbi = begins - cn.dss_end - DSS_MIDDLE
+            ok = ~((bbi >= 0) & ~T.is_possible_dss(sp.dss_ok, bbi))
+            seg = self.cum_intron_f[c][j + 1] - self.cum_intron_f[c][begins]
+        else:
+            bbi = begins - cn.ass_outside
+            ok = ~((bbi >= 0) & ~T.is_possible_rass(sp.rass_ok, bbi))
+            seg = self.cum_intron_r[c][j + 1] - self.cum_intron_r[c][begins]
+        # spliced in-frame stop codon exclusion (reference
+        # intronmodel.cc:560-580 + emiProbUnderModel lessD branch)
+        ok &= ~self._spliced_stop(t, bbi, ebi)
+        if self.hints is not None:
+            ipbc = self.ipb_plus_cum if fwd else self.ipb_minus_cum
+            seg = seg + (ipbc[j + 1] - ipbc[begins]) \
+                + self.log_malus["intron"]
+        length = ebi - bbi + 1
+        ld = np.where((length >= 0) & (length <= self.inp.d),
+                      self.log_len_intron[np.clip(length, 0,
+                                                  self.inp.d)], NEG_INF)
+        emi = np.where(ok, seg + ld, NEG_INF)
+        anc = self.ancestors[s]
+        w = table[eops][:, anc] + self.log_trans[c][anc, s][None, :] \
+            + emi[:, None]
+        na = anc.shape[0]
+        return (w.reshape(-1), np.tile(anc, eops.shape[0]),
+                np.repeat(eops, na))
+
+    def _spliced_stop(self, t: ST, bbi: np.ndarray, ebi: int) -> np.ndarray:
+        """True where splicing the intron [bbi..ebi] with state type t joins a
+        stop codon across the splice boundary."""
+        n, codes = self.n, self.codes
+        out = np.zeros(bbi.shape[0], dtype=bool)
+        if t in (ST.lessD0, ST.rlessD2):
+            return out
+
+        def ch(i):
+            return codes[i] if 0 <= i < n else genetics.N
+
+        def comp(x):
+            return genetics.COMPLEMENT[x]
+
+        # right-side bases (fixed given ebi); 'n' if they extend past the end
+        if ebi < n - 2:
+            r1, r2 = codes[ebi + 1], codes[ebi + 2]
+        else:
+            r1 = r2 = genetics.N
+        is_stop = self.gcode.is_stop
+        guard = bbi > 1
+        # codon composition per type (reference fills codon[] from both sides)
+        if t == ST.lessD1:
+            l0 = np.array([ch(int(b) - 1) for b in bbi])
+            cod = (l0.astype(np.int64), np.full_like(bbi, r1),
+                   np.full_like(bbi, r2))
+        elif t == ST.lessD2:
+            l0 = np.array([ch(int(b) - 2) for b in bbi])
+            l1 = np.array([ch(int(b) - 1) for b in bbi])
+            cod = (l0.astype(np.int64), l1.astype(np.int64),
+                   np.full_like(bbi, r1))
+        elif t == ST.rlessD0:
+            l1 = np.array([comp(ch(int(b) - 1)) for b in bbi])
+            l2 = np.array([comp(ch(int(b) - 2)) for b in bbi])
+            cod = (np.full_like(bbi, comp(r1)), l1.astype(np.int64),
+                   l2.astype(np.int64))
+        elif t == ST.rlessD1:
+            l2 = np.array([comp(ch(int(b) - 1)) for b in bbi])
+            cod = (np.full_like(bbi, comp(r2)), np.full_like(bbi, comp(r1)),
+                   l2.astype(np.int64))
+        else:
+            return out
+        c0, c1, c2 = cod
+        valid = (c0 != genetics.N) & (c1 != genetics.N) & (c2 != genetics.N)
+        idx = np.where(valid, c0 * 16 + c1 * 4 + c2, 0)
+        out = guard & valid & is_stop[idx]
+        return out
+
+    # ------------------------------------------------------------------
+    def _exon_cands(self, j, c, s, t, table):
+        cn, n = self.cn, self.n
+        g = self.geom[t]
+        sp = self.splice
+
+        # ---- endPart ----------------------------------------------------
+        if t in (ST.singleG, ST.terminal):
+            end_part = self.end_stop_fwd[j]
+        elif t in (ST.rsingleG, ST.rinitial):
+            end_part = self.tis_end_rev[c][j]
+        elif t in (ST.initial0, ST.initial1, ST.initial2,
+                   ST.internal0, ST.internal1, ST.internal2):
+            dsspos = j + cn.dss_start + 1
+            if j == n - 1:
+                end_part = 0.0
+            elif ((dsspos + DSS_MIDDLE - 1 < n
+                   and not T.is_possible_dss(sp.dss_ok, dsspos))
+                  or j + cn.dss_start >= n):
+                end_part = NEG_INF
+            else:
+                # NB: the reference passes the RAW value win-1 (which is -1
+                # for win==0) to leftmostExonBegin — replicate, don't mod3.
+                lmb = T.leftmost_exon_begin_raw(self.orf, g.win - 1,
+                                                j + cn.dss_start, True, cn, n)
+                end_part = NEG_INF if lmb >= j else 0.0
+            if end_part > NEG_INF and self.hints is not None:
+                p = j + cn.dss_start + 1
+                end_part = end_part + (self.dss_site_adj_p[p] if 0 <= p < n
+                                       else self.log_malus["dss"])
+        else:  # rterminal*, rinternal*
+            asspos = j + cn.ass_end + 1
+            if j == n - 1:
+                end_part = 0.0
+            elif (j + cn.ass_end + ASS_MIDDLE < n
+                  and T.is_possible_rass(sp.rass_ok, asspos)):
+                end_part = 0.0
+            else:
+                end_part = NEG_INF
+            if end_part > NEG_INF and self.hints is not None:
+                p = j + cn.ass_end + 1
+                end_part = end_part + (self.ass_site_adj_m[p] if 0 <= p < n
+                                       else self.log_malus["ass"])
+        if end_part == NEG_INF:
+            return None
+
+        end_of_bio = j + g.base_offset
+        right = end_of_bio - g.inner_part_end_offset
+        if right < 0:
+            return None
+        if g.forward:
+            frame_of_right = mod3(g.win - (end_of_bio + 1) + right)
+        else:
+            frame_of_right = mod3(g.win + end_of_bio + 1 - right)
+
+        eon = end_of_bio - STOPCODON_LEN if t in (ST.terminal, ST.singleG) \
+            else end_of_bio
+        if eon > n - 1:
+            eon = n - 1
+        if g.forward:
+            f_eon = mod3(g.win - 1 - end_of_bio + eon)
+        else:
+            f_eon = mod3(g.win + 1 + end_of_bio - eon)
+        orf_left = int(T.leftmost_exon_begin(self.orf, f_eon, eon, g.forward,
+                                             cn, n))
+
+        start_max = end_of_bio + g.inner_part_offset - cn.min_exon_length + 1
+        if t in (ST.rterminal0, ST.rterminal1, ST.rterminal2, ST.rsingleG):
+            start_min = start_max = orf_left + 2
+        else:
+            start_min = 0 if orf_left <= 0 else orf_left + g.inner_part_offset
+            if start_max > j + g.begin_part_len:
+                start_max = j + g.begin_part_len
+        if start_max < start_min:
+            return None
+
+        bs = np.arange(start_max, start_min - 1, -1)     # descending
+        eops = bs - g.begin_part_len - 1
+        keep = eops < n
+        bs, eops = bs[keep], eops[keep]
+        if bs.size == 0:
+            return None
+
+        note = self._not_end_part(t, c, g, bs, right, int(frame_of_right))
+        valid = note > NEG_INF
+        if not valid.any():
+            return None
+
+        bob = bs - g.inner_part_offset
+        exon_len = end_of_bio - bob + 1
+        anc = self.ancestors[s]
+        pred_cols = np.maximum(eops, 0)
+        pv = table[pred_cols][:, anc]                    # (nb, na)
+        lt = self.log_trans[c]
+        total = pv + lt[anc, s][None, :] + (end_part + note)[:, None]
+
+        # reading-frame compatibility with the predecessor state
+        if t not in (ST.singleG, ST.rsingleG, ST.rterminal0, ST.rterminal1,
+                     ST.rterminal2, ST.initial0, ST.initial1, ST.initial2):
+            pred_frames = STATE_READING_FRAMES[
+                [self.sg.state_types[a] for a in anc]]
+            if g.forward:
+                need = mod3(pred_frames[None, :] + exon_len[:, None])
+            else:
+                need = mod3(pred_frames[None, :] - exon_len[:, None])
+            total = np.where(need == g.win, total, NEG_INF)
+
+        total = np.where(valid[:, None], total, NEG_INF)
+        na = anc.shape[0]
+        return (total.reshape(-1), np.tile(anc, bs.shape[0]),
+                np.repeat(eops, na))
+
+    def _not_end_part(self, t: ST, c: int, g: ExonGeometry, bs: np.ndarray,
+                      right: int, frame_of_right: int) -> np.ndarray:
+        """Vectorized ExonModel::notEndPartEmiProb over begin positions."""
+        cn, n = self.cn, self.n
+        sp = self.splice
+        codes = self.codes
+        bob = bs - g.inner_part_offset
+        k = self.exp.k
+        log_nc = float(np.log(cn.prob_n_in_coding))
+
+        # ---- beginPart --------------------------------------------------
+        if t in (ST.singleG, ST.initial0, ST.initial1, ST.initial2):
+            begin = np.where((bob >= 0) & (bob < n),
+                             self.tis_begin_fwd[c][np.clip(bob, 0, n - 1)],
+                             NEG_INF)
+        elif t in (ST.terminal, ST.internal0, ST.internal1, ST.internal2):
+            shortcut = (bob < 0) | ((bob - ASS_MIDDLE >= 0) &
+                                    ~T.is_possible_ass(sp.ass_ok, bob - 1))
+            begin = np.where(bs > 0, np.where(shortcut, NEG_INF, 0.0),
+                             np.where(bs == 0, 0.0, NEG_INF))
+            if self.hints is not None:
+                padj = np.where(
+                    (bob - 1 >= 0) & (bob - 1 < n),
+                    self.ass_site_adj_p[np.clip(bob - 1, 0, n - 1)],
+                    self.log_malus["ass"])
+                begin = np.where((bs > 0) & (begin > NEG_INF),
+                                 begin + padj, begin)
+        elif t in (ST.rsingleG, ST.rterminal0, ST.rterminal1, ST.rterminal2):
+            begin = np.where((bob >= 0) & (bob < n),
+                             self.begin_rstop[np.clip(bob, 0, n - 1)], NEG_INF)
+        else:  # rinitial, rinternal*
+            blocked = (bob < 0) | ((bob - DSS_MIDDLE > 0) &
+                                   ~T.is_possible_rdss(sp.rdss_ok, bob - 1))
+            begin = np.where(bs == 0, 0.0,
+                             np.where(blocked, NEG_INF, 0.0))
+            if self.hints is not None:
+                # malus only when beginOfBioExon > 0 (exonmodel.cc:1534)
+                padj = np.where(
+                    (bob - 1 >= 0) & (bob - 1 < n),
+                    self.dss_site_adj_m[np.clip(bob - 1, 0, n - 1)], 0.0)
+                begin = np.where((bs != 0) & (begin > NEG_INF),
+                                 begin + padj, begin)
+
+        # ---- restSeqProb ------------------------------------------------
+        rest = self._rest_seq(t, c, g, bs, right, frame_of_right)
+
+        # ---- length -----------------------------------------------------
+        end_of_bio = right + g.inner_part_end_offset
+        exon_len = end_of_bio - bob + 1
+        le = np.clip(exon_len, 0, cn.max_exon_len)
+        L3 = float(np.log(3.0))
+        lend = self.log_len_exon
+        if t in (ST.singleG, ST.rsingleG):
+            lp = np.where((exon_len >= 1) & (exon_len % 3 == 0),
+                          L3 + lend["single"][le], NEG_INF)
+        elif t in (ST.initial0, ST.initial1, ST.initial2):
+            lp = np.where((exon_len > 2) & (exon_len % 3 == g.win),
+                          L3 + lend["initial"][le], NEG_INF)
+        elif t == ST.rinitial:
+            lp = np.where(exon_len > 2, L3 + lend["initial"][le], NEG_INF)
+        elif t in (ST.internal0, ST.internal1, ST.internal2,
+                   ST.rinternal0, ST.rinternal1, ST.rinternal2):
+            lp = np.where(exon_len >= 1, L3 + lend["internal"][le], NEG_INF)
+        elif t == ST.terminal:
+            lp = np.where(exon_len >= 1, L3 + lend["terminal"][le], NEG_INF)
+        else:  # rterminal*
+            lp = np.where((exon_len >= 1) & (mod3(2 - exon_len) == g.win),
+                          L3 + lend["terminal"][le], NEG_INF)
+
+        out = begin + rest + lp
+        if self.hints is not None:
+            out = out + self._exon_part_quot(t, g, bs, bob, exon_len,
+                                             end_of_bio)
+        return out
+
+    # ------------------------------------------------------------------
+    def _exon_part_quot(self, t: ST, g: ExonGeometry, bs: np.ndarray,
+                        bob: np.ndarray, exon_len: np.ndarray,
+                        end_of_bio: int) -> np.ndarray:
+        """exonpart/CDSpart/exon/CDS hint bonuses and maluses per candidate
+        (reference exonmodel.cc:1769-1860).  Vectorized over begins."""
+        h = self.hints
+        lm = self.log_malus
+        nb = bs.shape[0]
+        quot = np.zeros(nb)
+        part_bonus = np.zeros(nb)
+        nep = np.zeros(nb, dtype=np.int64)
+        num_ep = np.zeros(nb, dtype=np.int64)
+        num_cp = np.zeros(nb, dtype=np.int64)
+        exon_support = np.zeros(nb, dtype=bool)
+        cds_support = np.zeros(nb, dtype=bool)
+        fwd = g.forward
+        left_anchor = t in (ST.singleG, ST.initial0, ST.initial1, ST.initial2,
+                            ST.rsingleG, ST.rterminal0, ST.rterminal1,
+                            ST.rterminal2)
+        right_anchor = t in (ST.singleG, ST.terminal, ST.rsingleG,
+                             ST.rinitial)
+        ebx = np.asarray(end_of_bio)     # scalar or per-candidate vector
+        parts = h.ovlping(["exonpart", "CDSpart", "exon", "CDS"],
+                          int(bob.min()), int(ebx.max()), "both")
+        for f in parts:
+            strand_ok = (f.strand == ".") or                 (fwd == (f.strand == "+"))
+            LOGB = float(np.log(f.bonus))
+            if f.type in ("exonpart", "CDSpart"):
+                end_in = (f.end >= bob) & (f.end <= ebx)
+                if f.type == "exonpart":
+                    num_ep += end_in
+                else:
+                    num_cp += end_in
+                if strand_ok:
+                    inside = (f.start >= bob) & (f.end <= ebx)
+                    part_bonus += np.where(inside, LOGB, 0.0)
+                    nep += inside
+                    if f.type == "exonpart":
+                        if left_anchor:
+                            half = (~inside) & end_in
+                            part_bonus += np.where(half, 0.5 * LOGB, 0.0)
+                            nep += half
+                        if right_anchor:
+                            start_in = (~inside) & (f.start >= bob) &                                 (f.start <= ebx)
+                            part_bonus += np.where(start_in, 0.5 * LOGB, 0.0)
+                            nep += start_in
+            elif f.type == "CDS":
+                match = strand_ok & (f.start == bob) & (f.end == ebx)
+                quot += np.where(match, LOGB, 0.0)
+                cds_support |= match
+            elif f.type == "exon" and strand_ok:
+                if t in (ST.singleG, ST.rsingleG):
+                    pass
+                elif t in (ST.internal0, ST.internal1, ST.internal2,
+                           ST.rinternal0, ST.rinternal1, ST.rinternal2):
+                    match = (f.start == bob) & (f.end == ebx)
+                    quot += np.where(match, LOGB, 0.0)
+                    exon_support |= match
+                elif t in (ST.terminal, ST.rinitial):
+                    match = (f.start == bob) & (f.end > ebx)
+                    quot += np.where(match, 0.5 * LOGB, 0.0)
+                    exon_support |= match
+                else:
+                    match = (f.start < bob) & (f.end == ebx)
+                    quot += np.where(match, 0.5 * LOGB, 0.0)
+                    exon_support |= match
+        quot += part_bonus
+        # local part malus for unevenly supported CDS (nep >= 5): multiply
+        # localMalus^zeroCov, clamped to at least 1/partBonus (reference
+        # exonmodel.cc:1838-1848, extrinsicinfo.cc:1912,2371)
+        lm5 = nep >= 5
+        if lm5.any():
+            ccov = self.cumcov_cp_plus if fwd else self.cumcov_cp_minus
+            n = self.n
+            e_c = np.clip(ebx, 0, n - 1)
+            zc = ccov[e_c] - np.where(bob > 0,
+                                      ccov[np.clip(bob - 1, 0, n - 1)], 0)
+            lpm = np.where(zc > 0, zc * self.log_local_malus_cp, 0.0)
+            lpm = np.maximum(lpm, -part_bonus)
+            quot += np.where(lm5, lpm, 0.0)
+        ln_ep = exon_len - num_ep
+        ln_cp = exon_len - num_cp
+        quot += np.where(ln_ep > 0, ln_ep * lm["exonpart"], 0.0)
+        quot += np.where(ln_cp > 0, ln_cp * lm["CDSpart"], 0.0)
+        quot += np.where(~exon_support, lm["exon"], 0.0)
+        quot += np.where(~cds_support, lm["CDS"], 0.0)
+        return quot
+
+    # ------------------------------------------------------------------
+    def _rest_seq(self, t: ST, c: int, g: ExonGeometry, bs: np.ndarray,
+                  right, frame_of_right: int) -> np.ndarray:
+        """`right` may be a scalar (one exon end, vector of begins — the
+        DP candidate case) or a per-element vector paired with bs (the
+        pinned-state precompute, device._build_pinned)."""
+        cn, n = self.cn, self.n
+        k = self.exp.k
+        codes = self.codes
+        log_nc = float(np.log(cn.prob_n_in_coding))
+        out = np.full(bs.shape[0], NEG_INF)
+        pls = self.exp.gc[c].pls
+        rightv = np.broadcast_to(
+            np.asarray(right, dtype=np.int64), bs.shape)
+
+        over = bs > rightv
+        out[over] = (bs[over] - rightv[over] - 1) * LOG4
+
+        shorts = (~over) & (rightv - bs <= k)
+        if shorts.any():
+            for i in np.flatnonzero(shorts):
+                b = int(bs[i])
+                ri = int(rightv[i])
+                l = ri - b
+                if g.forward:
+                    ids = genetics.kmer_ids(codes[b: ri + 1], l + 1)
+                    frame = frame_of_right
+                else:
+                    ids = genetics.rc_kmer_ids(codes[b: ri + 1], l + 1)
+                    frame = int(mod3(frame_of_right + l))
+                if ids.size and ids[0] >= 0:
+                    val = pls[l][frame, ids[0]]
+                    out[i] = np.log(val) if val > 0 else NEG_INF
+                else:
+                    out[i] = (l + 1) * log_nc
+
+        normal = (~over) & (rightv - bs > k)
+        if not normal.any():
+            return out
+        idxs = np.flatnonzero(normal)
+        b = bs[idxs]
+        right = rightv[idxs]
+
+        if g.forward:
+            phi = mod3(frame_of_right - right)
+            cum_emi = self.cum_exon[(c, "emi", True)]
+            cum_init = self.cum_exon[(c, "init", True)]
+            cum_et = self.cum_exon[(c, "et", True)]
+            # initial pattern of length k at [b, b+k-1]
+            end_of_start = b + k - 1
+            initpat = np.full(b.shape[0], k * log_nc)
+            ids = self.kmer_ids_full(k)
+            sel_ok = (b >= 0) & (b <= n - k)
+            pid = ids[np.clip(b, 0, max(n - k, 0))]
+            frame_ip = mod3(phi + end_of_start)
+            okp = sel_ok & (pid >= 0)
+            vals = pls[k - 1][frame_ip[okp], pid[okp]]
+            with np.errstate(divide="ignore"):
+                initpat[okp] = np.log(vals)
+
+            if t == ST.singleG:
+                end_init = np.minimum(end_of_start + cn.init_coding_len, right)
+                seg = T.seg_sum(cum_init, phi, b + k, end_init) + \
+                    T.seg_sum(cum_emi, phi, end_init + 1, right)
+            elif t in (ST.initial0, ST.initial1, ST.initial2):
+                end_init = end_of_start + cn.init_coding_len
+                over_r = end_init > right
+                end_init = np.where(over_r, right, end_init)
+                bot = np.where(over_r, right + 1,
+                               right - cn.et_coding_len + 1)
+                bot = np.where(bot <= end_init, right + 1, bot)
+                seg = T.seg_sum(cum_init, phi, b + k, end_init) + \
+                    T.seg_sum(cum_emi, phi, end_init + 1, bot - 1) + \
+                    T.seg_sum(cum_et, phi, bot, right)
+            elif t in (ST.internal0, ST.internal1, ST.internal2):
+                bot = right - cn.et_coding_len + 1
+                bot = np.where(bot <= end_of_start, right + 1, bot)
+                seg = T.seg_sum(cum_emi, phi, b + k, bot - 1) + \
+                    T.seg_sum(cum_et, phi, bot, right)
+            else:  # terminal
+                seg = T.seg_sum(cum_emi, phi, b + k, right)
+            out[idxs] = initpat + seg
+        else:
+            phi = mod3(frame_of_right + right)
+            cum_emi = self.cum_exon[(c, "emi", False)]
+            cum_init = self.cum_exon[(c, "init", False)]
+            cum_et = self.cum_exon[(c, "et", False)]
+            begin_initp = right - (k - 1)
+            # rc initial pattern of length k at [begin_initp, right]
+            rids = self.rc_kmer_ids_full(k)
+            initpat = np.full(b.shape[0], k * log_nc)
+            ok = (begin_initp >= 0) & (begin_initp <= n - k)
+            pid = rids[np.clip(begin_initp, 0, max(n - k, 0))]
+            okp = ok & (pid >= 0)
+            if okp.any():
+                frame_ip = mod3(frame_of_right + right - begin_initp)
+                vals = pls[k - 1][frame_ip[okp], pid[okp]]
+                with np.errstate(divide="ignore"):
+                    initpat[okp] = np.where(vals > 0, np.log(vals), NEG_INF)
+            if t == ST.rsingleG:
+                begin_init = np.maximum(begin_initp - cn.init_coding_len, b)
+                seg = T.seg_sum(cum_init, phi, begin_init, begin_initp - 1) + \
+                    T.seg_sum(cum_emi, phi, b, begin_init - 1)
+            elif t == ST.rinitial:
+                begin_init = begin_initp - cn.init_coding_len
+                under = begin_init < b
+                begin_init = np.where(under, b, begin_init)
+                eot = np.where(under, b - 1, b + cn.et_coding_len - 1)
+                eot = np.where((~under) & (eot >= begin_init), b - 1, eot)
+                seg = T.seg_sum(cum_init, phi, begin_init, begin_initp - 1) + \
+                    T.seg_sum(cum_emi, phi, eot + 1, begin_init - 1) + \
+                    T.seg_sum(cum_et, phi, b, eot)
+            elif t in (ST.rinternal0, ST.rinternal1, ST.rinternal2):
+                eot = b + cn.et_coding_len - 1
+                eot = np.where(eot >= begin_initp, b - 1, eot)
+                seg = T.seg_sum(cum_emi, phi, eot + 1, begin_initp - 1) + \
+                    T.seg_sum(cum_et, phi, b, eot)
+            else:  # rterminal*
+                seg = T.seg_sum(cum_emi, phi, b, begin_initp - 1)
+            out[idxs] = initpat + seg
+        return out
+

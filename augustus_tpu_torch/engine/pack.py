@@ -60,6 +60,7 @@ W_PAD = 3200          # back-window: >= CONV_CAP + margins
 BLK = 2048            # plane row padding unit (n_pad = multiple of BLK)
 EP = 640              # end padding of b-indexed arrays
 NEG = np.float32(F32_NEG)
+GATE = np.float32(-1.0e29)
 GATE_LANE, CLS_LANE = 17, 16
 INT_FILL = np.int32(-(1 << 30))   # empty crossing / exact-match slot
 
@@ -627,4 +628,60 @@ def expand_arrays(st: PKStatic, a: Dict[str, torch.Tensor]
         msk[: 2 * L, W_PAD: W_PAD + n] = \
             torch.stack([bv, bs], dim=1).reshape(2 * L, n)
     out["msk"] = msk
+    return out
+
+
+def _lenvec_mask(st: PKStatic, size: int) -> np.ndarray:
+    """The entries of lv_pack that hold length vectors (log tables), not
+    frame masks."""
+    m = np.zeros(size, dtype=bool)
+    for d in st.lessd:
+        m[d.lv_off: d.lv_off + d.window] = True
+    for cv in st.convs:
+        for v in cv.variants:
+            m[v.lv_off: v.lv_off + v.width] = True
+    return m
+
+
+def forward_arrays(st: PKStatic, arrays: Dict[str, object], heat: float
+                   ) -> Dict[str, object]:
+    """pack_tracks' host arrays for the forward table (engine/forward.py):
+    a copy with
+
+    * the float log tables heated: multiplied by `heat` = (8 - t) / 8 for
+      --temperature=t, as augustus_tpu's ForwardEngine multiplies every
+      float32 table of split_tracks but log_init/log_term
+      (augustus_tpu/engine/scan.py:955-973).  Here that is stab, xstab
+      (the lessD psi column), G_src, cum_src, ltc_all, lt_T and the length
+      vectors of lv_pack; v0, log_term, sel_pack (a structural one-hot),
+      the frame masks of lv_pack and the integer tables stay.  A chunk with
+      sparse exon hints mixes count columns into its scalar table, so heat
+      there raises NotImplementedError, as the reference refuses it;
+    * `l0`, the initial lane values, as the logsumexp of v0 + lane
+      transitions over the states, gated at GATE (scan.py:921-927), where
+      pack_tracks gives the Viterbi kernel their maximum."""
+    out = dict(arrays)
+    if heat != 1.0:
+        if st.NHW:
+            raise NotImplementedError(
+                "not ported yet: temperature heating (--temperature) of a "
+                "piece with sparse exon/CDS hints (the reference's host "
+                "gold forward)")
+        h = np.float32(heat)
+        for k in ("stab", "xstab", "G_src", "cum_src", "ltc_all", "lt_T"):
+            out[k] = (np.asarray(arrays[k]) * h).astype(np.float32)
+        lv = np.asarray(arrays["lv_pack"])
+        m = _lenvec_mask(st, lv.shape[1])[None, :]
+        out["lv_pack"] = np.where(m, lv * h, lv).astype(np.float32)
+    S, NL = st.S, st.NL
+    v0 = np.asarray(out["v0"])[0, :S]
+    cand = v0[None, :] + np.asarray(out["lt_T"])[:S, :NL].T   # (NL, S)
+    mx = cand.max(axis=1)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        ssum = np.where(cand > GATE, np.exp(cand - mx[:, None]),
+                        np.float32(0)).sum(axis=1, dtype=np.float32)
+        lse = mx + np.log(ssum)
+    l0 = np.full((1, 64), NEG, dtype=np.float32)
+    l0[0, :NL] = np.where(mx > GATE, lse, NEG)
+    out["l0"] = l0
     return out

@@ -239,6 +239,35 @@ def is_possible_dss(dss_ok: np.ndarray, pos) -> np.ndarray:
     return ok & dss_ok[A.xp.clip(pos, 0, n - 1)]
 
 
+def is_possible_rdss(rdss_ok: np.ndarray, pos) -> np.ndarray:
+    """'ac' at [pos-1, pos]."""
+    n = rdss_ok.shape[0]
+    ok = (pos >= 1) & (pos <= n - 2)
+    return ok & rdss_ok[A.xp.clip(pos - 1, 0, n - 1)]
+
+
+def is_possible_ass(ass_ok: np.ndarray, pos) -> np.ndarray:
+    """'ag' at [pos-1, pos]."""
+    n = ass_ok.shape[0]
+    ok = (pos >= 1) & (pos <= n - 2)
+    return ok & ass_ok[A.xp.clip(pos - 1, 0, n - 1)]
+
+
+def is_possible_rass(rass_ok: np.ndarray, pos) -> np.ndarray:
+    """'ct' at [pos, pos+1]."""
+    n = rass_ok.shape[0]
+    ok = (pos >= 1) & (pos <= n - 2)
+    return ok & rass_ok[A.xp.clip(pos, 0, n - 1)]
+
+
+def seg_sum(cum: np.ndarray, phi, left, right):
+    """Sum of track values over [left, right] (inclusive); 0 if left>right
+    (numpy; the sampling walk's candidate builders)."""
+    left = np.asarray(left)
+    right = np.asarray(right)
+    return np.where(left > right, 0.0, cum[phi, right + 1] - cum[phi, left])
+
+
 def build_splice_tracks(codes: np.ndarray, ip: IntronParams, cn: Constants,
                         hinted=None) -> SpliceTracks:
     """hinted: optional (fD, rD, fA, rA) boolean arrays of hint-enabled
@@ -443,3 +472,20 @@ def leftmost_exon_begin(orf: Dict[str, np.ndarray], frame, base, forward: bool,
                    - ASS_MIDDLE - DSS_MIDDLE - cn.dss_start)
     return xp.maximum(leftmost, base - max_allowed)
 
+
+
+def leftmost_exon_begin_raw(orf: Dict[str, np.ndarray], frame: int, base: int,
+                            forward: bool, cn: Constants, n: int) -> int:
+    """Scalar leftmostExonBegin accepting the RAW frame value the reference
+    passes (may be -1 for win==0 internal exons: then pos = base+1)."""
+    if forward:
+        pos = base - frame - 3 if frame in (0, 1) else base - frame
+    else:
+        pos = base + frame - 5 if frame in (1, 2) else base - 2
+    if pos >= n:
+        pos -= 3 * ((pos - n + 3) // 3)
+    arr = orf["fwd"] if forward else orf["rev"]
+    leftmost = int(arr[pos]) + 1 if pos >= 0 else 0
+    max_allowed = (cn.max_exon_len - cn.ass_upwindow_size - cn.ass_start
+                   - ASS_MIDDLE - DSS_MIDDLE - cn.dss_start)
+    return max(leftmost, base - max_allowed)

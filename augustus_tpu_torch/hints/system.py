@@ -469,6 +469,20 @@ class SeqHints:
         self.hinted_fD, self.hinted_rD = fD, rD
         self.hinted_fA, self.hinted_rA = fA, rA
 
+    # ------------------------------------------------------------------
+    # query helpers (strand: '+', '-', 'both')
+    def _strand_ok(self, f: Feature, strand: str) -> bool:
+        if strand == "both":
+            return True
+        return f.strand == strand or f.strand == "."
+
+    def ovlping(self, types, a: int, b: int, strand: str) -> List[Feature]:
+        if isinstance(types, str):
+            types = [types]
+        return [f for t in types for f in self.by_type[t]
+                if not (f.end < a or f.start > b)
+                and self._strand_ok(f, strand)]
+
 
 def _groups_equal(a: HintGroup, b: HintGroup) -> bool:
     if len(a.hints) != len(b.hints) or a.begin != b.begin or a.end != b.end:

@@ -236,13 +236,62 @@ class Gene:
             st.apostprob = p
             st.has_score = True
 
+    def add_state_postprobs(self, p: float) -> None:
+        for st in self._all_states():
+            st.apostprob += p
+            st.has_score = True
+
     def set_sample_count(self, k: int) -> None:
         for st in self._all_states():
             st.sample_count = k
 
+    def add_sample_count(self, k: int) -> None:
+        for st in self._all_states():
+            st.sample_count += k
+
     def set_state_has_score(self, has: bool) -> None:
         for st in self._all_states():
             st.has_score = has
+
+    def norm_post_prob(self, n: float) -> None:
+        """reference Transcript::normPostProb (gene.cc:1180); the reference
+        stores apostprob as C `float`, so divide in float32."""
+        self.apostprob = float(np.float32(self.apostprob) / np.float32(n))
+        for st in self._all_states():
+            st.apostprob = float(np.float32(st.apostprob) / np.float32(n))
+
+    def states_equal(self, other: "Gene") -> bool:
+        """reference Transcript::operator== (gene.cc:1150): pairwise
+        begin/end equality over the four state lists (types NOT compared)."""
+        for sl1, sl2 in zip(self.ex_in_heads(), other.ex_in_heads()):
+            if len(sl1) != len(sl2):
+                return False
+            for a, b in zip(sl1, sl2):
+                if a.begin != b.begin or a.end != b.end:
+                    return False
+        return True
+
+    def update_post_prob(self, other: "Gene") -> None:
+        """reference Transcript::updatePostProb (gene.cc:1202): merge-compare
+        each sorted state list; on a begin/end/type match, cross-add the
+        other's sampleCount to this state's apostprob (and vice versa)."""
+        if other.gene_begin() > self.gene_end() or \
+                self.gene_begin() > other.gene_end():
+            return
+        for sl1, sl2 in zip(self.ex_in_heads(), other.ex_in_heads()):
+            i1 = i2 = 0
+            while i1 < len(sl1) and i2 < len(sl2):
+                st, ot = sl1[i1], sl2[i2]
+                if st.begin == ot.begin and st.end == ot.end and \
+                        st.type == ot.type:
+                    st.apostprob += ot.sample_count
+                    ot.apostprob += st.sample_count
+                    i1 += 1
+                    i2 += 1
+                elif st.begin < ot.begin:
+                    i1 += 1
+                else:
+                    i2 += 1
 
     def mean_state_prob(self) -> float:
         """reference Transcript::meanStateProb (gene.cc:1241): geometric

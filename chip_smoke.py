@@ -8,9 +8,9 @@ falls back to the CPU or to a kernel's plain version).  Phases, one JSON
 line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of csrc/viterbi.cu, prefix.cu and trace.cu, all started
-          together (set-up time; nvcc's -Xptxas=-v report of registers,
-          shared memory and spills goes to stderr)
+  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu and forward.cu,
+          all started together (set-up time; nvcc's -Xptxas=-v report of
+          registers, shared memory and spills goes to stderr)
   parity  the Viterbi kernel against its plain PyTorch version on the card,
           on 6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
@@ -40,6 +40,14 @@ line each:
           final base and state equal), and the walk with a bound of
           count // 3 + 1 events (three launches, each from where the last
           stopped) equal to one launch, beside the host walk it replaces
+  forward_parity  the forward-table kernel (csrc/forward.cu) against its
+          plain PyTorch version on the card, on the host route's planes of
+          6 kb of HS04636.fa with repo_fixture and with repo_fixture_gc2,
+          6 kb of HS04636sm.fa with its EST hints (sparse hints: the hint
+          quotient) and 6 kb of HS04636.fa at --temperature=3: the same
+          finite support and |df| <= 4e-3 + 3e-6 * |f| (the sums run in
+          another order); max |df|, kernel and plain ms, the bound from the
+          bytes of forward_work and the exp/log count of the plain version
   gff     prediction on HS04636.fa on the card (device route), cold and
           warm, each byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
@@ -47,6 +55,17 @@ line each:
           file and extrinsic.M.RM.E.W.cfg (exon hints: host route),
           evidence blocks included, byte-equal to
           repo_fixture_HS04636sm_hints.gff
+  gff_sample  HS04636.fa with --sample=100
+          --alternatives-from-sampling=true (host route, the Viterbi and
+          forward kernels, the host sampling walk): cold through the
+          command line (python -m augustus_tpu_torch.cli.augustus, a
+          process of its own), warm through predict_records with a fresh
+          model (a fresh rand() stream), each byte-equal to
+          repo_fixture_HS04636_sample100.gff; then HS04636sm.fa with its
+          hints, sampled with the posterior filters --minexonintronprob,
+          --minmeanexonintronprob and --keep_viterbi (the hint quotient in
+          the forward kernel, the hint terms in the walk), warm, byte-equal
+          to repo_fixture_HS04636sm_hints_sample100.gff
   full    ab-initio prediction on the 1,023,095-base sequence of
           augustus_tpu_torch/io/tiled.py (device route): one cold run, then
           one warm run with the per-stage breakdown, each byte-equal to
@@ -59,6 +78,14 @@ line each:
   full_hints  the softmasked letters with all the EST hints of every
           inserted gene (host route), cold and warm, each byte-equal to
           repo_fixture_tiled_hints.gff
+  full_forward  the forward kernel on the full cell's planes (device
+          route) and on full_hints' (host route): its time and time per
+          position, the same finite support as the Viterbi kernel's values
+          (debug_vals) and f >= v - (4e-3 + 3e-6 * |v|) everywhere (a
+          logsumexp is at least the maximum)
+  sample_depth  the sampled prediction of gff_sample on the first
+          SAMPLE_DEPTH bases of the full cell's sequence: seconds of the
+          host walk per Mb of sequence and per sampled Mb
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects.  Then the kernels line, the card line and the
 final status line.  The golden comparisons leave out comment lines.
@@ -85,7 +112,23 @@ DATA = os.path.join(ROOT, "tests", "data")
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
-KERNELS = ("viterbi", "prefix", "trace")
+# exp and log: 16 results per clock per SM on compute capability 9.0 (CUDA
+# C++ Programming Guide, arithmetic instruction throughput), 132 SMs at the
+# 1,980 MHz boost clock of the H100 SXM
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+KERNELS = ("viterbi", "prefix", "trace", "forward")
+# (species, fasta, bases, hints file, temperature) of phase forward_parity
+FORWARD_CHUNKS = (("repo_fixture", "HS04636.fa", 6000, None, 0),
+                  ("repo_fixture_gc2", "HS04636.fa", 6000, None, 0),
+                  ("repo_fixture", "HS04636sm.fa", 6000, "HS04636sm.E.gff",
+                   0),
+                  ("repo_fixture", "HS04636.fa", 6000, None, 3))
+FWD_ABS_TOL, FWD_REL_TOL = 4e-3, 3e-6
+SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
+# the posterior filters of the hinted sampled golden
+SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
+                  "keep_viterbi": "true"}
+SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence (one gene)
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -397,6 +440,180 @@ def phase_kernels_new(device, model, rec, card):
     return prefix_row, trace_row
 
 
+def forward_planes(model, rec, n, device):
+    """The forward kernel's planes of the first n bases of rec on the route
+    of `model` (its heat from --temperature): (static, planes, route)."""
+    from augustus_tpu_torch.engine.pack import forward_arrays
+    from augustus_tpu_torch.engine.viterbi import planes_for
+    from augustus_tpu_torch.predict import piece_tables
+    (st, arr), _, route = piece_tables(model, rec, n, device)
+    heat = (8.0 - model.cn.temperature) / 8.0
+    return st, planes_for(st, forward_arrays(st, arr, heat), device), \
+        (st, arr), route
+
+
+def fwd_gate(st, ref, got, what):
+    """Same finite support and |got - ref| <= 4e-3 + 3e-6 * |ref|: (max
+    |df|, largest share of the tolerance)."""
+    import numpy as np
+    r = ref[:, : st.S].cpu().numpy()
+    g = got[:, : st.S].cpu().numpy()
+    live = r > -5.0e29
+    if not np.array_equal(live, g > -5.0e29):
+        bad = np.argwhere(live != (g > -5.0e29))
+        raise AssertionError(f"{what}: finite support differs at "
+                             f"{bad[:5].tolist()} ({len(bad)} entries)")
+    err = np.abs(g[live] - r[live])
+    share = err / (FWD_ABS_TOL + FWD_REL_TOL * np.abs(r[live]))
+    if share.max(initial=0.0) > 1.0:
+        raise AssertionError(f"{what}: |df| {err.max()} beyond the "
+                             "tolerance")
+    return float(err.max(initial=0.0)), float(share.max(initial=0.0))
+
+
+def phase_forward_parity(device, card):
+    import dataclasses as dc
+    import torch
+    from augustus_tpu_torch.engine.forward import (
+        forward_reference, forward_table, forward_work)
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model
+    rows = []
+    for species, fasta, n, hints, temp in FORWARD_CHUNKS:
+        args = dict(model_args(species, hints), temperature=str(temp))
+        model = dc.replace(Model.load(args), route="host")
+        rec = read_fasta(os.path.join(DATA, fasta))[0]
+        st, planes, _, _ = forward_planes(model, rec, n, device)
+        got = forward_table(st, planes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, sfu = forward_reference(st, planes)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1000.0
+        err, share = fwd_gate(st, ref, got, f"forward {fasta} {species}")
+        kernel_ms = time_cuda(lambda: forward_table(st, planes), 3)
+        parts = forward_work(st, planes)
+        nbytes = sum(parts.values())
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_sfu_ms = sfu / SFU_OPS_PER_S * 1e3
+        row = {"phase": "forward_parity", "species": species, "fasta": fasta,
+               "n": st.n, "hints": hints, "NHW": st.NHW,
+               "temperature": temp, "support": "identical",
+               "tolerance": f"{FWD_ABS_TOL} + {FWD_REL_TOL} * |f|",
+               "max_abs_err": err, "max_tolerance_share": share,
+               "kernel_ms": kernel_ms, "us_per_position": kernel_ms * 1e3
+               / st.n, "plain_ms": plain_ms, "bytes": nbytes,
+               "bytes_by_part": parts, "exp_log": sfu,
+               "bound_bytes_ms": bound_bytes_ms,
+               "bound_sfu_ms": bound_sfu_ms,
+               "bound_ms": max(bound_bytes_ms, bound_sfu_ms),
+               "bound_by": ("bytes" if bound_bytes_ms >= bound_sfu_ms
+                            else "operations"), "card": card}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_full_forward(device, cells, card):
+    """The forward kernel on full-size planes, against the Viterbi
+    kernel's values of the same planes."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.viterbi import planes_for, viterbi_forward
+    for name, model, rec in cells:
+        st, fplanes, (_, arr), route = forward_planes(model, rec, None,
+                                                      device)
+        _, _, v = viterbi_forward(st, planes_for(st, arr, device),
+                                  debug_vals=True)
+        f = forward_table(st, fplanes)
+        torch.cuda.synchronize()
+        vv, ff = v[:, : st.S].cpu().numpy(), f[:, : st.S].cpu().numpy()
+        live = vv > -5.0e29
+        if not np.array_equal(live, ff > -5.0e29):
+            raise AssertionError(f"full_forward {name}: the forward table's "
+                                 "finite support differs from Viterbi's")
+        slack = ff[live] - vv[live]
+        tol = FWD_ABS_TOL + FWD_REL_TOL * np.abs(vv[live])
+        if (slack < -tol).any():
+            raise AssertionError(f"full_forward {name}: f < v - tol at "
+                                 f"{int((slack < -tol).sum())} entries")
+        ms = time_cuda(lambda: forward_table(st, fplanes), 2)
+        emit({"phase": "full_forward", "cell": name, "route": route,
+              "n": st.n, "NHW": st.NHW, "live": int(live.sum()),
+              "min_f_minus_v": float(slack.min()),
+              "max_f_minus_v": float(slack.max()), "kernel_ms": ms,
+              "us_per_position": ms * 1e3 / st.n, "card": card})
+        del fplanes, f, v
+
+
+def phase_gff_sample(model_sampled, card):
+    """HS04636.fa sampled: cold through the command line, warm in this
+    process (a fresh model each, so each starts the rand() stream)."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model
+    golden = golden_body("repo_fixture_HS04636_sample100.gff")
+    fasta = os.path.join(DATA, "HS04636.fa")
+    cmd = [sys.executable, "-m", "augustus_tpu_torch.cli.augustus"] + \
+        [f"--{k}={v}" for k, v in model_args("repo_fixture").items()] + \
+        [f"--{k}={v}" for k, v in SAMPLE_ARGS.items()] + [fasta]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, check=True, capture_output=True,
+                         text=True).stdout
+    cold_s = time.perf_counter() - t0
+    if strip_comments(out) != golden:
+        raise AssertionError("gff_sample cold run (command line): GFF "
+                             "differs from the committed golden")
+    emit({"phase": "gff_sample", "run": "cold", "via": "command line",
+          "equal_to_golden": True, "seconds": cold_s,
+          "transcripts": out.count("\ttranscript\t"), "card": card})
+    gff, tm, counts, wall, _ = run_predict(model_sampled(),
+                                           read_fasta(fasta)[0], "host_prep")
+    if strip_comments(gff) != golden:
+        raise AssertionError("gff_sample warm run: GFF differs from the "
+                             "committed golden")
+    emit({"phase": "gff_sample", "run": "warm", "via": "predict_records",
+          "equal_to_golden": True, "seconds": wall,
+          "transcripts": gff.count("\ttranscript\t"), "counts": counts,
+          "stages_s": tm, "card": card})
+    hmodel = Model.load(dict(model_args("repo_fixture", "HS04636sm.E.gff"),
+                             **SAMPLE_ARGS, **SAMPLE_FILTERS))
+    gff, tm, counts, wall, _ = run_predict(
+        hmodel, read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0],
+        "host_prep")
+    if strip_comments(gff) != golden_body(
+            "repo_fixture_HS04636sm_hints_sample100.gff") or \
+            "# Evidence for and against" not in gff:
+        raise AssertionError("gff_sample hinted run: GFF differs from the "
+                             "committed golden")
+    emit({"phase": "gff_sample", "run": "warm, hints and filters",
+          "via": "predict_records", "equal_to_golden": True,
+          "seconds": wall, "transcripts": gff.count("\ttranscript\t"),
+          "counts": counts, "stages_s": tm, "card": card})
+
+
+def phase_sample_depth(model, rec, card):
+    from augustus_tpu_torch.io.fasta import FastaRecord
+    srec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
+    gff, tm, counts, wall, peak = run_predict(model, srec, "host_prep")
+    if gff.count("\tgene\t") < 1:
+        raise AssertionError("sample_depth: no gene predicted")
+    mb = SAMPLE_DEPTH / 1e6
+    paths = int(SAMPLE_ARGS["sample"]) - 1
+    emit({"phase": "sample_depth", "length": SAMPLE_DEPTH,
+          "samples": int(SAMPLE_ARGS["sample"]),
+          "genes": gff.count("\tgene\t"),
+          "transcripts": gff.count("\ttranscript\t"), "wall_s": wall,
+          "walk_s": tm.get("sample", 0.0),
+          "walk_s_per_mb": tm.get("sample", 0.0) / mb,
+          "walk_s_per_sampled_mb": tm.get("sample", 0.0) / (mb * paths),
+          "kernel_ms": tm.get("kernel", 0) * 1e3,
+          "forward_ms": tm.get("forward", 0) * 1e3,
+          "walk_share": tm.get("sample", 0.0) / wall,
+          "peak_mem_bytes": peak, "stages_s": tm, "counts": counts,
+          "card": card})
+
+
 def run_predict(model, rec, route):
     """One prediction with stats on: (gff, stage times, counts, wall s,
     peak device bytes); asserts that every piece took `route`."""
@@ -489,6 +706,7 @@ def main() -> int:
     from augustus_tpu_torch.engine import _build
     from augustus_tpu_torch.engine import traceback as tb
     from augustus_tpu_torch.engine import xputil as U
+    from augustus_tpu_torch.engine.forward import forward_table
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
@@ -529,17 +747,23 @@ def main() -> int:
         ("HS04636sm_exon_free", sm_model, hs04636sm, None),
         ("full", model, rec, None)], card)
     prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
+    fwd_parity = phase_forward_parity(device, card)
+
+    def model_sampled():
+        return Model.load(dict(model_args("repo_fixture"), **SAMPLE_ARGS))
 
     # ---- main path: GFF parity, then full size; counts from here on ----
     viterbi_forward.launches = 0
     viterbi_forward.hinted_launches = 0
     U.prefix_sum_f64.launches = 0
     tb.event_walk.launches = 0
+    forward_table.launches = 0
     predict_phase("gff", model, os.path.join(DATA, "HS04636.fa"),
                   "repo_fixture_HS04636.gff", "device_prep", False)
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
     predict_phase("gff_hints", hmodel, os.path.join(DATA, "HS04636sm.fa"),
                   "repo_fixture_HS04636sm_hints.gff", "host_prep", True)
+    phase_gff_sample(model_sampled, card)
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")
@@ -571,15 +795,21 @@ def main() -> int:
     phase_full("full_hints", hmodel, hrec, golden_body(
         "repo_fixture_tiled_hints.gff"), card,
         dict(counts, hints=len(hint_lines)), "host_prep")
+    phase_sample_depth(model_sampled(), rec, card)
     launches = viterbi_forward.launches
     hinted = viterbi_forward.hinted_launches
     prefix_launches = U.prefix_sum_f64.launches
     walk_launches = tb.event_walk.launches
-    if min(launches, hinted, prefix_launches, walk_launches) < 1:
+    fwd_launches = forward_table.launches
+    if min(launches, hinted, prefix_launches, walk_launches,
+           fwd_launches) < 1:
         raise AssertionError(
             f"the main path launched viterbi_forward {launches} times "
-            f"({hinted} with hints), prefix_sum_f64 {prefix_launches} and "
-            f"event_walk {walk_launches} times")
+            f"({hinted} with hints), prefix_sum_f64 {prefix_launches}, "
+            f"event_walk {walk_launches} and forward_table {fwd_launches} "
+            "times")
+    phase_full_forward(device, [("full", model, rec),
+                                ("full_hints", hmodel, hrec)], card)
 
     p, ph = parity[2], parity[3]
     vrow = {"max_abs_err": max(r["max_abs_err"] for r in parity),
@@ -589,6 +819,11 @@ def main() -> int:
     hrow = dict(vrow, max_abs_err=max(r["max_abs_err"] for r in parity[3:]),
                 ms=ph["kernel_ms"], plain_ms=ph["plain_ms"],
                 bound_ms=ph["bound_ms"], bound_by=ph["bound_by"])
+    fp = fwd_parity[0]
+    frow = {"max_abs_err": max(r["max_abs_err"] for r in fwd_parity),
+            "ms": fp["kernel_ms"], "plain_ms": fp["plain_ms"],
+            "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
+            "library_ms": None}
     emit({"kernels": [
         kernel_row("viterbi_forward", "augustus_tpu_torch/csrc/viterbi.cu",
                    "augustus_tpu/engine/pallas_scan.py:128", launches, vrow,
@@ -602,7 +837,11 @@ def main() -> int:
                    prefix_row, "bit-exact"),
         kernel_row("event_walk", "augustus_tpu_torch/csrc/trace.cu",
                    "augustus_tpu/engine/traceback.py:116", walk_launches,
-                   trace_row, "exact")]})
+                   trace_row, "exact"),
+        kernel_row("forward_table", "augustus_tpu_torch/csrc/forward.cu",
+                   "augustus_tpu/engine/scan.py:740", fwd_launches, frow,
+                   f"support identical, |df| <= {FWD_ABS_TOL} + "
+                   f"{FWD_REL_TOL} * |f|")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""On an NVIDIA card: the CUDA Viterbi kernel against its plain PyTorch
-version on the card, as chip_smoke.py's parity phase does.  Skipped
+"""On an NVIDIA card: the CUDA kernels against their plain PyTorch
+versions on the card, as chip_smoke.py's parity phases do.  Skipped
 without a card (decided inside the tests, never at import)."""
 
 import os
@@ -162,3 +162,43 @@ def test_device_route_tables_equal_to_host_route_on_the_card(cuda):
         got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
         assert np.array_equal(np.asarray(got).view(np.uint8),
                               np.asarray(v).view(np.uint8)), k
+
+
+@pytest.mark.cuda
+def test_forward_kernel_equals_plain_version(cuda):
+    """csrc/forward.cu against its plain version on the card, hinted:
+    the same finite support and |df| <= 4e-3 + 3e-6 * |f|."""
+    from augustus_tpu_torch.engine.forward import (forward_reference,
+                                                   forward_table)
+    from augustus_tpu_torch.engine.pack import KERNEL_CONSTANTS, forward_arrays
+    st, planes = _planes("repo_fixture", 3000, cuda, hinted=True)
+    assert st.NHW > 0
+    # the forward's own l0 over the same planes
+    arr = {k: planes[k].cpu().numpy() for k in KERNEL_CONSTANTS}
+    planes = dict(planes, l0=torch.from_numpy(
+        forward_arrays(st, arr, 1.0)["l0"]).to(cuda))
+    before = forward_table.launches
+    got = forward_table(st, planes)
+    torch.cuda.synchronize()
+    assert forward_table.launches == before + 1
+    ref, _ = forward_reference(st, planes)
+    g, r = got[:, : st.S].cpu().numpy(), ref[:, : st.S].cpu().numpy()
+    live = r > -5.0e29
+    assert np.array_equal(live, g > -5.0e29) and live.sum() > 10_000
+    assert (np.abs(g - r)[live] <= 4e-3 + 3e-6 * np.abs(r[live])).all()
+
+
+@pytest.mark.cuda
+def test_sampled_prediction_on_the_card_reproduces_the_golden(cuda):
+    from augustus_tpu_torch.predict import Model, predict_file
+    m = Model.load({"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
+                    "UTR": "off", "softmasking": "0", "sample": "100",
+                    "alternatives-from-sampling": "true"})
+    got = predict_file(m, os.path.join(ROOT, "tests", "data", "HS04636.fa"))
+    with open(os.path.join(ROOT, "augustus_tpu_torch", "data", "golden",
+                           "repo_fixture_HS04636_sample100.gff")) as fh:
+        golden = fh.read()
+
+    def body(t):
+        return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
+    assert body(got) == body(golden)

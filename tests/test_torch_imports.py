@@ -87,8 +87,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("args", [
-    {"UTR": "on"}, {"nc": "1"}, {"alternatives-from-sampling": "1"},
-    {"sample": "100"}, {"mea": "1"}])
+    {"UTR": "on"}, {"nc": "1"}, {"alternatives-from-evidence": "1"},
+    {"mea": "1", "sample": "100", "alternatives-from-sampling": "1"},
+    {"mea": "1"}])
 def test_out_of_slice_requests_raise(args):
     from augustus_tpu_torch.predict import Model
     a = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,

@@ -1,10 +1,12 @@
 """Write the port's golden GFFs, made on the CPU.
 
-    python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints]
+    python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints] \
+        [sample] [sample_hints]
 
-All use the `repo_fixture` species with `--UTR=off`; the first two with
-`--softmasking=0` and no hints, the last two with `--softmasking=1`, a hints
-file of augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
+All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
+sample with `--softmasking=0` and no hints, hints, tiled_hints and
+sample_hints with `--softmasking=1`, a hints file of
+augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
   hs04636  tests/data/HS04636.fa through `augustus_tpu` predict_file
            (engine="scan", JAX on the CPU)
            -> augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
@@ -18,13 +20,25 @@ file of augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
   tiled_hints  io/tiled.py:tiled_hinted (the same letters softmasked, with
            tiled_sm.E.gff) through the port's CPU path
            -> augustus_tpu_torch/data/golden/repo_fixture_tiled_hints.gff
+  sample   tests/data/HS04636.fa with --sample=100
+           --alternatives-from-sampling=true through the port's CPU path
+           (plain versions of the Viterbi and forward kernels, the host
+           sampling walk; about a minute)
+           -> augustus_tpu_torch/data/golden/repo_fixture_HS04636_sample100.gff
+           (tests/test_torch_sampling.py keeps it equal to `augustus_tpu`)
+  sample_hints  tests/data/HS04636sm.fa with HS04636sm.E.gff, sampled as
+           above with the posterior filters --minexonintronprob=0.08
+           --minmeanexonintronprob=0.4 --keep_viterbi=true, the port's CPU
+           path -> repo_fixture_HS04636sm_hints_sample100.gff
+           (tests/test_torch_sampling_hints.py keeps it equal to
+           `augustus_tpu`)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
 tests/test_torch_*.py hold them to; at 1 Mb it takes about 17 minutes on
 one thread and 13 GB of memory, so run it where that is free.  Each golden
 prints its seconds and the process's peak resident memory.
-`chip_smoke.py` holds the card's output equal to all four goldens.
+`chip_smoke.py` holds the card's output equal to all six goldens.
 """
 
 import os
@@ -42,9 +56,16 @@ HINTS = os.path.join(ROOT, "augustus_tpu_torch", "data", "hints")
 GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "tiled": "repo_fixture_tiled.gff",
            "hints": "repo_fixture_HS04636sm_hints.gff",
-           "tiled_hints": "repo_fixture_tiled_hints.gff"}
+           "tiled_hints": "repo_fixture_tiled_hints.gff",
+           "sample": "repo_fixture_HS04636_sample100.gff",
+           "sample_hints": "repo_fixture_HS04636sm_hints_sample100.gff"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
+SAMPLED = dict(ARGS, sample="100")
+SAMPLED["alternatives-from-sampling"] = "true"
+# the posterior filters of the hinted sampled golden
+FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
+           "keep_viterbi": "true"}
 
 
 def hinted_args(hints_file: str) -> dict:
@@ -63,8 +84,17 @@ def golden_gff(which: str) -> str:
                             engine="scan")
     import torch
     from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
-    from augustus_tpu_torch.predict import Model, predict_records
+    from augustus_tpu_torch.predict import Model, predict_file, predict_records
     torch.set_num_threads(1)    # the plain versions are loops of small ops
+    if which == "sample":
+        return predict_file(Model.load(dict(SAMPLED)),
+                            os.path.join(DATA, "HS04636.fa"), device="cpu")
+    if which == "sample_hints":
+        args = dict(hinted_args("HS04636sm.E.gff"), **FILTERS)
+        args.update({k: SAMPLED[k] for k in
+                     ("sample", "alternatives-from-sampling")})
+        return predict_file(Model.load(args),
+                            os.path.join(DATA, "HS04636sm.fa"), device="cpu")
     if which == "tiled":
         args, rec = dict(ARGS), tiled_record(DATA)
     else:
