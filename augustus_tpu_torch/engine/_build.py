@@ -2,7 +2,8 @@
 
 `csrc/<name>.cu` is compiled at first use, from the sources in the
 checkout, into `build/kernels/lib<name>-<hash>.so` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared headers `csrc/*.cuh` and the
+flags, so an edited source or header rebuilds).
 Nothing is built when the package is imported.
 """
 
@@ -40,8 +41,12 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        h = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header in csrc/
+    for src in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                       if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

@@ -944,8 +944,8 @@ class GoldEngine:
             else:
                 # NB: the reference passes the RAW value win-1 (which is -1
                 # for win==0) to leftmostExonBegin — replicate, don't mod3.
-                lmb = T.leftmost_exon_begin_raw(self.orf, g.win - 1,
-                                                j + cn.dss_start, True, cn, n)
+                lmb = int(T.leftmost_exon_begin(self.orf, g.win - 1,
+                                                j + cn.dss_start, True, cn, n))
                 end_part = NEG_INF if lmb >= j else 0.0
             if end_part > NEG_INF and self.hints is not None:
                 p = j + cn.dss_start + 1

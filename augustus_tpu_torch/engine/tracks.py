@@ -472,20 +472,3 @@ def leftmost_exon_begin(orf: Dict[str, np.ndarray], frame, base, forward: bool,
                    - ASS_MIDDLE - DSS_MIDDLE - cn.dss_start)
     return xp.maximum(leftmost, base - max_allowed)
 
-
-
-def leftmost_exon_begin_raw(orf: Dict[str, np.ndarray], frame: int, base: int,
-                            forward: bool, cn: Constants, n: int) -> int:
-    """Scalar leftmostExonBegin accepting the RAW frame value the reference
-    passes (may be -1 for win==0 internal exons: then pos = base+1)."""
-    if forward:
-        pos = base - frame - 3 if frame in (0, 1) else base - frame
-    else:
-        pos = base + frame - 5 if frame in (1, 2) else base - 2
-    if pos >= n:
-        pos -= 3 * ((pos - n + 3) // 3)
-    arr = orf["fwd"] if forward else orf["rev"]
-    leftmost = int(arr[pos]) + 1 if pos >= 0 else 0
-    max_allowed = (cn.max_exon_len - cn.ass_upwindow_size - cn.ass_start
-                   - ASS_MIDDLE - DSS_MIDDLE - cn.dss_start)
-    return max(leftmost, base - max_allowed)

@@ -37,15 +37,14 @@ import numpy as np
 import torch
 
 from .device import DPTracks, F32_NEG
-from .pack import (KERNEL_CONSTANTS, W_PAD, PKStatic, expand_arrays,
+from .pack import (GATE, KERNEL_CONSTANTS, W_PAD, PKStatic, expand_arrays,
                    pack_tracks, to_device)
 
 NEG = np.float32(F32_NEG)
-GATE = np.float32(-1.0e29)
 MAX_DESC = 4096       # descriptor ints the kernel holds in shared memory
 MAX_SLOTS = 64        # crossing (K) / exact-match (K2) hint slots per conv
 
-# the kernel's shape (csrc/viterbi.cu): threads, the warps that take warp
+# the kernel's shape (csrc/k1_common.cuh): threads, the warps that take warp
 # items and the plane rows staged ahead
 NTHREADS = 768
 ITEM_WARPS = NTHREADS // 32 - 2
@@ -56,7 +55,7 @@ IPM_W = 32            # ip_misc lanes staged per position
 SMEM_LIMIT = 232_448  # shared memory one block may have on an H100
 
 # the order of a hint record's window rows and x lanes in the descriptor
-# (csrc/viterbi.cu HR_W / HR_X)
+# (csrc/k1_common.cuh HR_W / HR_X)
 HINT_W_ROWS = ("w_be_ep", "w_be_cp", "w_cntbe_ep", "w_cntbe_cp", "w_cr_ep",
                "w_cr_cp", "w_cntcr_ep", "w_cntcr_cp", "w_cnte_ep",
                "w_cnte_cp", "w_zc")
@@ -171,7 +170,7 @@ def smem_layout(st: PKStatic, desc_len: int, nxh: int = 0,
 
 
 # the layout fields of the descriptor header, in the order of
-# csrc/viterbi.cu (H_LVW .. H_SM_CHC), after the static class count
+# csrc/k1_common.cuh (H_LVW .. H_SM_CHC), after the static class count
 _LAYOUT_FIELDS = ("lvw", "lt", "ltc", "lvl", "f0", "vbuf",
                   "kind", "stage", "warp", "st_w", "st_ipc", "st_ipm",
                   "st_xh", "st_xi", "warp_w", "kc", "ke", "lpi", "lpc", "chi",

@@ -41,11 +41,14 @@ line each:
           count // 3 + 1 events (three launches, each from where the last
           stopped) equal to one launch, beside the host walk it replaces
   forward_parity  the forward-table kernel (csrc/forward.cu) against its
-          plain PyTorch version on the card, on the host route's planes of
-          6 kb of HS04636.fa with repo_fixture and with repo_fixture_gc2,
-          6 kb of HS04636sm.fa with its EST hints (sparse hints: the hint
-          quotient) and 6 kb of HS04636.fa at --temperature=3: the same
-          finite support and |df| <= 4e-3 + 3e-6 * |f| (the sums run in
+          plain PyTorch version on the card, on every piece that the main
+          path gives it, built as the sampled runs build them (host route):
+          all of HS04636.fa (gff_sample), all of HS04636sm.fa with its EST
+          hints (the hinted gff_sample run: sparse hints, the hint quotient)
+          and the first SAMPLE_DEPTH bases of the full cell's sequence
+          (sample_depth); besides, 6 kb of HS04636.fa with repo_fixture_gc2
+          (a GC-class switch) and at --temperature=3 (heated tables): the
+          same finite support and |df| <= 4e-3 + 3e-6 * |f| (the sums run in
           another order); max |df|, kernel and plain ms, the bound from the
           bytes of forward_work and the exp/log count of the plain version
   gff     prediction on HS04636.fa on the card (device route), cold and
@@ -117,18 +120,12 @@ F64_OPS_PER_S = 34e12
 # 1,980 MHz boost clock of the H100 SXM
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 KERNELS = ("viterbi", "prefix", "trace", "forward")
-# (species, fasta, bases, hints file, temperature) of phase forward_parity
-FORWARD_CHUNKS = (("repo_fixture", "HS04636.fa", 6000, None, 0),
-                  ("repo_fixture_gc2", "HS04636.fa", 6000, None, 0),
-                  ("repo_fixture", "HS04636sm.fa", 6000, "HS04636sm.E.gff",
-                   0),
-                  ("repo_fixture", "HS04636.fa", 6000, None, 3))
 FWD_ABS_TOL, FWD_REL_TOL = 4e-3, 3e-6
 SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
 # the posterior filters of the hinted sampled golden
 SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
                   "keep_viterbi": "true"}
-SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence (one gene)
+SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence sampled
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -471,34 +468,34 @@ def fwd_gate(st, ref, got, what):
     return float(err.max(initial=0.0)), float(share.max(initial=0.0))
 
 
-def phase_forward_parity(device, card):
-    import dataclasses as dc
+def phase_forward_parity(device, pieces, card):
+    """pieces: (label, model, record, bases or None for all of it), each
+    prepared on the host route, as a sampled piece is."""
     import torch
     from augustus_tpu_torch.engine.forward import (
         forward_reference, forward_table, forward_work)
-    from augustus_tpu_torch.io.fasta import read_fasta
-    from augustus_tpu_torch.predict import Model
     rows = []
-    for species, fasta, n, hints, temp in FORWARD_CHUNKS:
-        args = dict(model_args(species, hints), temperature=str(temp))
-        model = dc.replace(Model.load(args), route="host")
-        rec = read_fasta(os.path.join(DATA, fasta))[0]
-        st, planes, _, _ = forward_planes(model, rec, n, device)
+    for label, model, rec, n in pieces:
+        st, planes, _, _ = forward_planes(
+            dataclasses.replace(model, route="host"), rec, n, device)
         got = forward_table(st, planes)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref, sfu = forward_reference(st, planes)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1000.0
-        err, share = fwd_gate(st, ref, got, f"forward {fasta} {species}")
+        err, share = fwd_gate(st, ref, got, f"forward_parity {label}")
         kernel_ms = time_cuda(lambda: forward_table(st, planes), 3)
         parts = forward_work(st, planes)
         nbytes = sum(parts.values())
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_sfu_ms = sfu / SFU_OPS_PER_S * 1e3
-        row = {"phase": "forward_parity", "species": species, "fasta": fasta,
-               "n": st.n, "hints": hints, "NHW": st.NHW,
-               "temperature": temp, "support": "identical",
+        row = {"phase": "forward_parity", "piece": label,
+               "species": model.props.get("species"), "record": rec.name,
+               "n": st.n, "hints": os.path.basename(
+                   model.props.get("hintsfile", "")) or None,
+               "NHW": st.NHW, "temperature": model.cn.temperature,
+               "support": "identical",
                "tolerance": f"{FWD_ABS_TOL} + {FWD_REL_TOL} * |f|",
                "max_abs_err": err, "max_tolerance_share": share,
                "kernel_ms": kernel_ms, "us_per_position": kernel_ms * 1e3
@@ -747,10 +744,21 @@ def main() -> int:
         ("HS04636sm_exon_free", sm_model, hs04636sm, None),
         ("full", model, rec, None)], card)
     prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
-    fwd_parity = phase_forward_parity(device, card)
 
-    def model_sampled():
-        return Model.load(dict(model_args("repo_fixture"), **SAMPLE_ARGS))
+    def model_sampled(species="repo_fixture", **extra):
+        return Model.load(dict(model_args(species), **SAMPLE_ARGS, **extra))
+
+    # the main path's pieces (the first gives the kernels line's row), then
+    # a GC-class switch and heated tables
+    fwd_parity = phase_forward_parity(device, [
+        ("HS04636", model_sampled(), hs04636, None),
+        ("HS04636sm_hints", Model.load(dict(
+            model_args("repo_fixture", "HS04636sm.E.gff"), **SAMPLE_ARGS,
+            **SAMPLE_FILTERS)), hs04636sm, None),
+        ("sample_depth", model_sampled(), rec, SAMPLE_DEPTH),
+        ("gc2_6kb", model_sampled("repo_fixture_gc2"), hs04636, 6000),
+        ("heated_6kb", model_sampled(temperature="3"), hs04636, 6000)],
+        card)
 
     # ---- main path: GFF parity, then full size; counts from here on ----
     viterbi_forward.launches = 0
