@@ -10,9 +10,9 @@ from the forward table, fewer is none), --alternatives-from-sampling=true
 (report the sampled alternative transcripts), --keep_viterbi,
 --minexonintronprob, --minmeanexonintronprob (posterior filters) and
 --temperature=0..7 (heat the forward table and the walk by (8 - t) / 8).
-Comparative gene prediction (--alnfile), MEA (--mea), alternatives from
-evidence (--alternatives-from-evidence), GenBank input and evaluation are
-not ported.
+--alternatives-from-evidence is accepted and changes nothing, as in
+augustus_tpu.  Comparative gene prediction (--alnfile), MEA (--mea),
+GenBank input and evaluation are not ported.
 """
 
 from __future__ import annotations

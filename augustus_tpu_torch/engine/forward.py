@@ -20,8 +20,13 @@ order than in augustus_tpu (and in the kernel than here), so tables agree
 within a tolerance, not bit for bit (tests/test_torch_forward.py).
 
 What bounds the kernel on the card: as for the Viterbi kernel, the
-sequential dependence between positions (one thread block per chunk); each
-band entry costs one expf more than its Viterbi counterpart.
+sequential dependence between positions (one thread block per chunk), each
+position waiting on the latency of its slowest item.  Every
+candidate of a logsumexp is built once and kept in registers for both
+passes, the chain states of the next position run beside the lane update,
+and the block has K3_WARPS warps (csrc/forward.cu's header says why); the
+table is bit-equal to the earlier two-pass design's (the K3_TWO_PASS
+build).
 """
 
 from __future__ import annotations
@@ -194,24 +199,46 @@ def forward_work(static: PKStatic, planes: Dict[str, torch.Tensor]):
 # the wrapper: kernel on CUDA tensors, plain version on CPU tensors
 # --------------------------------------------------------------------------
 
+# csrc/forward.cu: warps of the block (the last two take the thread items)
+# and the widest lessD window (two entries per lane of a warp)
+K3_WARPS = 16
+LESSD_MAXW = 64
+
+
+def kernel_limits(static: PKStatic) -> None:
+    """Raise NotImplementedError for a piece beyond what csrc/forward.cu
+    takes on top of the Viterbi kernel's limits (variants per conv, hint
+    slots, shared memory and descriptor size, which _descriptor and
+    smem_layout check): a lessD window wider than LESSD_MAXW.  A conv's
+    band has no limit: entries past the K3_R kept per lane are rebuilt."""
+    wide = [d.window for d in static.lessd if d.window > LESSD_MAXW]
+    if wide:
+        raise NotImplementedError(
+            f"a lessD window of {max(wide)} positions (the forward kernel "
+            f"takes {LESSD_MAXW})")
+
+
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
     + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
 
 
-def forward_table(static: PKStatic, planes: Dict[str, torch.Tensor]
-                  ) -> torch.Tensor:
+def forward_table(static: PKStatic, planes: Dict[str, torch.Tensor],
+                  defines=()) -> torch.Tensor:
     """The forward rows (n, 64) float32 of one chunk (row 0 = v0; planes
     from pack.forward_arrays).  CPU tensors run the plain version; CUDA
     tensors launch csrc/forward.cu (and raise if it does not build or
-    launch).  `forward_table.launches` counts kernel launches."""
+    launch), built with the preprocessor `defines` of a measurement variant
+    when they are given.  `forward_table.launches` counts kernel
+    launches."""
     dev = _check(static, planes)
     if dev.type == "cpu":
         return forward_reference(static, planes)[0]
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    kernel_limits(static)
     from ._build import load
-    fn = load("forward").forward_table_launch
+    fn = load("forward", defines).forward_table_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     n = static.n

@@ -664,9 +664,9 @@ def forward_arrays(st: PKStatic, arrays: Dict[str, object], heat: float
     if heat != 1.0:
         if st.NHW:
             raise NotImplementedError(
-                "not ported yet: temperature heating (--temperature) of a "
-                "piece with sparse exon/CDS hints (the reference's host "
-                "gold forward)")
+                "temperature heating (--temperature) of a piece with sparse "
+                "exon/CDS hints: refused, as augustus_tpu's ForwardEngine "
+                "refuses it (UnsupportedByDevice, engine/scan.py:961-963)")
         h = np.float32(heat)
         for k in ("stab", "xstab", "G_src", "cum_src", "ltc_all", "lt_T"):
             out[k] = (np.asarray(arrays[k]) * h).astype(np.float32)

@@ -25,10 +25,11 @@ on the Model), merges identical transcripts and gives every transcript and
 state its posterior probability, which --alternatives-from-sampling,
 --keep_viterbi, --minexonintronprob and --minmeanexonintronprob use as in
 the reference; --temperature=t heats the forward table and the walk.
+--alternatives-from-evidence is accepted and changes nothing, as in
+augustus_tpu, whose prediction calls no code for it.
 
 Outside the port so far, and raising NotImplementedError: UTR and ncRNA
-architectures, MEA (--mea), alternative transcripts from evidence
-(--alternatives-from-evidence) and GenBank evaluation.
+architectures, MEA (--mea) and GenBank evaluation.
 """
 
 from __future__ import annotations
@@ -134,10 +135,6 @@ def _check_scope(props: Properties) -> None:
         missing.append("UTR / ncRNA models (--UTR=off)")
     if props.get_bool("mea", False):
         missing.append("MEA (--mea, augustus_tpu/output/mea.py)")
-    if props.get_bool("alternatives-from-evidence", False):
-        missing.append("alternative transcripts from evidence "
-                       "(--alternatives-from-evidence, "
-                       "augustus_tpu/hints/alternatives.py)")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 

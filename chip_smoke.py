@@ -8,9 +8,11 @@ falls back to the CPU or to a kernel's plain version).  Phases, one JSON
 line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu and forward.cu,
-          all started together (set-up time; nvcc's -Xptxas=-v report of
-          registers, shared memory and spills goes to stderr)
+  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu and forward.cu, and
+          of forward.cu's measurement builds (K3_TWO_PASS: the earlier design;
+          K3_SPLIT: clock64 stamps), all started together (set-up time;
+          nvcc's -Xptxas=-v report of registers, shared memory and spills
+          goes to stderr)
   parity  the Viterbi kernel against its plain PyTorch version on the card,
           on 6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
@@ -49,8 +51,10 @@ line each:
           (sample_depth); besides, 6 kb of HS04636.fa with repo_fixture_gc2
           (a GC-class switch) and at --temperature=3 (heated tables): the
           same finite support and |df| <= 4e-3 + 3e-6 * |f| (the sums run in
-          another order); max |df|, kernel and plain ms, the bound from the
-          bytes of forward_work and the exp/log count of the plain version
+          another order), and the table bit-equal to the two-pass kernel
+          (the K3_TWO_PASS build); max |df| beside the recorded one, kernel,
+          two-pass and plain ms, the bound from the bytes of forward_work
+          and the exp/log count of the plain version
   gff     prediction on HS04636.fa on the card (device route), cold and
           warm, each byte-equal to
           augustus_tpu_torch/data/golden/repo_fixture_HS04636.gff
@@ -85,10 +89,15 @@ line each:
           route) and on full_hints' (host route): its time and time per
           position, the same finite support as the Viterbi kernel's values
           (debug_vals) and f >= v - (4e-3 + 3e-6 * |v|) everywhere (a
-          logsumexp is at least the maximum)
+          logsumexp is at least the maximum); then k3_compare on the same
+          planes: the table bit-equal to the two-pass kernel, both timed
+          in turns (parent, new, new, parent), their registers and stack
+          (cuobjdump -res-usage) and, on the full cell, the clock64 split
+          of a position for both (the K3_SPLIT builds)
   sample_depth  the sampled prediction of gff_sample on the first
-          SAMPLE_DEPTH bases of the full cell's sequence: seconds of the
-          host walk per Mb of sequence and per sampled Mb
+          SAMPLE_DEPTH bases of the full cell's sequence, byte-equal to
+          repo_fixture_tiled21k_sample100.gff: seconds of the host walk per
+          Mb of sequence and per sampled Mb
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects.  Then the kernels line, the card line and the
 final status line.  The golden comparisons leave out comment lines.
@@ -119,7 +128,15 @@ F64_OPS_PER_S = 34e12
 # C++ Programming Guide, arithmetic instruction throughput), 132 SMs at the
 # 1,980 MHz boost clock of the H100 SXM
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
-KERNELS = ("viterbi", "prefix", "trace", "forward")
+SPLIT = ("K3_SPLIT",)       # forward.cu's cycle-stamping build
+TWO_PASS = ("K3_TWO_PASS",)  # forward.cu's earlier two-pass design
+# the libraries: each kernel, and forward.cu's measurement builds
+KERNELS = ("viterbi", "prefix", "trace", "forward", ("forward", TWO_PASS),
+           ("forward", SPLIT), ("forward", SPLIT + TWO_PASS))
+# forward_parity's largest |df| per piece as PERF.md recorded it for the
+# two-pass design before the redesign (H100 80GB HBM3, 700 W)
+RECORDED_MAX_DF = {"HS04636": 9.77e-4, "HS04636sm_hints": 9.77e-4,
+              "sample_depth": 1.95e-3}
 FWD_ABS_TOL, FWD_REL_TOL = 4e-3, 3e-6
 SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
 # the posterior filters of the hinted sampled golden
@@ -479,13 +496,19 @@ def phase_forward_parity(device, pieces, card):
         st, planes, _, _ = forward_planes(
             dataclasses.replace(model, route="host"), rec, n, device)
         got = forward_table(st, planes)
+        two = forward_table(st, planes, TWO_PASS)
         torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), two.view(torch.int32)):
+            bad = (got.view(torch.int32) != two.view(torch.int32)).sum()
+            raise AssertionError(f"forward_parity {label}: {int(bad)} entries "
+                                 "differ from the two-pass kernel")
         t0 = time.perf_counter()
         ref, sfu = forward_reference(st, planes)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1000.0
         err, share = fwd_gate(st, ref, got, f"forward_parity {label}")
         kernel_ms = time_cuda(lambda: forward_table(st, planes), 3)
+        two_ms = time_cuda(lambda: forward_table(st, planes, TWO_PASS), 3)
         parts = forward_work(st, planes)
         nbytes = sum(parts.values())
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -497,8 +520,11 @@ def phase_forward_parity(device, pieces, card):
                "NHW": st.NHW, "temperature": model.cn.temperature,
                "support": "identical",
                "tolerance": f"{FWD_ABS_TOL} + {FWD_REL_TOL} * |f|",
-               "max_abs_err": err, "max_tolerance_share": share,
-               "kernel_ms": kernel_ms, "us_per_position": kernel_ms * 1e3
+               "max_abs_err": err, "recorded_max_abs_err":
+               RECORDED_MAX_DF.get(label),
+               "max_tolerance_share": share,
+               "bit_equal_to_two_pass": True, "kernel_ms": kernel_ms,
+               "two_pass_ms": two_ms, "us_per_position": kernel_ms * 1e3
                / st.n, "plain_ms": plain_ms, "bytes": nbytes,
                "bytes_by_part": parts, "exp_log": sfu,
                "bound_bytes_ms": bound_bytes_ms,
@@ -511,9 +537,101 @@ def phase_forward_parity(device, pieces, card):
     return rows
 
 
+SPLIT_SLOTS = ("stage", "bar1", "work", "bar2", "lane", "entries",
+               "max_entries", "over_kept", "gated", "last1", "last2", "gap2",
+               "loop")
+
+
+def k3_split(st, planes, defines=()):
+    """One launch of forward.cu's K3_SPLIT build (with `defines`): per
+    position, the cycles of each part of the loop by warp role (the items a
+    warp takes in phase A; the chain states in phase B, except in the
+    K3_TWO_PASS layout; the thread items on the last two warps; the lane
+    update on warps 0-1), the share of positions in which each role reached
+    each barrier last and its lead at the second, and the clipped entries
+    per gated position of each warp that takes one conv only."""
+    import ctypes
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine import _build
+    from augustus_tpu_torch.engine.forward import forward_table
+    build = SPLIT + tuple(defines)
+    forward_table(st, planes, build)
+    torch.cuda.synchronize()
+    lib = _build.load("forward", build)
+    nw, ns = lib.forward_split_warps(), lib.forward_split_slots()
+    if ns != len(SPLIT_SLOTS):
+        raise AssertionError(f"forward.cu has {ns} split slots")
+    buf = np.zeros((nw, ns), np.uint64)
+    err = lib.forward_split_fetch(ctypes.c_void_p(buf.ctypes.data))
+    if err:
+        raise RuntimeError(f"forward_split_fetch: CUDA error {err}")
+    c = {k: buf[:, i].astype(np.float64) for i, k in enumerate(SPLIT_SLOTS)}
+    pos = st.n - 1
+    two_pass = TWO_PASS[0] in defines
+    n_groups = -(-len(st.chain_states) // 32)
+    kinds = ["conv"] * len(st.convs) + ["lessd"] * len(st.lessd) + \
+        ["chain"] * (n_groups if two_pass else 0)
+    item_warps = nw - 2
+
+    def role(w):
+        if w >= item_warps:
+            return "thread_items"
+        r = "+".join(sorted({kinds[i] for i in range(w, len(kinds),
+                                                     item_warps)})) or "idle"
+        if not two_pass and item_warps - 1 - w < n_groups:
+            r += ", chain in phase B"
+        return r
+    roles = {}
+    for w in range(nw):
+        roles.setdefault(role(w), []).append(w)
+    out = {"warps": nw, "positions": pos,
+           "cycles_per_position": float(c["loop"].max() / pos),
+           "roles": roles}
+    for r, ws in roles.items():
+        out[r] = {k: {"mean": float(c[k][ws].mean() / pos),
+                      "max": float(c[k][ws].max() / pos)}
+                  for k in ("stage", "bar1", "work", "bar2")}
+    for b in ("last1", "last2"):
+        out[f"{b}_share_by_role"] = {
+            r: float(c[b][ws].sum() / pos) for r, ws in roles.items()
+            if c[b][ws].sum()}
+    out["gap2_per_position_by_role"] = {
+        r: float(c["gap2"][ws].sum() / pos) for r, ws in roles.items()
+        if c["gap2"][ws].sum()}
+    conv = roles.get("conv", [])          # warps that take one conv only
+    out["conv_warps"] = conv
+    gated = np.maximum(c["gated"][conv], 1)
+    out["conv_gated_share"] = [round(float(x / pos), 4)
+                               for x in c["gated"][conv]]
+    out["conv_entries_per_gated_position"] = [
+        round(float(x), 1) for x in c["entries"][conv] / gated]
+    out["conv_max_entries"] = [int(x) for x in c["max_entries"][conv]]
+    # the share of gated positions with entries beyond the 32 K3_R kept
+    out["conv_share_beyond_kept"] = [
+        round(float(x), 4) for x in c["over_kept"][conv] / gated]
+    out["lane_update"] = float(c["lane"][:2].max() / pos)
+    return out
+
+
+def res_usage(defines=()) -> str:
+    """Registers and stack (spills) of forward.cu's kernel built with
+    `defines` (cuobjdump -res-usage)."""
+    from augustus_tpu_torch.engine import _build
+    cuobj = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobj, "-res-usage",
+                          _build._lib_path("forward", defines)],
+                         check=True, capture_output=True, text=True).stdout
+    m = re.search(r"forward_table_kernel\S*:\s*\n\s*(REG:\d+ STACK:\d+)", out)
+    return m.group(1) if m else out
+
+
 def phase_full_forward(device, cells, card):
     """The forward kernel on full-size planes, against the Viterbi
-    kernel's values of the same planes."""
+    kernel's values of the same planes; then k3_compare: against the
+    two-pass kernel (the K3_TWO_PASS build) on the same planes, bit for
+    bit and in time, in turns (parent, new, new, parent), and on the full
+    cell the clock64 split of both (the K3_SPLIT builds)."""
     import numpy as np
     import torch
     from augustus_tpu_torch.engine.forward import forward_table
@@ -541,7 +659,30 @@ def phase_full_forward(device, cells, card):
               "min_f_minus_v": float(slack.min()),
               "max_f_minus_v": float(slack.max()), "kernel_ms": ms,
               "us_per_position": ms * 1e3 / st.n, "card": card})
-        del fplanes, f, v
+        del v
+        two = forward_table(st, fplanes, TWO_PASS)
+        if not torch.equal(f.view(torch.int32), two.view(torch.int32)):
+            raise AssertionError(f"k3_compare {name}: the table differs from "
+                                 "two-pass kernel")
+        del f, two
+        turns = {TWO_PASS: [], (): []}
+        for d in (TWO_PASS, (), (), TWO_PASS):
+            turns[d].append(time_cuda(lambda: forward_table(st, fplanes, d),
+                                      1))
+        parent, new = (float(np.mean(turns[d])) for d in (TWO_PASS, ()))
+        row = {"phase": "k3_compare", "cell": name, "n": st.n,
+               "NHW": st.NHW, "bit_equal_to_parent": True,
+               "parent_ms": turns[TWO_PASS], "new_ms": turns[()],
+               "parent_us_per_position": parent * 1e3 / st.n,
+               "new_us_per_position": new * 1e3 / st.n,
+               "speedup": parent / new,
+               "res_usage": {"new": res_usage(),
+                             "parent": res_usage(TWO_PASS)}, "card": card}
+        if name == "full":
+            row["split_parent"] = k3_split(st, fplanes, TWO_PASS)
+            row["split_new"] = k3_split(st, fplanes)
+        emit(row)
+        del fplanes
 
 
 def phase_gff_sample(model_sampled, card):
@@ -593,12 +734,14 @@ def phase_sample_depth(model, rec, card):
     from augustus_tpu_torch.io.fasta import FastaRecord
     srec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
     gff, tm, counts, wall, peak = run_predict(model, srec, "host_prep")
-    if gff.count("\tgene\t") < 1:
-        raise AssertionError("sample_depth: no gene predicted")
+    if strip_comments(gff) != golden_body(
+            "repo_fixture_tiled21k_sample100.gff"):
+        raise AssertionError("sample_depth: GFF differs from the committed "
+                             "golden")
     mb = SAMPLE_DEPTH / 1e6
     paths = int(SAMPLE_ARGS["sample"]) - 1
     emit({"phase": "sample_depth", "length": SAMPLE_DEPTH,
-          "samples": int(SAMPLE_ARGS["sample"]),
+          "samples": int(SAMPLE_ARGS["sample"]), "equal_to_golden": True,
           "genes": gff.count("\tgene\t"),
           "transcripts": gff.count("\ttranscript\t"), "wall_s": wall,
           "walk_s": tm.get("sample", 0.0),
@@ -718,9 +861,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
-    for name in KERNELS:
-        _build.load(name)
-    emit({"phase": "build", "kernels": list(KERNELS),
+    for spec in KERNELS:
+        _build.load(*((spec,) if isinstance(spec, str) else spec))
+    emit({"phase": "build", "kernels": [
+        spec if isinstance(spec, str) else " ".join([spec[0]] + list(spec[1]))
+        for spec in KERNELS],
           "seconds": time.perf_counter() - t0})
 
     # the chunks of length None (the whole sequence) are the gff and

@@ -189,6 +189,24 @@ def test_forward_kernel_equals_plain_version(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hinted", [False, True])
+def test_forward_kernel_bit_equal_to_two_pass_build(cuda, hinted):
+    """csrc/forward.cu keeps the two-pass design's terms and their order:
+    its table equals that of its K3_TWO_PASS build bit for bit."""
+    from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.pack import KERNEL_CONSTANTS, forward_arrays
+    st, planes = _planes("repo_fixture", 3000, cuda, hinted=hinted)
+    arr = {k: planes[k].cpu().numpy() for k in KERNEL_CONSTANTS}
+    planes = dict(planes, l0=torch.from_numpy(
+        forward_arrays(st, arr, 1.0)["l0"]).to(cuda))
+    got = forward_table(st, planes)
+    two = forward_table(st, planes, ("K3_TWO_PASS",))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), two.view(torch.int32))
+    assert (got[:, : st.S] > -5.0e29).sum() > 10_000
+
+
+@pytest.mark.cuda
 def test_sampled_prediction_on_the_card_reproduces_the_golden(cuda):
     from augustus_tpu_torch.predict import Model, predict_file
     m = Model.load({"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,

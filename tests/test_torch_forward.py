@@ -22,7 +22,8 @@ from augustus_tpu.engine.scan import ForwardEngine as JForward
 from augustus_tpu.predict import Model as JModel
 from augustus_tpu_torch import genetics
 from augustus_tpu_torch.engine.device import build_tracks
-from augustus_tpu_torch.engine.forward import (ForwardEngine, forward_reference,
+from augustus_tpu_torch.engine.forward import (LESSD_MAXW, ForwardEngine,
+                                               forward_reference,
                                                forward_table)
 from augustus_tpu_torch.engine.gold import GoldEngine
 from augustus_tpu_torch.engine.pack import forward_arrays, pack_tracks
@@ -127,7 +128,8 @@ def test_wrapper_runs_the_plain_version_on_cpu():
 
 def test_heat_with_sparse_hints_is_refused():
     """augustus_tpu refuses a heated forward with sparse exon hints (its
-    host gold forward is not ported): NotImplementedError naming it."""
+    ForwardEngine raises UnsupportedByDevice, engine/scan.py:961-963):
+    NotImplementedError naming it."""
     _, tr = _tracks("repo_fixture", "HS04636sm.fa", "HS04636sm.E.gff", 0)
     st, arr = pack_tracks(tr)
     assert st.NHW > 0
@@ -159,3 +161,69 @@ def test_heat_scales_log_tables_only():
                       .sum(axis=1)) + cand.max(axis=1)
     assert np.allclose(h["l0"][0, :NL][live], want[live], atol=1e-4)
     assert (h["l0"][0, :NL][~live] == np.float32(-1e30)).all()
+
+
+def _whole_piece(hints):
+    """(static, planes on the CPU) of all of HS04636.fa or, with hints, of
+    HS04636sm.fa softmasked with them, as a sampled run gives them to
+    csrc/forward.cu."""
+    from augustus_tpu_torch.predict import piece_planes
+    fasta = "HS04636sm.fa" if hints else "HS04636.fa"
+    rec = read_fasta(os.path.join(DATA, fasta))[0]
+    st, planes, _ = piece_planes(Model.load(_args("repo_fixture", hints, 0)),
+                                 rec, None, "cpu")
+    return st, planes
+
+
+@pytest.mark.parametrize("hints", [None, "HS04636sm.E.gff"])
+def test_forward_block_fits_the_piece(hints):
+    """csrc/forward.cu's block of K3_WARPS warps on a whole sampled piece:
+    the shared-memory layout it shares with the Viterbi kernel fits the
+    232,448 bytes a block may have, hinted (NHW = 24) too; every warp that
+    can take a conv has its region in that layout; the two thread-item
+    warps cover every state; and the piece is inside kernel_limits."""
+    from augustus_tpu_torch.engine import forward as F
+    from augustus_tpu_torch.engine import viterbi as V
+    st, planes = _whole_piece(hints)
+    assert st.NHW == (24 if hints else 0)
+    nxh, nxi = V._hint_widths(st, planes)
+    desc = V._descriptor(st, planes["sel_pack"].numpy(), nxh, nxi)
+    lay = V.smem_layout(st, desc.shape[0], nxh, nxi)
+    assert lay["bytes"] <= V.SMEM_LIMIT == 232_448
+    item_warps = F.K3_WARPS - 2
+    assert min(len(st.convs), item_warps) <= min(len(st.convs),
+                                                 V.ITEM_WARPS)
+    assert 2 * 32 >= st.S and F.K3_WARPS * 32 <= 1024
+    F.kernel_limits(st)
+
+
+def test_forward_block_width_matches_the_source():
+    """engine/forward.py's K3_WARPS and LESSD_MAXW are csrc/forward.cu's."""
+    import re
+    from augustus_tpu_torch.engine import forward as F
+    with open(os.path.join(ROOT, "augustus_tpu_torch", "csrc",
+                           "forward.cu")) as fh:
+        src = fh.read()
+    warps = re.search(r"#else\nconstexpr int K3_WARPS = (\d+),", src)
+    assert warps and int(warps.group(1)) == F.K3_WARPS
+    assert f"W5 <= {F.LESSD_MAXW}" in src
+
+
+@pytest.mark.parametrize("window,refused", [(LESSD_MAXW, False),
+                                            (LESSD_MAXW + 1, True)])
+def test_kernel_limits_refuse_a_wide_lessd_window(window, refused):
+    """The wrapper raises before launch on a lessD window wider than the
+    two entries per lane of csrc/forward.cu (LESSD_MAXW), and takes one of
+    exactly that width."""
+    import dataclasses
+    from augustus_tpu_torch.engine.forward import kernel_limits
+    _, tr = _tracks("repo_fixture", "HS04636.fa", None, 0, 1500)
+    st, _ = pack_tracks(tr)
+    assert st.lessd and LESSD_MAXW == 64
+    wide = dataclasses.replace(st, lessd=[dataclasses.replace(
+        st.lessd[0], window=window)] + list(st.lessd[1:]))
+    if refused:
+        with pytest.raises(NotImplementedError, match="lessD window"):
+            kernel_limits(wide)
+    else:
+        kernel_limits(wide)

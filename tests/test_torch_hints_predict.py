@@ -99,3 +99,21 @@ def test_cli_with_hints_needs_a_card_unless_told_otherwise():
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
     assert "\tgene\t" not in r.stdout
+
+
+AFE = {"alternatives-from-evidence": "true"}
+
+
+def test_alternatives_from_evidence_prints_the_golden():
+    """--alternatives-from-evidence is accepted and changes nothing: the
+    GFF equals the committed golden of the run without it, as
+    augustus_tpu's does (its prediction calls no code for the flag)."""
+    got = predict_file(Model.load(dict(ARGS, **AFE)), FASTA, device="cpu")
+    with open(GOLDEN) as fh:
+        golden = fh.read()
+    assert got == golden
+
+
+def test_reference_accepts_alternatives_from_evidence():
+    assert JModel.load(dict(ARGS, **AFE)).props.get_bool(
+        "alternatives-from-evidence", False)

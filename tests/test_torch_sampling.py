@@ -109,9 +109,26 @@ def test_sample_golden_equal_to_reference(reference):
     assert golden.count("\tgene\t") >= 1
 
 
+@pytest.mark.slow
+def test_sample_depth_golden_equal_to_reference(tmp_path):
+    """The golden of chip_smoke.py's sample_depth piece (the first 21,000
+    bases of io/tiled.py:tiled_record, sampled as above, written by
+    tests/torch_goldens.py from the port's CPU path) equals augustus_tpu's
+    GFF of the same letters (engine="scan", JAX on the CPU).  Minutes."""
+    from torch_goldens import GOLDEN_DIR, GOLDENS, depth_record
+    rec = depth_record()
+    fasta = tmp_path / "depth.fa"
+    fasta.write_text(f">{rec.name}\n{rec.sequence}\n")
+    ref = jpredict(JModel.load(dict(SAMPLED)), str(fasta), engine="scan")
+    with open(os.path.join(GOLDEN_DIR, GOLDENS["sample_depth"])) as fh:
+        golden = fh.read()
+    assert body(golden) == body(ref)
+    assert golden.count("\ttranscript\t") > golden.count("\tgene\t") >= 1
+
+
 @pytest.mark.parametrize("flag,missing", [
     ("mea", "MEA"),
-    ("alternatives-from-evidence", "alternatives-from-evidence")])
+    ("UTR", "UTR")])
 def test_out_of_slice_flags_refused(flag, missing):
     with pytest.raises(NotImplementedError, match=missing):
         Model.load(dict(SAMPLED, **{flag: "true"}))

@@ -1,7 +1,7 @@
 """Write the port's golden GFFs, made on the CPU.
 
     python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints] \
-        [sample] [sample_hints]
+        [sample] [sample_hints] [sample_depth]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -32,13 +32,18 @@ augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
            path -> repo_fixture_HS04636sm_hints_sample100.gff
            (tests/test_torch_sampling_hints.py keeps it equal to
            `augustus_tpu`)
+  sample_depth  the first SAMPLE_DEPTH = 21,000 bases of the tiled
+           sequence, sampled as `sample`, the port's CPU path (a few
+           minutes) -> repo_fixture_tiled21k_sample100.gff
+           (tests/test_torch_sampling.py keeps it equal to `augustus_tpu`
+           in a test marked slow)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
 tests/test_torch_*.py hold them to; at 1 Mb it takes about 17 minutes on
 one thread and 13 GB of memory, so run it where that is free.  Each golden
 prints its seconds and the process's peak resident memory.
-`chip_smoke.py` holds the card's output equal to all six goldens.
+`chip_smoke.py` holds the card's output equal to all seven goldens.
 """
 
 import os
@@ -58,7 +63,8 @@ GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "hints": "repo_fixture_HS04636sm_hints.gff",
            "tiled_hints": "repo_fixture_tiled_hints.gff",
            "sample": "repo_fixture_HS04636_sample100.gff",
-           "sample_hints": "repo_fixture_HS04636sm_hints_sample100.gff"}
+           "sample_hints": "repo_fixture_HS04636sm_hints_sample100.gff",
+           "sample_depth": "repo_fixture_tiled21k_sample100.gff"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 SAMPLED = dict(ARGS, sample="100")
@@ -66,6 +72,16 @@ SAMPLED["alternatives-from-sampling"] = "true"
 # the posterior filters of the hinted sampled golden
 FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
            "keep_viterbi": "true"}
+SAMPLE_DEPTH = 21_000     # bases of the tiled sequence that sample_depth takes
+
+
+def depth_record():
+    """The first SAMPLE_DEPTH bases of io/tiled.py:tiled_record, under its
+    name (chip_smoke.py's sample_depth piece)."""
+    from augustus_tpu_torch.io.fasta import FastaRecord
+    from augustus_tpu_torch.io.tiled import tiled_record
+    rec = tiled_record(DATA)
+    return FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
 
 
 def hinted_args(hints_file: str) -> dict:
@@ -95,6 +111,9 @@ def golden_gff(which: str) -> str:
                      ("sample", "alternatives-from-sampling")})
         return predict_file(Model.load(args),
                             os.path.join(DATA, "HS04636sm.fa"), device="cpu")
+    if which == "sample_depth":
+        return predict_records(Model.load(dict(SAMPLED)), [depth_record()],
+                               device="cpu")
     if which == "tiled":
         args, rec = dict(ARGS), tiled_record(DATA)
     else:
