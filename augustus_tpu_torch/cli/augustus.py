@@ -10,9 +10,12 @@ from the forward table, fewer is none), --alternatives-from-sampling=true
 (report the sampled alternative transcripts), --keep_viterbi,
 --minexonintronprob, --minmeanexonintronprob (posterior filters) and
 --temperature=0..7 (heat the forward table and the walk by (8 - t) / 8).
+--mea=1 (maximum expected accuracy over 100 sampled paths).
 --alternatives-from-evidence is accepted and changes nothing, as in
-augustus_tpu.  Comparative gene prediction (--alnfile), MEA (--mea),
-GenBank input and evaluation are not ported.
+augustus_tpu.  A GenBank queryfile (LOCUS and ORIGIN lines) is predicted
+record by record and evaluated against its annotation, with softmasking
+off unless asked for (predict.evaluate_genbank).  Comparative gene
+prediction (--alnfile) is not ported.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ HEADER = """\
 
 def main(argv=None) -> int:
     from .. import __version__
-    from ..io.fasta import looks_like_fasta
-    from ..predict import Model, predict_file
+    from ..io.genbank import detect_format
+    from ..predict import Model, evaluate_genbank, predict_file
 
     argv = argv if argv is not None else sys.argv[1:]
     args, queryfile = parse_argv(argv)
@@ -67,9 +70,11 @@ def main(argv=None) -> int:
     if queryfile is None:
         sys.stderr.write("error: no query file\n")
         return 1
-    if not looks_like_fasta(queryfile):
-        raise NotImplementedError("only FASTA input is ported (GenBank "
-                                  "input and evaluation are not)")
+    fmt = detect_format(queryfile)
+    if fmt == "genbank" and "softmasking" not in args:
+        # reference: softmasking default is off for .gb files
+        # (augustus.cc:218-219)
+        args["softmasking"] = "0"
     try:
         verbosity = int(args.get("/augustus/verbosity",
                                  args.get("verbosity", "1")))
@@ -90,8 +95,11 @@ def main(argv=None) -> int:
         sys.stdout.write("# Initializing the parameters using config "
                          f"directory {cfgdir} ...\n")
     if verbosity > 2:
-        sys.stdout.write(f"# Looks like {queryfile} is in fasta format.\n")
-    sys.stdout.write(predict_file(model, queryfile, device=device))
+        sys.stdout.write(f"# Looks like {queryfile} is in {fmt} format.\n")
+    if fmt == "genbank":
+        sys.stdout.write(evaluate_genbank(model, queryfile, device=device))
+    else:
+        sys.stdout.write(predict_file(model, queryfile, device=device))
     cl = " ".join(["augustus"] + argv)
     sys.stdout.write(f"# command line:\n# {cl}\n")
     return 0

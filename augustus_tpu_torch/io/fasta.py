@@ -17,7 +17,7 @@ class FastaRecord:
         return len(self.sequence)
 
 
-def _open_text(path: str):
+def open_text(path: str):
     with open(path, "rb") as fh:
         magic = fh.read(2)
     if magic == b"\x1f\x8b":
@@ -28,7 +28,7 @@ def _open_text(path: str):
 def iter_fasta(path: str) -> Iterator[FastaRecord]:
     name = None
     chunks: List[str] = []
-    with _open_text(path) as fh:
+    with open_text(path) as fh:
         for line in fh:
             line = line.rstrip("\n\r")
             if line.startswith(">"):
@@ -47,10 +47,3 @@ def iter_fasta(path: str) -> Iterator[FastaRecord]:
 def read_fasta(path: str) -> List[FastaRecord]:
     return list(iter_fasta(path))
 
-
-def looks_like_fasta(path: str) -> bool:
-    with _open_text(path) as fh:
-        for line in fh:
-            if line.strip():
-                return line.startswith(">")
-    return False

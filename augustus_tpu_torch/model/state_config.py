@@ -104,6 +104,23 @@ def is_on_f_strand(t: ST) -> bool:
     return (ST.igenic <= t <= ST.utr3term) or (ST.ncsingle <= t <= ST.ncterm)
 
 
+def initial_exon_type(frame: int) -> ST:
+    """reference initialExon(int) (types.hh:663)."""
+    return (ST.initial0, ST.initial1, ST.initial2)[frame % 3]
+
+
+def internal_exon_type(frame: int) -> ST:
+    return (ST.internal0, ST.internal1, ST.internal2)[frame % 3]
+
+
+def r_terminal_exon_type(frame: int) -> ST:
+    return (ST.rterminal0, ST.rterminal1, ST.rterminal2)[frame % 3]
+
+
+def r_internal_exon_type(frame: int) -> ST:
+    return (ST.rinternal0, ST.rinternal1, ST.rinternal2)[frame % 3]
+
+
 def is_initial_exon(t: ST) -> bool:
     return t in (ST.initial0, ST.initial1, ST.initial2)
 

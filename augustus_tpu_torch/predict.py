@@ -25,11 +25,19 @@ on the Model), merges identical transcripts and gives every transcript and
 state its posterior probability, which --alternatives-from-sampling,
 --keep_viterbi, --minexonintronprob and --minmeanexonintronprob use as in
 the reference; --temperature=t heats the forward table and the walk.
---alternatives-from-evidence is accepted and changes nothing, as in
-augustus_tpu, whose prediction calls no code for it.
+--mea=1 samples as --sample=100 --alternatives-from-sampling=true without
+the posterior filters and keeps the transcripts of the maximum expected
+accuracy path through them (output/mea.py) in place of the best-scoring
+ones.  --alternatives-from-evidence is accepted and changes nothing, as in
+augustus_tpu, whose prediction calls no code for it (hints/alternatives.py
+is ported but, as there, not called).
+
+evaluate_genbank predicts on the records of an annotated GenBank file
+(io/genbank.py), each a sequence of its own, and prints the annotation, the
+prediction and the accuracy tables (output/evaluation.py).
 
 Outside the port so far, and raising NotImplementedError: UTR and ncRNA
-architectures, MEA (--mea) and GenBank evaluation.
+architectures.
 """
 
 from __future__ import annotations
@@ -46,7 +54,9 @@ from . import genetics, stats
 from .crand import GlibcRand
 from .constants import Constants
 from .properties import Properties, init_properties, parse_bool
-from .model.state_config import parse_state_config, StateGraph, ST
+from .model.state_config import (ST, StateGraph, initial_exon_type,
+                                  internal_exon_type, parse_state_config,
+                                  r_internal_exon_type, r_terminal_exon_type)
 from .model import pbl, gc as gcmod
 from .engine.gold import GoldEngine
 from .hints import config as hints_config
@@ -55,6 +65,7 @@ from .hints.features import group_gaps
 from .io.fasta import FastaRecord, read_fasta
 from .output import evidence as ev
 from .output import genes as og
+from .output.mea import get_mea_transcripts
 
 
 def resolve_device(device=None) -> torch.device:
@@ -133,8 +144,6 @@ def _check_scope(props: Properties) -> None:
     missing = []
     if props.get_bool("UTR", False) or props.get_bool("nc", False):
         missing.append("UTR / ncRNA models (--UTR=off)")
-    if props.get_bool("mea", False):
-        missing.append("MEA (--mea, augustus_tpu/output/mea.py)")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -201,16 +210,32 @@ def _new_gold(model: Model, init_synch: bool, term_synch: bool) -> GoldEngine:
     return gold
 
 
-def _sampling(props: Properties):
-    """(sample iterations, alternatives from sampling): the reference's
-    sampling configuration (namgene.cc:54-92,768), as
-    augustus_tpu/predict.py:200-218 reads it (--mea is refused by
-    _check_scope)."""
-    sample_iters = props.get_int("sample", 0)
-    if 0 < sample_iters < 10:
-        sample_iters = 0       # reference refuses too-low sample counts
-    return max(sample_iters, 1), props.get_bool("alternatives-from-sampling",
-                                                False)
+@dataclass
+class Sampling:
+    """The reference's sampling configuration (namgene.cc:54-92,768), as
+    augustus_tpu/predict.py:200-219 reads it."""
+    iters: int                 # 1: the Viterbi path only
+    alternatives: bool         # --alternatives-from-sampling
+    minexonintronprob: float
+    minmeanexonintronprob: float
+    mea: bool
+
+    @classmethod
+    def from_properties(cls, props: Properties) -> "Sampling":
+        iters = props.get_int("sample", 0)
+        if 0 < iters < 10:
+            iters = 0          # reference refuses too-low sample counts
+        s = cls(iters, props.get_bool("alternatives-from-sampling", False),
+                props.get_float("minexonintronprob", 0.0),
+                props.get_float("minmeanexonintronprob", 0.0),
+                props.get_bool("mea", False))
+        if s.mea:
+            # reference namgene.cc:85-90: MEA forces sampling and turns the
+            # probability filters off
+            s.iters, s.alternatives = 100, True
+            s.minexonintronprob = s.minmeanexonintronprob = 0.0
+        s.iters = max(s.iters, 1)
+        return s
 
 
 def _mark(genes, viterbi: bool, throwaway: bool) -> None:
@@ -277,8 +302,8 @@ def _find_genes(model: Model, codes: np.ndarray, softmask, gff_hints,
     returns (agl, with_evidence) in piece-local coordinates."""
     cn = model.cn
     props = model.props
-    sample_iters, alt_sampling = _sampling(props)
-    need_forward = sample_iters > 1
+    sampling = Sampling.from_properties(props)
+    need_forward = sampling.iters > 1
     gold = _new_gold(model, init_synch, term_synch)
     path = _decode(gold, codes, softmask, gff_hints, device, model.route,
                    need_forward)
@@ -287,17 +312,24 @@ def _find_genes(model: Model, codes: np.ndarray, softmask, gff_hints,
         _mark(genes, viterbi=True, throwaway=False)
     if need_forward:
         genes = _sample_transcripts(model, gold, genes, codes.shape[0],
-                                    sample_iters, alt_sampling)
+                                    sampling.iters, sampling.alternatives)
     with stats.stage("project"):
         keep_viterbi = props.get_bool("keep_viterbi", False)
         genes = og.filter_transcripts(
             genes, codes, cn, model.gcode, strand=_strand_option(props),
             no_in_frame_stop=props.get_bool("noInFrameStop", False),
             keep_viterbi=keep_viterbi,
-            minexonintronprob=props.get_float("minexonintronprob", 0.0),
-            minmeanexonintronprob=props.get_float("minmeanexonintronprob",
-                                                  0.0))
-        genes = og.max_tracks_order(genes, keep_viterbi=keep_viterbi)
+            minexonintronprob=sampling.minexonintronprob,
+            minmeanexonintronprob=sampling.minmeanexonintronprob)
+    if sampling.mea:
+        # the transcripts of the maximum expected accuracy path
+        # (augustus_tpu/predict.py:293-297)
+        with stats.stage("mea"):
+            genes = get_mea_transcripts(genes, codes, props, model.gcode)
+    else:
+        with stats.stage("project"):
+            genes = og.max_tracks_order(genes, keep_viterbi=keep_viterbi)
+    with stats.stage("project"):
         agl = og.group_transcripts(genes)
         agl.sort(key=lambda ag: ag.mincodstart)  # AltGene::operator<
         if not need_forward:
@@ -617,3 +649,91 @@ def predict_file(model: Model, path: str, device=None) -> str:
         if (ps != 0 or pe != seqlen - 1) and not (pe < 0 and ps < 0):
             recs = recs[:1]
     return predict_records(model, recs, device)
+
+
+def anno_to_gene(tg, seqname: str) -> og.Gene:
+    """A GenBank TGene annotation as an output Gene with typed exon states
+    (augustus_tpu/predict.py:463-506, reference GBProcessor::getAnnoSequence
+    type assignment, src/genbank.cc:137-156)."""
+    g = og.Gene()
+    g.geneid = tg.geneid
+    g.id = tg.id
+    g.seqname = seqname
+    g.strand = tg.strand
+    g.codingstart = tg.codingstart
+    g.codingend = tg.codingend
+    g.transstart = tg.transstart
+    g.transend = tg.transend
+    g.complete5utr = tg.complete_l if tg.strand == "+" else tg.complete_r
+    g.complete3utr = tg.complete_r if tg.strand == "+" else tg.complete_l
+    plus = tg.strand == "+"
+    clength = 0
+    nex = len(tg.exons)
+    for i, (b, e) in enumerate(tg.exons):
+        clength += e - b + 1
+        if i == 0:
+            if nex == 1:
+                t = ST.singleG if plus else ST.rsingleG
+            else:
+                t = (initial_exon_type(clength) if plus
+                     else r_terminal_exon_type(2 - clength))
+        elif i == nex - 1:
+            t = ST.terminal if plus else ST.rinitial
+        else:
+            t = (internal_exon_type(clength) if plus
+                 else r_internal_exon_type(2 - clength))
+        g.exons.append(og.PathState(b, e, t))
+    for (b, e) in tg.introns:
+        g.introns.append(og.PathState(b, e, ST.intron_type))
+    for (b, e) in tg.utr5exons:
+        g.utr5exons.append(og.PathState(
+            b, e, ST.utr5internal if plus else ST.rutr5internal))
+    for (b, e) in tg.utr3exons:
+        g.utr3exons.append(og.PathState(
+            b, e, ST.utr3internal if plus else ST.rutr3internal))
+    return g
+
+
+def evaluate_genbank(model: Model, path: str, device=None) -> str:
+    """Predict on every record of a GenBank-annotated test set, each a
+    sequence of its own, and print the annotation, the prediction and the
+    accuracy tables (augustus_tpu/predict.py:509-554, reference
+    evaluateOnTestSet, src/augustus.cc:254)."""
+    from .io.genbank import read_genbank
+    from .output.evaluation import Evaluation
+    device = resolve_device(device)
+    props = model.props
+    with_utr = props.get("UTR", "off") in ("both", "1", "on", "5", "true")
+    annoseqs = read_genbank(path, with_utr=with_utr,
+                            stop_excluded=props.get_bool(
+                                "stopCodonExcludedFromCDS", False))
+    out: List[str] = ["# Read in %d genbank sequences." % len(annoseqs)]
+    evaluation = Evaluation()
+    anno_opts = og.OutputOptions.from_properties(props)
+    gid = 1
+    strand = _strand_option(props)
+    strand_text = {"+": "forward strand", "-": "reverse strand",
+                   "both": "both strands"}[strand]
+    for num, a in enumerate(annoseqs, start=1):
+        out += ["#", "# ----- sequence number %d (length = %d, name = %s)"
+                " -----" % (num, a.length, a.seqname), "#", "",
+                "# annotation: ",
+                "# Sequence %s length=%d" % (a.seqname, a.length)]
+        anno_genes = [anno_to_gene(tg, a.seqname) for tg in a.genes]
+        for ag in anno_genes:
+            og.print_gene_gff(ag, anno_opts, out, source="database")
+        out.append("# Predicted genes for sequence number %d on %s"
+                   % (num, strand_text))
+        text, ngenes, transcripts = predict_sequence(
+            model, FastaRecord(name=a.seqname, sequence=a.sequence),
+            seq_number=num, geneid_start=gid, device=device,
+            with_header=False)
+        gid += ngenes
+        if text:
+            out.append(text.rstrip("\n"))
+        evaluation.add_to_evaluation(transcripts, anno_genes, strand=strand,
+                                     quotient=0.0)
+    evaluation.finish(out)
+    evaluation.print_quotients(out)
+    evaluation.print_tables(out)
+    return "\n".join(out) + "\n"

@@ -2,13 +2,13 @@
 
 Port of `augustus_tpu/stats.py`: a per-stage breakdown (prep / dev_prep /
 track build / pack / expand / kernel / forward / traceback / sample / gene
-projection / printing), enabled by `reset(True)`; `predict` and the engine call
+projection / MEA / printing), enabled by `reset(True)`; `predict` and the engine call
 `stage(name)` unconditionally (a no-op when disabled).  `stage(name,
 device)` on a CUDA device times the enclosed work with CUDA events and
 synchronizes at its end, so the number is device time (`forward`: the
 forward table's plane expansion and kernel); elsewhere it is host wall time
 (`sample`: the host sampling walk and the projection of the sampled
-paths).  `count(name)` counts events: the route of every piece
+paths; `mea`: the MEA graph and its longest path, output/mea.py).  `count(name)` counts events: the route of every piece
 (`device_prep` or `host_prep`).
 """
 

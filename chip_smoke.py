@@ -13,8 +13,10 @@ line each:
           K3_SPLIT: clock64 stamps), all started together (set-up time;
           nvcc's -Xptxas=-v report of registers, shared memory and spills
           goes to stderr)
-  parity  the Viterbi kernel against its plain PyTorch version on the card,
-          on 6 kb of tests/data/HS04636.fa with the repo_fixture species,
+  parity  the Viterbi kernel on the card against its plain PyTorch version
+          on copies of the same planes on the host CPU (an eager loop of
+          small operations, faster there than as launches on the card), on
+          6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
           inside the chunk), on all of HS04636.fa, the chunk that the gff
           phase gives the kernel, and on two chunks with sparse exon/CDS
@@ -42,8 +44,9 @@ line each:
           final base and state equal), and the walk with a bound of
           count // 3 + 1 events (three launches, each from where the last
           stopped) equal to one launch, beside the host walk it replaces
-  forward_parity  the forward-table kernel (csrc/forward.cu) against its
-          plain PyTorch version on the card, on every piece that the main
+  forward_parity  the forward-table kernel (csrc/forward.cu) on the card
+          against its plain PyTorch version on the host CPU (copies of the
+          same planes, as in parity), on every piece that the main
           path gives it, built as the sampled runs build them (host route):
           all of HS04636.fa (gff_sample), all of HS04636sm.fa with its EST
           hints (the hinted gff_sample run: sparse hints, the hint quotient)
@@ -98,8 +101,33 @@ line each:
           SAMPLE_DEPTH bases of the full cell's sequence, byte-equal to
           repo_fixture_tiled21k_sample100.gff: seconds of the host walk per
           Mb of sequence and per sampled Mb
+  cold    the runs of a process of their own, started together and awaited
+          before the warm runs (each takes a CPU core; the card does under
+          a second of their work): HS04636.fa sampled (gff_sample) and with
+          --mea=1 (gff_mea) through the command line, and the GenBank sets
+          tests/data/genes_test1.gb and genes_crf3.gb through the command
+          line (eval_genbank), each held to its phase's golden below
+  gff_mea HS04636.fa with --mea=1 (100 sampled paths without the
+          posterior filters, then the transcripts of the maximum expected
+          accuracy path, output/mea.py; host route, the Viterbi and forward
+          kernels): cold (above) and warm through predict_records, held to
+          repo_fixture_HS04636_mea.gff; HS04636sm.fa with its hints and
+          --mea=1 (repo_fixture_HS04636sm_hints_mea.gff) and HS04636.fa with
+          --mea=1 --/CompPred/logreg=false (the piecewise-linear scores,
+          repo_fixture_HS04636_mea_nologreg.gff), warm: wall s, the walk's
+          (sample) and MEA's seconds, transcripts and kernel launches
+  mea_depth  --mea=1 on sample_depth's letters, held to
+          repo_fixture_tiled21k_mea.gff: wall, walk and MEA s, forward and
+          kernel ms, peak device memory
+  eval_genbank  the GenBank sets predicted record by record and evaluated
+          against their annotation (predict.evaluate_genbank: device route,
+          prefix.cu, the Viterbi kernel, the event walk), cold (above) and
+          warm, each text held to repo_fixture_eval_test1.out /
+          repo_fixture_eval_crf3.out from its first '# ----- sequence
+          number' line on without time and command-line lines; every record
+          on the device route
 Every prediction phase prints the route of each piece (stats counts) and
-asserts the one it expects.  Then the kernels line, the card line and the
+asserts the one it expects; the new phases print the kernels' launches.  Then the kernels line, the card line and the
 final status line.  The golden comparisons leave out comment lines.
 """
 
@@ -112,6 +140,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "augustus_tpu_torch", "data", "config")
@@ -143,6 +172,11 @@ SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
 SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
                   "keep_viterbi": "true"}
 SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence sampled
+MEA_ARGS = {"mea": "1"}
+NOLOGREG = {"/CompPred/logreg": "false"}
+# the GenBank sets of eval_genbank and their goldens
+EVAL_SETS = {"genes_test1.gb": "repo_fixture_eval_test1.out",
+             "genes_crf3.gb": "repo_fixture_eval_crf3.out"}
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -194,6 +228,13 @@ def strip_comments(text: str) -> str:
     return "".join(l for l in text.splitlines(True) if not l.startswith("#"))
 
 
+def on_cpu(planes: dict) -> dict:
+    """Host copies of a chunk's planes, the plain versions' inputs."""
+    import torch
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in planes.items()}
+
+
 def time_cuda(fn, reps: int) -> float:
     import torch
     fn()
@@ -228,9 +269,9 @@ def phase_parity(device, chunks):
             raise AssertionError(f"{fasta}: NHW={st.NHW} with hints={hints}")
         bp_k, vf_k, v_k = viterbi_forward(st, planes, debug_vals=True)
         torch.cuda.synchronize()
+        cpu_planes = on_cpu(planes)
         t0 = time.perf_counter()
-        bp_p, vf_p, v_p = viterbi_forward_reference(st, planes, True)
-        torch.cuda.synchronize()
+        bp_p, vf_p, v_p = viterbi_forward_reference(st, cpu_planes, True)
         plain_ms = (time.perf_counter() - t0) * 1000.0
         S = st.S
         vk, vp = v_k[1:, :S].cpu().numpy(), v_p[1:, :S].cpu().numpy()
@@ -260,7 +301,7 @@ def phase_parity(device, chunks):
                                     if live.any() else 0.0),
                "live_values": int(live.sum()), "kernel_ms": kernel_ms,
                "us_per_position": kernel_ms * 1e3 / n,
-               "plain_ms": plain_ms, "bytes": nbytes,
+               "plain_ms": plain_ms, "plain_on": "CPU", "bytes": nbytes,
                "bytes_per_position": nbytes / n, "bytes_by_part": parts,
                "ops": ops, "ops_by_part": ops_by_part,
                "bound_bytes_ms": bound_bytes_ms,
@@ -502,9 +543,9 @@ def phase_forward_parity(device, pieces, card):
             bad = (got.view(torch.int32) != two.view(torch.int32)).sum()
             raise AssertionError(f"forward_parity {label}: {int(bad)} entries "
                                  "differ from the two-pass kernel")
+        cpu_planes = on_cpu(planes)
         t0 = time.perf_counter()
-        ref, sfu = forward_reference(st, planes)
-        torch.cuda.synchronize()
+        ref, sfu = forward_reference(st, cpu_planes)
         plain_ms = (time.perf_counter() - t0) * 1000.0
         err, share = fwd_gate(st, ref, got, f"forward_parity {label}")
         kernel_ms = time_cuda(lambda: forward_table(st, planes), 3)
@@ -525,7 +566,8 @@ def phase_forward_parity(device, pieces, card):
                "max_tolerance_share": share,
                "bit_equal_to_two_pass": True, "kernel_ms": kernel_ms,
                "two_pass_ms": two_ms, "us_per_position": kernel_ms * 1e3
-               / st.n, "plain_ms": plain_ms, "bytes": nbytes,
+               / st.n, "plain_ms": plain_ms, "plain_on": "CPU",
+               "bytes": nbytes,
                "bytes_by_part": parts, "exp_log": sfu,
                "bound_bytes_ms": bound_bytes_ms,
                "bound_sfu_ms": bound_sfu_ms,
@@ -685,20 +727,15 @@ def phase_full_forward(device, cells, card):
         del fplanes
 
 
-def phase_gff_sample(model_sampled, card):
-    """HS04636.fa sampled: cold through the command line, warm in this
-    process (a fresh model each, so each starts the rand() stream)."""
+def phase_gff_sample(model_sampled, cold, card):
+    """HS04636.fa sampled: cold through the command line (the cold phase),
+    warm in this process (a fresh model each, so each starts the rand()
+    stream)."""
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.predict import Model
     golden = golden_body("repo_fixture_HS04636_sample100.gff")
     fasta = os.path.join(DATA, "HS04636.fa")
-    cmd = [sys.executable, "-m", "augustus_tpu_torch.cli.augustus"] + \
-        [f"--{k}={v}" for k, v in model_args("repo_fixture").items()] + \
-        [f"--{k}={v}" for k, v in SAMPLE_ARGS.items()] + [fasta]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, check=True, capture_output=True,
-                         text=True).stdout
-    cold_s = time.perf_counter() - t0
+    out, cold_s = cold["gff_sample"]
     if strip_comments(out) != golden:
         raise AssertionError("gff_sample cold run (command line): GFF "
                              "differs from the committed golden")
@@ -754,25 +791,195 @@ def phase_sample_depth(model, rec, card):
           "card": card})
 
 
-def run_predict(model, rec, route):
-    """One prediction with stats on: (gff, stage times, counts, wall s,
-    peak device bytes); asserts that every piece took `route`."""
+def eval_filter(text: str) -> list:
+    """The lines of an evaluation text that its goldens compare: from the
+    first '# ----- sequence number' line on, without time and command-line
+    lines (the filter of tests/test_evaluation.py)."""
+    lines = text.split("\n")
+    start = next(i for i, l in enumerate(lines)
+                 if "# ----- sequence number" in l)
+    return [l for l in lines[start:]
+            if "# total time:" not in l and "command line" not in l]
+
+
+def cli_args(args: dict) -> list:
+    return [sys.executable, "-m", "augustus_tpu_torch.cli.augustus"] + \
+        [f"--{k}={v}" for k, v in args.items()]
+
+
+def phase_cold(card):
+    """Start the command-line runs together, each a process of its own, and
+    await them: {name: (stdout, seconds)}; each must exit 0."""
+    species = {k: v for k, v in model_args("repo_fixture").items()
+               if k != "softmasking"}     # GenBank input sets it off
+    hs04636 = os.path.join(DATA, "HS04636.fa")
+    cmds = {"gff_sample": cli_args(dict(model_args("repo_fixture"),
+                                        **SAMPLE_ARGS)) + [hs04636],
+            "gff_mea": cli_args(dict(model_args("repo_fixture"),
+                                     **MEA_ARGS)) + [hs04636]}
+    for gb in EVAL_SETS:
+        cmds[gb] = cli_args(species) + [os.path.join(DATA, gb)]
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
+        return r, time.perf_counter() - t0
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = dict(zip(cmds, pool.map(run, cmds.values())))
+    out = {}
+    for k, (r, seconds) in done.items():
+        if r.returncode:
+            raise AssertionError(f"cold run {k} exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        out[k] = (r.stdout, seconds)
+    emit({"phase": "cold", "runs": list(cmds), "seconds":
+          {k: v[1] for k, v in out.items()}, "card": card})
+    return out
+
+
+def launch_counts() -> dict:
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine import xputil as U
+    from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    return {"viterbi_forward": viterbi_forward.launches,
+            "viterbi_forward:hint_quot": viterbi_forward.hinted_launches,
+            "prefix_sum_f64": U.prefix_sum_f64.launches,
+            "event_walk": tb.event_walk.launches,
+            "forward_table": forward_table.launches}
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def mea_row(phase, run, gff, tm, counts, wall, launches, card):
+    return {"phase": phase, "run": run, "equal_to_golden": True,
+            "genes": gff.count("\tgene\t"),
+            "transcripts": gff.count("\ttranscript\t"), "wall_s": wall,
+            "walk_s": tm.get("sample", 0.0), "mea_s": tm.get("mea", 0.0),
+            "forward_ms": tm.get("forward", 0.0) * 1e3,
+            "kernel_ms": tm.get("kernel", 0.0) * 1e3, "launches": launches,
+            "counts": counts, "stages_s": tm, "card": card}
+
+
+def phase_gff_mea(model_sampled, cold, card):
+    """HS04636.fa with --mea=1 cold (the command line) and warm, HS04636sm.fa
+    hinted and HS04636.fa with the piecewise-linear scores warm, each held
+    to its golden; a fresh model each (a fresh rand() stream)."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model
+    golden = golden_body("repo_fixture_HS04636_mea.gff")
+    out, cold_s = cold["gff_mea"]
+    if strip_comments(out) != golden:
+        raise AssertionError("gff_mea cold run (command line): GFF differs "
+                             "from the committed golden")
+    emit({"phase": "gff_mea", "run": "cold", "via": "command line",
+          "equal_to_golden": True, "seconds": cold_s,
+          "transcripts": out.count("\ttranscript\t"), "card": card})
+    hs04636 = read_fasta(os.path.join(DATA, "HS04636.fa"))[0]
+    hs04636sm = read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0]
+    runs = [("warm", model_sampled(**MEA_ARGS), hs04636,
+             "repo_fixture_HS04636_mea.gff"),
+            ("warm, hints", Model.load(dict(
+                model_args("repo_fixture", "HS04636sm.E.gff"), **MEA_ARGS)),
+             hs04636sm, "repo_fixture_HS04636sm_hints_mea.gff"),
+            ("warm, logreg off", model_sampled(**MEA_ARGS, **NOLOGREG),
+             hs04636, "repo_fixture_HS04636_mea_nologreg.gff")]
+    for label, model, rec, name in runs:
+        before = launch_counts()
+        gff, tm, counts, wall, _ = run_predict(model, rec, "host_prep")
+        if strip_comments(gff) != golden_body(name):
+            raise AssertionError(f"gff_mea {label} run: GFF differs from "
+                                 f"the committed golden {name}")
+        if "hints" in label and "# Evidence for and against" not in gff:
+            raise AssertionError("gff_mea hinted run: no evidence block")
+        emit(mea_row("gff_mea", label, gff, tm, counts, wall,
+                     launches_since(before), card))
+
+
+def phase_mea_depth(model, rec, card):
+    from augustus_tpu_torch.io.fasta import FastaRecord
+    srec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
+    before = launch_counts()
+    gff, tm, counts, wall, peak = run_predict(model, srec, "host_prep")
+    if strip_comments(gff) != golden_body("repo_fixture_tiled21k_mea.gff"):
+        raise AssertionError("mea_depth: GFF differs from the committed "
+                             "golden")
+    emit(dict(mea_row("mea_depth", "warm", gff, tm, counts, wall,
+                      launches_since(before), card),
+              length=SAMPLE_DEPTH, peak_mem_bytes=peak))
+
+
+def phase_eval_genbank(model, cold, card):
+    """Both GenBank sets evaluated cold (the command line) and warm
+    (evaluate_genbank), each text held to its golden, every record on the
+    device route."""
+    from augustus_tpu_torch.io.genbank import read_genbank
+    from augustus_tpu_torch.predict import evaluate_genbank
+    for gb, golden_name in EVAL_SETS.items():
+        with open(os.path.join(GOLDEN_DIR, golden_name)) as fh:
+            golden = eval_filter(fh.read())
+        out, cold_s = cold[gb]
+        if eval_filter(out.split("# command line:\n")[0]) != golden:
+            raise AssertionError(f"eval_genbank cold run (command line) of "
+                                 f"{gb}: text differs from {golden_name}")
+        emit({"phase": "eval_genbank", "set": gb, "run": "cold",
+              "via": "command line", "equal_to_golden": True,
+              "seconds": cold_s, "card": card})
+        path = os.path.join(DATA, gb)
+        records = read_genbank(path)
+        before = launch_counts()
+        text, tm, counts, wall, _ = measured(
+            lambda: evaluate_genbank(model, path, device="cuda"))
+        if eval_filter(text) != golden:
+            raise AssertionError(f"eval_genbank warm run of {gb}: text "
+                                 f"differs from {golden_name}")
+        routes = routes_of(counts)
+        if routes != {"device_prep": len(records)}:
+            raise AssertionError(f"eval_genbank {gb}: the records took the "
+                                 f"routes {routes}")
+        emit({"phase": "eval_genbank", "set": gb, "run": "warm",
+              "via": "evaluate_genbank", "equal_to_golden": True,
+              "records": len(records),
+              "bases": sum(a.length for a in records),
+              "annotated_genes": sum(len(a.genes) for a in records),
+              "predicted_genes": text.count("\tgene\t"), "wall_s": wall,
+              "launches": launches_since(before), "counts": counts,
+              "stages_s": tm, "card": card})
+
+
+def measured(fn):
+    """fn() with stats on: (its result, stage times, counts, wall s, peak
+    device bytes)."""
     import torch
     from augustus_tpu_torch import stats
-    from augustus_tpu_torch.predict import predict_records
     torch.cuda.reset_peak_memory_stats()
     stats.reset(True)
     t0 = time.perf_counter()
-    gff = predict_records(model, [rec], device="cuda")
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tm, counts = dict(stats.TIMES), dict(stats.COUNTS)
     stats.reset(False)
-    routes = {k: v for k, v in counts.items() if k.endswith("_prep")}
+    return out, tm, counts, wall, torch.cuda.max_memory_allocated()
+
+
+def routes_of(counts: dict) -> dict:
+    """{route: pieces} of a run's stats counts."""
+    return {k: v for k, v in counts.items() if k.endswith("_prep")}
+
+
+def run_predict(model, rec, route):
+    """One prediction with stats on: (gff, stage times, counts, wall s,
+    peak device bytes); asserts that every piece took `route`."""
+    from augustus_tpu_torch.predict import predict_records
+    got = measured(lambda: predict_records(model, [rec], device="cuda"))
+    routes = routes_of(got[2])
     if set(routes) != {route}:
         raise AssertionError(f"pieces took the routes {routes}, expected "
                              f"{route}")
-    return gff, tm, counts, wall, torch.cuda.max_memory_allocated()
+    return got
 
 
 def phase_full(phase, model, rec, golden, card, extra, route,
@@ -905,6 +1112,8 @@ def main() -> int:
         ("heated_6kb", model_sampled(temperature="3"), hs04636, 6000)],
         card)
 
+    cold = phase_cold(card)
+
     # ---- main path: GFF parity, then full size; counts from here on ----
     viterbi_forward.launches = 0
     viterbi_forward.hinted_launches = 0
@@ -916,7 +1125,9 @@ def main() -> int:
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
     predict_phase("gff_hints", hmodel, os.path.join(DATA, "HS04636sm.fa"),
                   "repo_fixture_HS04636sm_hints.gff", "host_prep", True)
-    phase_gff_sample(model_sampled, card)
+    phase_gff_sample(model_sampled, cold, card)
+    phase_gff_mea(model_sampled, cold, card)
+    phase_eval_genbank(model, cold, card)
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")
@@ -949,18 +1160,10 @@ def main() -> int:
         "repo_fixture_tiled_hints.gff"), card,
         dict(counts, hints=len(hint_lines)), "host_prep")
     phase_sample_depth(model_sampled(), rec, card)
-    launches = viterbi_forward.launches
-    hinted = viterbi_forward.hinted_launches
-    prefix_launches = U.prefix_sum_f64.launches
-    walk_launches = tb.event_walk.launches
-    fwd_launches = forward_table.launches
-    if min(launches, hinted, prefix_launches, walk_launches,
-           fwd_launches) < 1:
-        raise AssertionError(
-            f"the main path launched viterbi_forward {launches} times "
-            f"({hinted} with hints), prefix_sum_f64 {prefix_launches}, "
-            f"event_walk {walk_launches} and forward_table {fwd_launches} "
-            "times")
+    phase_mea_depth(model_sampled(**MEA_ARGS), rec, card)
+    launches = launch_counts()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the main path's kernel launches: {launches}")
     phase_full_forward(device, [("full", model, rec),
                                 ("full_hints", hmodel, hrec)], card)
 
@@ -979,20 +1182,25 @@ def main() -> int:
             "library_ms": None}
     emit({"kernels": [
         kernel_row("viterbi_forward", "augustus_tpu_torch/csrc/viterbi.cu",
-                   "augustus_tpu/engine/pallas_scan.py:128", launches, vrow,
+                   "augustus_tpu/engine/pallas_scan.py:128",
+                   launches["viterbi_forward"], vrow,
                    "bit-exact"),
         kernel_row("viterbi_forward:hint_quot",
                    "augustus_tpu_torch/csrc/viterbi.cu",
-                   "augustus_tpu/engine/pallas_scan.py:134", hinted, hrow,
+                   "augustus_tpu/engine/pallas_scan.py:134",
+                   launches["viterbi_forward:hint_quot"], hrow,
                    "bit-exact"),
         kernel_row("prefix_sum_f64", "augustus_tpu_torch/csrc/prefix.cu",
-                   "augustus_tpu/engine/xputil.py:188", prefix_launches,
+                   "augustus_tpu/engine/xputil.py:188",
+                   launches["prefix_sum_f64"],
                    prefix_row, "bit-exact"),
         kernel_row("event_walk", "augustus_tpu_torch/csrc/trace.cu",
-                   "augustus_tpu/engine/traceback.py:116", walk_launches,
+                   "augustus_tpu/engine/traceback.py:116",
+                   launches["event_walk"],
                    trace_row, "exact"),
         kernel_row("forward_table", "augustus_tpu_torch/csrc/forward.cu",
-                   "augustus_tpu/engine/scan.py:740", fwd_launches, frow,
+                   "augustus_tpu/engine/scan.py:740",
+                   launches["forward_table"], frow,
                    f"support identical, |df| <= {FWD_ABS_TOL} + "
                    f"{FWD_REL_TOL} * |f|")]})
     print(card_line(), flush=True)

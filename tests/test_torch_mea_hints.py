@@ -1,0 +1,37 @@
+"""MEA (--mea=1) with softmasking and EST hints on the CPU, the port
+against augustus_tpu: tests/data/HS04636sm.fa with HS04636sm.E.gff and
+extrinsic.M.RM.E.W.cfg (the forward table's hint quotient, the walk's hint
+terms, evidence blocks); the GFF byte-equal without '#' lines and the
+committed golden kept equal to it."""
+
+import os
+
+import pytest
+import torch
+
+from augustus_tpu_torch.engine.forward import forward_table
+from torch_goldens import GOLDEN_DIR, GOLDENS, body, golden_gff, \
+    reference_gff
+
+# The plain versions run a Python loop of small torch ops; an OpenMP pool
+# of several threads spins between them and starves the other test workers.
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return reference_gff("mea_hints")
+
+
+def test_mea_hints_gff_equal_to_reference(reference):
+    before = forward_table.launches
+    got = golden_gff("mea_hints")
+    assert forward_table.launches == before     # plain version on the CPU
+    assert body(got) == body(reference)
+    assert got.count("\tgene\t") >= 1
+    assert "# Evidence for and against" in got
+
+
+def test_mea_hints_golden_equal_to_reference(reference):
+    with open(os.path.join(GOLDEN_DIR, GOLDENS["mea_hints"])) as fh:
+        assert body(fh.read()) == body(reference)

@@ -127,7 +127,7 @@ def test_sample_depth_golden_equal_to_reference(tmp_path):
 
 
 @pytest.mark.parametrize("flag,missing", [
-    ("mea", "MEA"),
+    ("nc", "ncRNA"),
     ("UTR", "UTR")])
 def test_out_of_slice_flags_refused(flag, missing):
     with pytest.raises(NotImplementedError, match=missing):

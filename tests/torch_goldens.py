@@ -1,7 +1,8 @@
 """Write the port's golden GFFs, made on the CPU.
 
     python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints] \
-        [sample] [sample_hints] [sample_depth]
+        [sample] [sample_hints] [sample_depth] [mea] [mea_hints] \
+        [mea_nologreg] [mea_depth] [eval_test1] [eval_crf3]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -37,13 +38,33 @@ augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
            minutes) -> repo_fixture_tiled21k_sample100.gff
            (tests/test_torch_sampling.py keeps it equal to `augustus_tpu`
            in a test marked slow)
+  mea      tests/data/HS04636.fa with --mea=1 (100 sampled paths, the
+           transcripts of the maximum expected accuracy path), the port's
+           CPU path -> repo_fixture_HS04636_mea.gff
+  mea_hints  tests/data/HS04636sm.fa with HS04636sm.E.gff and --mea=1
+           -> repo_fixture_HS04636sm_hints_mea.gff
+  mea_nologreg  as mea with --/CompPred/logreg=false (the piecewise-linear
+           scores of the posteriors) -> repo_fixture_HS04636_mea_nologreg.gff
+           (tests/test_torch_mea.py, test_torch_mea_hints.py and
+           test_torch_mea_scoring.py keep these three equal to
+           `augustus_tpu`)
+  mea_depth  sample_depth's letters with --mea=1
+           -> repo_fixture_tiled21k_mea.gff (kept equal to `augustus_tpu`
+           by a test marked slow)
+  eval_test1, eval_crf3  the GenBank sets tests/data/genes_test1.gb (1
+           record) and genes_crf3.gb (3 records) through the port's
+           evaluate_genbank on the CPU (softmasking off, as the command line
+           sets it for GenBank input): annotation, prediction and accuracy
+           tables -> repo_fixture_eval_test1.out, repo_fixture_eval_crf3.out
+           (tests/test_torch_evaluation.py keeps them equal to
+           `augustus_tpu`, the whole sets in a test marked slow)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
 tests/test_torch_*.py hold them to; at 1 Mb it takes about 17 minutes on
 one thread and 13 GB of memory, so run it where that is free.  Each golden
 prints its seconds and the process's peak resident memory.
-`chip_smoke.py` holds the card's output equal to all seven goldens.
+`chip_smoke.py` holds the card's output equal to all thirteen goldens.
 """
 
 import os
@@ -64,7 +85,13 @@ GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "tiled_hints": "repo_fixture_tiled_hints.gff",
            "sample": "repo_fixture_HS04636_sample100.gff",
            "sample_hints": "repo_fixture_HS04636sm_hints_sample100.gff",
-           "sample_depth": "repo_fixture_tiled21k_sample100.gff"}
+           "sample_depth": "repo_fixture_tiled21k_sample100.gff",
+           "mea": "repo_fixture_HS04636_mea.gff",
+           "mea_hints": "repo_fixture_HS04636sm_hints_mea.gff",
+           "mea_nologreg": "repo_fixture_HS04636_mea_nologreg.gff",
+           "mea_depth": "repo_fixture_tiled21k_mea.gff",
+           "eval_test1": "repo_fixture_eval_test1.out",
+           "eval_crf3": "repo_fixture_eval_crf3.out"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 SAMPLED = dict(ARGS, sample="100")
@@ -73,6 +100,11 @@ SAMPLED["alternatives-from-sampling"] = "true"
 FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
            "keep_viterbi": "true"}
 SAMPLE_DEPTH = 21_000     # bases of the tiled sequence that sample_depth takes
+MEA = dict(ARGS, mea="1")
+NOLOGREG = dict(MEA, **{"/CompPred/logreg": "false"})
+# the GenBank sets of eval_test1 and eval_crf3 (softmasking off, as the
+# command line sets it for GenBank input)
+EVAL_SETS = {"eval_test1": "genes_test1.gb", "eval_crf3": "genes_crf3.gb"}
 
 
 def depth_record():
@@ -88,6 +120,50 @@ def hinted_args(hints_file: str) -> dict:
     return dict(ARGS, softmasking="1",
                 hintsfile=os.path.join(HINTS, hints_file),
                 extrinsicCfgFile="extrinsic.M.RM.E.W.cfg")
+
+
+def mea_run(which: str):
+    """(arguments, FASTA path or None for depth_record()) of an MEA golden."""
+    return {"mea": (MEA, os.path.join(DATA, "HS04636.fa")),
+            "mea_hints": (dict(hinted_args("HS04636sm.E.gff"), mea="1"),
+                          os.path.join(DATA, "HS04636sm.fa")),
+            "mea_nologreg": (NOLOGREG, os.path.join(DATA, "HS04636.fa")),
+            "mea_depth": (MEA, None)}[which]
+
+
+def body(text: str) -> str:
+    """A GFF text without its comment lines, as the goldens compare it."""
+    return "".join(l for l in text.splitlines(True) if not l.startswith("#"))
+
+
+def eval_filter(text: str) -> list:
+    """The lines of an evaluation text that its goldens compare, as
+    tests/test_evaluation.py filters them: from the first '# ----- sequence
+    number' line on, without time and command-line lines."""
+    lines = text.split("\n")
+    start = next(i for i, l in enumerate(lines)
+                 if "# ----- sequence number" in l)
+    return [l for l in lines[start:]
+            if "# total time:" not in l and "command line" not in l]
+
+
+def reference_gff(which: str) -> str:
+    """augustus_tpu's text (engine="scan", JAX on the CPU) for the input of
+    an MEA or evaluation golden."""
+    import tempfile
+    from augustus_tpu.predict import Model, evaluate_genbank, predict_file
+    if which in EVAL_SETS:
+        return evaluate_genbank(Model.load(dict(ARGS)),
+                                os.path.join(DATA, EVAL_SETS[which]),
+                                engine="scan")
+    args, fasta = mea_run(which)
+    with tempfile.TemporaryDirectory() as tmp:
+        if fasta is None:
+            rec = depth_record()
+            fasta = os.path.join(tmp, "depth.fa")
+            with open(fasta, "w") as fh:
+                fh.write(f">{rec.name}\n{rec.sequence}\n")
+        return predict_file(Model.load(dict(args)), fasta, engine="scan")
 
 
 def golden_gff(which: str) -> str:
@@ -114,6 +190,17 @@ def golden_gff(which: str) -> str:
     if which == "sample_depth":
         return predict_records(Model.load(dict(SAMPLED)), [depth_record()],
                                device="cpu")
+    if which.startswith("mea"):
+        args, fasta = mea_run(which)
+        if fasta is None:
+            return predict_records(Model.load(dict(args)), [depth_record()],
+                                   device="cpu")
+        return predict_file(Model.load(dict(args)), fasta, device="cpu")
+    if which in EVAL_SETS:
+        from augustus_tpu_torch.predict import evaluate_genbank
+        return evaluate_genbank(Model.load(dict(ARGS)),
+                                os.path.join(DATA, EVAL_SETS[which]),
+                                device="cpu")
     if which == "tiled":
         args, rec = dict(ARGS), tiled_record(DATA)
     else:
