@@ -1,4 +1,5 @@
-"""Carry a model's parameters and a chunk's packed tracks across packages.
+"""Carry a model's parameters and a chunk's packed or split tracks across
+packages.
 
 The inputs are plain data: dicts of numpy arrays, lists and scalars as
 `dataclasses.asdict` gives them for the reference package's objects, with
@@ -20,6 +21,7 @@ from .model import pbl
 from .model.state_config import ST, StateGraph
 from .properties import Properties
 from .engine import pack as P
+from .engine import scan as SC
 
 
 def _motif(d: dict) -> pbl.Motif:
@@ -38,7 +40,8 @@ def model_from_reference(fields: Dict[str, dict]):
 
     fields: {"props": {"config_path", "store"}, "cn": {...},
     "sg": {..., "state_types": [int]}, "igp", "exp", "inp", "decomp":
-    asdict-style dicts, "gcode": {"table": int}}."""
+    asdict-style dicts, "gcode": {"table": int}, and for UTR
+    architectures "utr" and "utr_cfg" (asdict of UtrParams, UtrConfig)}."""
     from .predict import Model
     p = fields["props"]
     props = Properties(config_path=p["config_path"], store=dict(p["store"]))
@@ -90,9 +93,31 @@ def model_from_reference(fields: Dict[str, dict]):
         comps=np.asarray(d["comps"]), weighing_type=int(d["weighing_type"]),
         weight_matrix=(np.asarray(d["weight_matrix"])
                        if d["weight_matrix"] is not None else None))
+    utr = utr_cfg = None
+    if fields.get("utr") is not None:
+        from .engine.gold_utr import UtrConfig
+        u = fields["utr"]
+        utr = pbl.UtrParams(
+            k=int(u["k"]), tssup_k=int(u["tssup_k"]),
+            exon_len_d=int(u["exon_len_d"]),
+            aataaa_probs=np.asarray(u["aataaa_probs"]),
+            aataaa_boxlen=int(u["aataaa_boxlen"]),
+            len_dist={k: np.asarray(v) for k, v in u["len_dist"].items()},
+            tail_len_dist5=np.asarray(u["tail_len_dist5"]),
+            tail_len_dist3=np.asarray(u["tail_len_dist3"]),
+            gc=[pbl.UtrGCParams(
+                emi_5init=np.asarray(g["emi_5init"]),
+                emi_5=np.asarray(g["emi_5"]), emi_3=np.asarray(g["emi_3"]),
+                tssup=np.asarray(g["tssup"]),
+                tss_motif=_motif(g["tss_motif"]),
+                tss_motif_tata=_motif(g["tss_motif_tata"]),
+                tata_motif=_motif(g["tata_motif"]),
+                tts_motif=_motif(g["tts_motif"])) for g in u["gc"]])
+        utr_cfg = UtrConfig(**fields["utr_cfg"])
     return Model(props=props, cn=cn, sg=sg, igp=igp, exp=exp, inp=inp,
                  decomp=decomp,
-                 gcode=genetics.GeneticCode(int(fields["gcode"]["table"])))
+                 gcode=genetics.GeneticCode(int(fields["gcode"]["table"])),
+                 utr=utr, utr_cfg=utr_cfg)
 
 
 def pack_from_reference(static_fields: dict, arrays: Dict[str, np.ndarray]):
@@ -128,3 +153,34 @@ def pack_from_reference(static_fields: dict, arrays: Dict[str, np.ndarray]):
             out[k] = m[m >= 0]
         out["hw_src"] = np.asarray(arrays["hw_src"])
     return st, out
+
+
+def scan_from_reference(static_fields: dict, arrays: Dict[str, object]):
+    """(ScanStatic, arrays) of the port from the asdict of a reference
+    ScanStatic and its split_tracks arrays (numpy arrays as they are;
+    scalars such as n_true as numpy scalars)."""
+    f = dict(static_fields)
+
+    def hint(h):
+        if h is None:
+            return None
+        return SC.HintConvStatic(**{
+            **h, "cross_cols": tuple(map(tuple, h["cross_cols"])),
+            "ex_cols": tuple(map(tuple, h["ex_cols"]))})
+
+    convs = tuple(SC.ConvStatic(**{
+        **c, "hint": hint(c["hint"]),
+        "variants": tuple(SC.VariantStatic(**{
+            **v, "fsel": (tuple(v["fsel"]) if v["fsel"] is not None
+                          else None)}) for v in c["variants"])})
+        for c in f["convs"])
+    st = SC.ScanStatic(**{
+        **f,
+        "chain": tuple(SC.ChainStatic(**c) for c in f["chain"]),
+        "fixed": tuple(SC.FixedStatic(**x) for x in f["fixed"]),
+        "lessd": tuple(SC.LessDStatic(**x) for x in f["lessd"]),
+        "pinned": tuple(SC.PinnedStatic(**x) for x in f["pinned"]),
+        "convs": convs,
+        "hint_lm": (tuple(f["hint_lm"]) if f["hint_lm"] is not None
+                    else None)})
+    return st, {k: np.asarray(v) for k, v in arrays.items()}

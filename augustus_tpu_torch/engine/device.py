@@ -1,10 +1,11 @@
 """DP tracks: factorized per-state score arrays (counterpart of
-augustus_tpu/engine/device.py for the no-UTR architecture, with the hint
-folds and the sparse exon/CDS hint tables of softmasked and hinted runs).
-`build_tracks` runs on numpy (host route) or, inside xputil.use_torch, on
-torch tensors (device route); the sparse exon/CDS hint tables
-(`_build_hint_tables`) are host-only: chunks with such hints take the host
-route.
+augustus_tpu/engine/device.py for the 47-state and the 71-state UTR
+architectures, with the hint folds and the sparse exon/CDS hint tables of
+softmasked and hinted runs).  `build_tracks` runs on numpy (host route) or,
+inside xputil.use_torch, on torch tensors (device route); the sparse
+exon/CDS hint tables (`_build_hint_tables`) and the UTR states
+(`_build_utr_conv`, chain UTR introns) are host-only: such chunks take the
+host route.
 
 Exon emissions factorize as
 
@@ -273,8 +274,18 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
         ipc_p = ipc_m = xp.zeros(n + 1)
         lm = {}
 
-    # superwindow back-extent: must cover the longest banded variant
+    # superwindow back-extent: must cover the longest banded variant.
+    # UTR architectures extend it (3' single UTRs up to max3singlelength,
+    # reference utrmodel.cc:119 / config /UtrModel/max3singlelength).
     gpad = CONV_CAP + 96
+    if any(mc == "utrmodel" for mc in sg.model_class):
+        uc = eng.utr_cfg
+        need = max(
+            uc.max_exon_length + cn.dss_whole_size + cn.ass_upwindow_size
+            + cn.ass_whole_size + cn.tss_upwindow_size,
+            uc.max3single,
+            uc.max3term + cn.ass_whole_size + cn.ass_upwindow_size)
+        gpad = max(gpad, ((need + 96 + 127) // 128) * 128)
 
     tr = DPTracks(n=n, S=S, n_classes=C, n_lanes=0, gpad=gpad,
                   stairs=U.astype(eng.stairs, np.int32),
@@ -438,6 +449,19 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
         elif t in (ST.rterminal0, ST.rterminal1, ST.rterminal2, ST.rsingleG):
             lane = new_lane(s, anc)
             tr.exon_pinned.append(_build_pinned(eng, s, t, lane, gpad))
+        elif sg.model_class[s] == "utrmodel":
+            from .gold_utr import UTR_CHAIN, UTR_VAR
+            if t in UTR_CHAIN:
+                # strand-independent fwd patterns, no intronpart bonus
+                # (gold_utr.utr_cands UTR_CHAIN branch)
+                tr.chain.append(ChainState(s, np.stack(
+                    [_f32(eng.intron_f_nb[c]) for c in range(C)])))
+            elif t in UTR_VAR:
+                pass   # hints-only intronvar states are inert (gold_utr)
+            else:
+                lane = new_lane(s, anc)
+                tr.exon_conv.append(
+                    _build_utr_conv(eng, s, t, lane, pool, gpad))
         elif sg.model_class[s] == "exonmodel":
             fwd = (ST.singleG <= t <= ST.terminal)
             frame_mode = 0
@@ -460,10 +484,10 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
             tr.exon_conv.append(
                 _build_exon_conv(eng, s, t, lane, frame_mode, pool))
         else:
-            # UTR and ncRNA states are later slices of the port
+            # ncRNA states are a later slice of the port
             raise NotImplementedError(
-                f"state type {t.name}: only the 47-state shadow/partial "
-                "architecture (--UTR=off, no ncRNA) is ported")
+                f"state type {t.name}: ncRNA states are not ported yet "
+                "(--nc=off)")
 
     NL = len(lane_rows)
     tr.n_lanes = NL
@@ -1318,6 +1342,379 @@ def _build_exon_conv(eng: GoldEngine, s: int, t: ST, lane: int,
         else:   # initial0-2 (rterminal/rsingleG are pinned, not convs)
             ecs.hint_exclass = 3
     return ecs
+
+
+def _build_utr_conv(eng, s, t, lane: int, pool: Pool, gpad: int):
+    """One UTR exon state as banded max-plus convolution variants.
+
+    Gold oracle: gold_utr.utr_cands/_not_end_part (reference
+    src/utrmodel.cc:796-1130).  With a_off = 1, len := j - b + 1.  All
+    begin-side terms (TSS/TTS/splice begin scores, -cum at the middle start
+    bm(b), begin-bound clamps) are functions of b alone and are encoded in
+    extended-domain G arrays covering b in [-gpad, n+END_PAD); all end-side
+    terms (endPart, +cum at end-of-middle, intronpart folds) are functions
+    of j (H arrays); the length distribution and the short-exon span
+    fallbacks (-span*log2/log4, utrmodel.cc notEndPartEmiProb) fold into
+    per-variant length vectors, split at the span-sign boundary.
+    """
+    from ..model.state_config import is_on_f_strand
+    cn, n = eng.cn, eng.n
+    uc = eng.utr_cfg
+    up = eng.utr
+    C = len(eng.inp.gc)
+    sp = eng.splice
+    codes = eng.codes
+    fwd = is_on_f_strand(t)
+    hints_on = getattr(eng, "hints", None) is not None
+
+    tiw = cn.trans_init_window
+    tss_up = cn.tss_upwindow_size
+    te = uc.tss_end
+    dws = cn.dss_whole_size
+    aws = cn.ass_whole_size
+    aup = cn.ass_upwindow_size
+    dend, dstart = cn.dss_end, cn.dss_start
+    aend, astart = cn.ass_end, cn.ass_start
+    boxlen = up.aataaa_boxlen
+    dpc = uc.d_polyasig_cleavage
+    mel = uc.max_exon_length
+    LOG2 = float(np.log(2.0))
+    LQ = float(np.log(0.25))
+    ld = eng.log_len_utr
+    jj = np.arange(n)
+    be = np.arange(-gpad, n + END_PAD)      # extended begin domain
+    n_ext = be.shape[0]
+
+    # ---- len band [Kh, Kl] (gold_utr._pred_range, eop in [j-Kl, j-Kh]) ---
+    if t in (ST.utr5single, ST.rutr5single):
+        Kl = mel - tiw + tss_up
+        Kh = max(tss_up + 1 - tiw, 1)
+    elif t in (ST.utr5init, ST.rutr5init):
+        Kl = mel + DSS_MIDDLE + dend + tss_up
+        Kh = tss_up + te + dws
+    elif t in (ST.utr5internal, ST.rutr5internal,
+               ST.utr3internal, ST.rutr3internal):
+        Kl = mel + DSS_MIDDLE + dend + aup + astart + ASS_MIDDLE
+        Kh = dws + aup + aws
+    elif t in (ST.utr5term, ST.rutr5term):
+        Kl = mel - tiw + aup + astart + ASS_MIDDLE
+        Kh = aup + aws
+        if -aup - aws + tiw + aend < 0:
+            Kh = aup + aws - tiw - aend
+    elif t in (ST.utr3single, ST.rutr3single):
+        Kl = uc.max3single
+        Kh = dpc + boxlen
+    elif t in (ST.utr3init, ST.rutr3init):
+        Kl = mel + DSS_MIDDLE + dend
+        Kh = dend + DSS_MIDDLE
+    else:   # utr3term, rutr3term
+        Kl = uc.max3term + ASS_MIDDLE + astart + aup
+        Kh = dpc + boxlen + aws + aup
+
+    # begin clamp (gold_utr.utr_cands lo clamps, in b coordinates)
+    if t in (ST.utr5single, ST.utr5init):
+        b_lo = 1 - tss_up
+    elif t in (ST.rutr3single, ST.rutr3term):
+        b_lo = 1 - boxlen - dpc
+    else:
+        b_lo = 1
+
+    # ---- endPart + per-j cum/ipb folds (H side) --------------------------
+    ipb_end = 0.0
+    if hints_on:
+        ipbc = eng.ipb_plus_cum if fwd else eng.ipb_minus_cum
+
+    def clipc(x):
+        return np.clip(x, 0, n)
+
+    if t in (ST.utr5single, ST.utr5term):
+        ebxj = jj + tiw
+        p = ebxj + 1
+        is_start = np.zeros(n, dtype=bool)
+        ok = (p >= 0) & (p + 2 < n)
+        pc = np.clip(p, 0, max(n - 3, 0))
+        if n >= 3:
+            st3 = ((codes[pc] == genetics.A) & (codes[pc + 1] == genetics.T)
+                   & (codes[pc + 2] == genetics.G))
+            is_start = ok & st3
+        gate = (ebxj + 3 > n - 1) | is_start
+        end_list = [np.where(gate, 0.0, NEG_INF)] * C
+    elif t in (ST.utr5init, ST.utr5internal, ST.utr3init, ST.utr3internal):
+        ebxj = jj - dend - DSS_MIDDLE
+        start = jj - dws + 1
+        ep = np.where(start >= 0, sp.dss_score[np.clip(start, 0, n - 1)],
+                      NEG_INF)
+        end_list = [ep] * C
+    elif t in (ST.rutr5internal, ST.rutr5term, ST.rutr3internal,
+               ST.rutr3term):
+        ebxj = jj - aup - astart - ASS_MIDDLE
+        start = jj - aup - aws + 1
+        end_list = [np.where(start >= 0,
+                             sp.rass_score[c][np.clip(start, 0, n - 1)],
+                             NEG_INF) for c in range(C)]
+    elif t in (ST.rutr5single, ST.rutr5init):
+        ebxj = jj - tss_up
+        bep = jj - tss_up - te + 1
+        ok = (bep >= 0) & (bep < n)
+        end_list = [np.where(ok, eng.tss_minus[c][np.clip(bep, 0, n - 1)],
+                             NEG_INF) for c in range(C)]
+    elif t in (ST.utr3single, ST.utr3term):
+        # normal (j != n-1) branch; the j == n-1 case is a separate variant
+        ebxj = jj.copy()
+        bep = jj - dpc - boxlen + 1
+        ok = (jj != n - 1) & (bep >= 0) & (bep + boxlen - 1 < n)
+        end_list = [np.where(ok, eng.tts_plus[c][np.clip(bep, 0, n - 1)],
+                             NEG_INF) for c in range(C)]
+    else:   # rutr3single, rutr3init: reverse stop codon right after j
+        ebxj = jj.copy()
+        rcs = eng.gcode.rc_stop_at(codes)
+        ok = (jj + 3 <= n - 1)
+        ok[:-1] &= rcs[1:]
+        ok[-1] = False if n >= 1 and (n - 1) + 3 > n - 1 else ok[-1]
+        end_list = [np.where(ok, 0.0, NEG_INF)] * C
+    end_part = np.stack([np.asarray(e, dtype=np.float64) for e in end_list])
+
+    if hints_on and t not in (ST.utr3single, ST.utr3term, ST.rutr5single,
+                              ST.rutr5init):
+        # intronpart bonus over the intron bases inside the splice windows
+        # (gold_utr.utr_cands endPart tail); only when ebx < j
+        if int(ebxj[0]) < 0 or (n > 1 and ebxj[1] < 1):
+            seg = ipbc[jj + 1] - ipbc[clipc(ebxj + 1)]
+            end_part = np.where(end_part > NEG_INF, end_part + seg, end_part)
+
+    tag = str(int(t))
+    variants: List[ConvVariant] = []
+
+    def addv(gtag, g_fn, htag, h_arr, len_lo, len_hi, lv,
+             vb_lo=None, vb_hi=None):
+        len_lo = max(len_lo, Kh, 1)
+        if len_lo > len_hi:
+            return
+        gid = pool.add(f"UG_{tag}_{gtag}",
+                       lambda: _f32(g_fn()[:, None, :]), rb=("G", 1))
+        hid = pool.add(f"UH_{tag}_{htag}", lambda: _f32(h_arr), rb=("H",))
+        variants.append(ConvVariant(
+            g_id=gid, h_id=hid, len_lo=len_lo, len_hi=len_hi,
+            lenvec=_f32(lv[len_lo - 1:len_hi]), vb_lo=vb_lo, vb_hi=vb_hi))
+
+    # length vector helper: lv_full[L-1] = value for len=L, L in [1, Kl]
+    lens = np.arange(1, Kl + 1)
+
+    def _cum(name, cfwd):
+        return [eng.cum_utr[(c, name, cfwd)] for c in range(C)]
+
+    # ---- per-state begin/middle/length assembly --------------------------
+    # Each state defines: beginp (C, n_ext), middle cum name/strand + bm
+    # offset Kb, em offset Ke (em = j - Ke), bob offset (LENGTH = len +
+    # Klen), length dist + clip, span fallback mode.
+    def beginp_none():
+        out = np.zeros((C, n_ext))
+        out[:, be < b_lo] = NEG_INF
+        return out
+
+    def beginp_track(tracks, idx_off=0, affine_neg=None, neg_cond=None):
+        """beginp from per-class tracks at position b+idx_off for b >= 0 (or
+        b > 0 when neg_cond='pos'), an affine LQ term where specified, and
+        -inf below b_lo / outside [0, n)."""
+        out = np.full((C, n_ext), NEG_INF)
+        pos = be + idx_off
+        ok = (pos >= 0) & (pos < n)
+        if neg_cond == "pos":
+            sel = (be > 0) & ok
+        else:
+            sel = (be >= 0) & ok
+        for c in range(C):
+            trk = tracks[c] if isinstance(tracks, (list, dict)) else tracks
+            out[c, sel] = trk[pos[sel]]
+        if affine_neg is not None:
+            mult, off = affine_neg        # value = (b*mult + off) * LQ
+            if neg_cond == "pos":
+                nsel = be <= 0
+            else:
+                nsel = be < 0
+            out[:, nsel] = (be[nsel] * mult + off) * LQ
+        out[:, be < b_lo] = NEG_INF
+        return out
+
+    def gmain(beginp, name, cfwd, Kb):
+        cums = _cum(name, cfwd)
+
+        def fn():
+            out = beginp.copy()
+            bm = np.clip(be + Kb, 0, n)
+            for c in range(C):
+                out[c] = np.where(out[c] > NEG_INF,
+                                  out[c] - cums[c][bm], out[c])
+            return out
+        return fn
+
+    def hmain(name, cfwd, Ke):
+        cums = _cum(name, cfwd)
+        em1 = clipc(jj - Ke + 1)
+        return np.stack([np.where(end_part[c] > NEG_INF,
+                                  end_part[c] + cums[c][em1], end_part[c])
+                         for c in range(C)])
+
+    def lv_dist(kind, Klen, clip_max):
+        idx = np.clip(lens + Klen, 0, clip_max)
+        return ld[kind][idx]
+
+    def span_split(beginp, name, cfwd, Kb, Ke, lvA, fb_log, btag="",
+                   vb_lo=None, vb_hi=None):
+        """Add the normal (span>=0 / >0) and fallback variants."""
+        Csp = Ke + Kb
+        if fb_log is None:
+            # middle = 0 for len <= Csp (seg clips to zero)
+            addv(f"A{btag}", gmain(beginp, name, cfwd, Kb), f"A{btag}",
+                 hmain(name, cfwd, Ke), Csp, Kl, lvA, vb_lo, vb_hi)
+            addv(f"B{btag}", lambda: beginp, f"B{btag}", end_part,
+                 1, Csp - 1, lvA, vb_lo, vb_hi)
+        else:
+            # fallback -span*log for span < 0 (i.e. len < Csp)
+            addv(f"A{btag}", gmain(beginp, name, cfwd, Kb), f"A{btag}",
+                 hmain(name, cfwd, Ke), Csp, Kl, lvA, vb_lo, vb_hi)
+            lvB = lvA + (Csp - lens) * fb_log
+            addv(f"B{btag}", lambda: beginp, f"B{btag}", end_part,
+                 1, Csp - 1, lvB, vb_lo, vb_hi)
+
+    if t == ST.utr5single:
+        bp = beginp_track(eng.tss_plus, affine_neg=(1.0, tss_up + te - 1))
+        span_split(bp, "u5i", True, tss_up + te, 0,
+                   lv_dist("5single", tiw - tss_up, mel), LOG2)
+    elif t == ST.utr5init:
+        bp = beginp_track(eng.tss_plus, affine_neg=(1.0, tss_up + te - 1))
+        span_split(bp, "u5i", True, tss_up + te, dws,
+                   lv_dist("5initial", -dend - DSS_MIDDLE - tss_up, mel),
+                   None)
+    elif t == ST.utr5internal:
+        bp = beginp_track(sp.ass_score)
+        span_split(bp, "u5", True, aup + aws, dws,
+                   lv_dist("5internal",
+                           -dend - DSS_MIDDLE - aup - astart - ASS_MIDDLE,
+                           mel), None)
+    elif t == ST.rutr5internal:
+        bp = beginp_track(sp.rdss_score)
+        span_split(bp, "u5", False, dws, aws + aup,
+                   lv_dist("5internal",
+                           -aup - astart - ASS_MIDDLE - dend - DSS_MIDDLE,
+                           mel), None)
+    elif t == ST.utr5term:
+        bp = beginp_track(sp.ass_score)
+        # beginp invalid when beginOfBioExon >= n (gold_utr utr5term)
+        bp[:, be + aup + astart + ASS_MIDDLE >= n] = NEG_INF
+        span_split(bp, "u5", True, aup + aws, 0,
+                   lv_dist("5terminal", tiw - aup - astart - ASS_MIDDLE,
+                           mel), LOG4)
+    elif t == ST.rutr5term:
+        bp = beginp_none()
+        span_split(bp, "u5", False, 0, aws + aup,
+                   lv_dist("5terminal", tiw - aup - astart - ASS_MIDDLE,
+                           mel), LOG4)
+    elif t == ST.rutr5single:
+        bp = beginp_none()
+        span_split(bp, "u5i", False, 0, tss_up + te,
+                   lv_dist("5single", tiw - tss_up, mel), LOG2)
+    elif t == ST.rutr5init:
+        bp = beginp_track(sp.rdss_score)
+        span_split(bp, "u5i", False, dws, tss_up + te,
+                   lv_dist("5initial", -dend - DSS_MIDDLE - tss_up, mel),
+                   None)
+    elif t == ST.utr3init:
+        bp = beginp_none()
+        span_split(bp, "u3", True, 0, dws,
+                   lv_dist("3initial", -dend - DSS_MIDDLE, mel), LOG4)
+    elif t == ST.rutr3init:
+        bp = beginp_track(sp.rdss_score)
+        span_split(bp, "u3", False, dws, 0,
+                   lv_dist("3initial", -dend - DSS_MIDDLE, mel), LOG4)
+    elif t == ST.utr3internal:
+        bp = beginp_track(sp.ass_score)
+        span_split(bp, "u3", True, aup + aws, dws,
+                   lv_dist("3internal",
+                           -dend - DSS_MIDDLE - aup - astart - ASS_MIDDLE,
+                           mel), None)
+    elif t == ST.rutr3internal:
+        bp = beginp_track(sp.rdss_score)
+        span_split(bp, "u3", False, dws, aws + aup,
+                   lv_dist("3internal",
+                           -aup - astart - ASS_MIDDLE - dend - DSS_MIDDLE,
+                           mel), None)
+    elif t == ST.utr3single:
+        bp = beginp_none()
+        span_split(bp, "u3", True, 0, dpc + boxlen,
+                   lv_dist("3single", 0, uc.max3single), None)
+        # j == n-1: end at the sequence end, tail length distribution
+        # (gold_utr get_end_positions utr3single + _not_end_part tail)
+        h_last = np.full((C, n), NEG_INF)
+        cums = _cum("u3", True)
+        for c in range(C):
+            h_last[c, n - 1] = cums[c][n]
+        lv_tail = eng.log_tail3[np.clip(lens, 0,
+                                        eng.log_tail3.shape[0] - 1)]
+        gid = pool.add(f"UG_{tag}_last", lambda: _f32(
+            (gmain(bp, "u3", True, 0)())[:, None, :]), rb=("G", 1))
+        hid = pool.add(f"UH_{tag}_last", lambda: _f32(h_last), rb=("H",))
+        variants.append(ConvVariant(g_id=gid, h_id=hid, len_lo=1,
+                                    len_hi=Kl, lenvec=_f32(lv_tail)))
+    elif t == ST.rutr3single:
+        bpP = beginp_track(eng.tts_minus, idx_off=dpc, neg_cond="pos")
+        bpN = beginp_none()
+        bpN[:, be > 0] = NEG_INF
+        bm = be + boxlen + dpc
+        aff = np.where(bm > 0, (bm - 1) * LQ, 0.0)
+        bpN = np.where(bpN > NEG_INF, aff[None, :], bpN)
+        span_split(bpP, "u3", False, boxlen + dpc, 0,
+                   lv_dist("3single", 0, uc.max3single), None,
+                   btag="p", vb_lo=1)
+        span_split(bpN, "u3", False, boxlen + dpc, 0,
+                   eng.log_tail3[np.clip(lens, 0,
+                                         eng.log_tail3.shape[0] - 1)],
+                   None, btag="n", vb_hi=0)
+    elif t == ST.utr3term:
+        bp = beginp_track(sp.ass_score)
+        span_split(bp, "u3", True, aup + aws, dpc + boxlen,
+                   lv_dist("3terminal",
+                           -aup - astart - ASS_MIDDLE, uc.max3term), None)
+        # j == n-1 variant (tail length dist, end at sequence end)
+        h_last = np.full((C, n), NEG_INF)
+        cums = _cum("u3", True)
+        for c in range(C):
+            h_last[c, n - 1] = cums[c][n]
+        Klen3 = -aup - astart - ASS_MIDDLE
+        lv_tail = eng.log_tail3[np.clip(lens + Klen3, 0,
+                                        eng.log_tail3.shape[0] - 1)]
+        gid = pool.add(f"UG_{tag}_last", lambda: _f32(
+            (gmain(bp, "u3", True, aup + aws)())[:, None, :]), rb=("G", 1))
+        hid = pool.add(f"UH_{tag}_last", lambda: _f32(h_last), rb=("H",))
+        variants.append(ConvVariant(
+            g_id=gid, h_id=hid, len_lo=max(aws + aup, 1), len_hi=Kl,
+            lenvec=_f32(lv_tail[max(aws + aup, 1) - 1:Kl])))
+    else:   # rutr3term
+        bpP = beginp_track(eng.tts_minus, idx_off=dpc, neg_cond="pos")
+        bpN = beginp_none()
+        bpN[:, be > 0] = NEG_INF
+        bm = be + boxlen + dpc
+        bpN = np.where(bpN > NEG_INF, ((bm - 1) * LQ)[None, :], bpN)
+        lv3t = lv_dist("3terminal", -aup - astart - ASS_MIDDLE, uc.max3term)
+        span_split(bpP, "u3", False, boxlen + dpc, aws + aup, lv3t,
+                   None, btag="p", vb_lo=1)
+        span_split(bpN, "u3", False, boxlen + dpc, aws + aup, lv3t,
+                   None, btag="n", vb_hi=0)
+
+    variants.sort(key=lambda v: v.len_lo)
+
+    end_gate = (end_part > NEG_INF).any(axis=0)
+    if t in (ST.utr3single, ST.utr3term):
+        end_gate = end_gate.copy()
+        end_gate[n - 1] = True
+
+    big = np.int32(1 << 30)
+    return ExonConvState(
+        state=s, etype=int(t), bpl=0, a_off=1,
+        phase_const=0, phase_sign=1, frame_mode=0, win=0, lane=lane,
+        end_gate=end_gate,
+        start_min=np.full(n, -big, dtype=np.int32),
+        start_max=jj.astype(np.int32), variants=variants)
 
 
 # ---------------------------------------------------------------------------

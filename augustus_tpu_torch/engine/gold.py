@@ -97,7 +97,7 @@ class GoldEngine:
                  igp: IgenicParams, exp: ExonParams, inp: IntronParams,
                  decomp: gcmod.Decomposition,
                  gcode: Optional[genetics.GeneticCode] = None,
-                 ext_cfg=None):
+                 utr=None, utr_cfg=None, ext_cfg=None):
         self.sg = sg
         self.cn = cn
         self.igp = igp
@@ -105,8 +105,15 @@ class GoldEngine:
         self.inp = inp
         self.decomp = decomp
         self.gcode = gcode or genetics.GeneticCode()
+        self.utr = utr              # UtrParams or None
+        self.utr_cfg = utr_cfg      # UtrConfig or None
         self.ext_cfg = ext_cfg      # ExtrinsicConfig or None
         self.S = sg.statecount
+        self.utr_states = [(i, t) for i, t in enumerate(sg.state_types)
+                           if sg.model_class[i] == "utrmodel"]
+        if self.utr_states and utr is None:
+            raise ValueError("architecture contains UTR states but no UTR "
+                             "parameters were loaded")
 
         # per-GC-class adjusted transition matrices (log space).
         # reference IntronModel::updateToLocalGC modifies the global matrix:
@@ -212,6 +219,9 @@ class GoldEngine:
             self._build_hint_tracks()
         self.stairs = gcmod.compute_stairs(self.codes, self.cn, self.decomp)
         self._prepare_tracks(self.codes)
+        if self.utr is not None and self.utr_states:
+            from . import gold_utr
+            gold_utr.prepare_utr(self, self.codes)
 
     # ------------------------------------------------------------------
     def _extra_cum_rows(self, zero) -> dict:
@@ -657,6 +667,8 @@ class GoldEngine:
                 self._kind.append("fixed")
             elif mc == "exonmodel":
                 self._kind.append("exon")
+            elif mc == "utrmodel":
+                self._kind.append("utr")
             else:
                 self._kind.append("other")
 
@@ -674,6 +686,9 @@ class GoldEngine:
             return self._lessd_cands(j, c, s, t, table)
         if kind == "exon":
             return self._exon_cands(j, c, s, t, table)
+        if kind == "utr":
+            from . import gold_utr
+            return gold_utr.utr_cands(self, j, c, s, t, table)
         return None
 
     # ------------------------------------------------------------------

@@ -7,13 +7,21 @@ and one (n, NIC) int32 table (GC class baked in per position), plus the
 G/cum pools and lessD masks, and the sparse exon/CDS hint machinery (window
 rows `hw_all`, per-position hint columns and the `HintConvStatic` of every
 hinted conv, host route only).  engine/pack.py turns these into the
-Viterbi kernel's planes.  The XLA scan engines of the reference module
-(the general Viterbi and the logsumexp forward) are later slices of the
-port.
+64-state Viterbi kernel's planes.
+
+The general Viterbi K2 reads the split tables as they are: `scan_forward`
+launches `csrc/scan.cu` for CUDA tensors and runs `scan_forward_reference`,
+the plain PyTorch version (augustus_tpu's `make_scan_fn` as an eager loop),
+for CPU tensors; `scan_work` counts its bytes and operations and
+`ScanEngine` drives it for one piece and walks the backpointers on the
+host.  The port sends a piece to K2 when the 64-state kernel cannot take
+it (`needs_general_scan`: the 71-state UTR architecture).  The logsumexp
+twin of the reference module (`make_forward_fn`) is a later slice.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -398,3 +406,685 @@ def split_tracks(tr: DPTracks):
         pinned=pinned_s, convs=tuple(convs), cls_col=cls_col,
         NHW=len(hw_rows), hint_lm=hint_lm)
     return static, arrays
+
+
+# --------------------------------------------------------------------------
+# K2: the general semi-Markov Viterbi over the split tables (any S <= 128)
+# --------------------------------------------------------------------------
+
+NEG = np.float32(F32_NEG)
+GATE = np.float32(-1.0e29)
+MAX_STATES = 128         # states and lanes csrc/scan.cu holds (int8 args)
+K2_THREADS = 512         # csrc/scan.cu: one block of 16 warps
+MAX_DESC = 12_288        # descriptor ints the kernel holds in shared memory
+
+# the order of a hint record's window rows and x columns in the descriptor
+# (csrc/scan.cu HINT_W / HINT_X)
+HINT_W = ("w_be_ep", "w_be_cp", "w_cntbe_ep", "w_cntbe_cp", "w_cr_ep",
+          "w_cr_cp", "w_cntcr_ep", "w_cntcr_cp", "w_cnte_ep", "w_cnte_cp",
+          "w_zc")
+HINT_X = ("x_be_ep", "x_be_cp", "x_cntbe_ep", "x_cntbe_cp", "x_c2_ep",
+          "x_cntc2_ep", "x_cnte_ep", "x_cnte_cp", "x_zc", "x_tx_ep",
+          "x_tx_cp", "x_txc_ep", "x_txc_cp")
+
+
+def scan_tensors(arrays: Dict[str, object], device) -> Dict[str, "torch.Tensor"]:
+    """split_tracks' arrays as contiguous tensors on `device` (n_true, a
+    padding marker of the bucketed reference engines, is dropped)."""
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v))).to(device)
+            for k, v in arrays.items() if k != "n_true"}
+
+
+def _last_max(score):
+    """(max, index of its LAST occurrence) of a 1-d tensor (the reference's
+    ridx = max(where(score == best, widx, -1)))."""
+    flip = score.flip(0)
+    i = int(flip.argmax())
+    return flip[i], score.shape[0] - 1 - i
+
+
+def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
+                   b, widx, len_hi: int):
+    """augustus_tpu's scan._hint_quot term for term (float32, same operand
+    order) at the begins b of one variant's band; srow: the position's
+    scalar row (tensor), irow: its int row (numpy), lm: hint_lm as float32
+    tensors, hw: hw_all."""
+    import torch
+    f32 = torch.float32
+    lm_ep, lm_cp, lm_ex, lm_cds, lm_loc = lm
+    ipo = hs.ipo
+    bob = b - ipo
+    c1 = st.GPAD + bob - 1                 # hw_all column of bob - 1
+    zero = torch.zeros(b.shape, dtype=f32, device=b.device)
+    z0 = torch.zeros((), dtype=f32, device=b.device)
+
+    def WR(row, col):
+        return hw[row, col]
+
+    cov_ep, cov_cp = srow[hs.x_tx_ep], srow[hs.x_tx_cp]
+    covc_ep, covc_cp = srow[hs.x_txc_ep], srow[hs.x_txc_cp]
+    for (sc_, wc_, fc_) in hs.cross_cols:
+        sk, wk, fl = int(irow[sc_]), srow[wc_], int(irow[fc_])
+        sub = (sk >= bob).to(f32)
+        cov_ep = cov_ep - (wk if fl == 1 else z0) * sub
+        covc_ep = covc_ep - (1.0 if fl == 1 else 0.0) * sub
+        cov_cp = cov_cp - (wk if fl == 2 else z0) * sub
+        covc_cp = covc_cp - (1.0 if fl == 2 else 0.0) * sub
+    crw_ep = WR(hs.w_cr_ep, c1 + 1)
+    inside_ep = ((srow[hs.x_be_ep] - WR(hs.w_be_ep, c1)) - crw_ep) + cov_ep
+    inside_cp = ((srow[hs.x_be_cp] - WR(hs.w_be_cp, c1))
+                 - WR(hs.w_cr_cp, c1 + 1)) + cov_cp
+    ccw_ep = WR(hs.w_cntcr_ep, c1 + 1)
+    cin_ep = ((srow[hs.x_cntbe_ep] - WR(hs.w_cntbe_ep, c1)) - ccw_ep) \
+        + covc_ep
+    cin_cp = ((srow[hs.x_cntbe_cp] - WR(hs.w_cntbe_cp, c1))
+              - WR(hs.w_cntcr_cp, c1 + 1)) + covc_cp
+    part_bonus = inside_ep + inside_cp
+    nep = cin_ep + cin_cp
+    if hs.aL:
+        part_bonus = part_bonus + 0.5 * (crw_ep - cov_ep)
+        nep = nep + (ccw_ep - covc_ep)
+    if hs.aR:
+        part_bonus = part_bonus + 0.5 * (srow[hs.x_c2_ep] - cov_ep)
+        nep = nep + (srow[hs.x_cntc2_ep] - covc_ep)
+    quot = part_bonus
+    sup_ex, sup_cds = zero, zero
+    for (pc_, wc_, kc_) in hs.ex_cols:
+        pk, wk, kd = int(irow[pc_]), srow[wc_], int(irow[kc_])
+        cond = ((bob == pk) & (kd == 1)).to(f32)
+        quot = quot + wk * cond
+        sup_cds = torch.maximum(sup_cds, cond)
+        if hs.exclass == 1:
+            cond = ((bob == pk) & (kd == 2)).to(f32)
+            quot = quot + wk * cond
+            sup_ex = torch.maximum(sup_ex, cond)
+        elif hs.exclass == 3:
+            cond = ((pk < bob) & (kd == 3) & (pk > -(1 << 29))).to(f32)
+            quot = quot + (0.5 * wk) * cond
+            sup_ex = torch.maximum(sup_ex, cond)
+    if hs.exclass == 2:
+        for (sc_, wc_, fc_) in hs.cross_cols:
+            sk, wk, fl = int(irow[sc_]), srow[wc_], int(irow[fc_])
+            cond = ((bob == sk) & (fl == 4)).to(f32)
+            quot = quot + (0.5 * wk) * cond
+            sup_ex = torch.maximum(sup_ex, cond)
+    quot = (quot + lm_ex * (1.0 - sup_ex)) + lm_cds * (1.0 - sup_cds)
+    lenv = torch.tensor(np.float32(len_hi), device=b.device) - widx.to(f32)
+    d_ep = lenv - (srow[hs.x_cnte_ep] - WR(hs.w_cnte_ep, c1))
+    d_cp = lenv - (srow[hs.x_cnte_cp] - WR(hs.w_cnte_cp, c1))
+    quot = quot + torch.where(d_ep > 0, d_ep * lm_ep, zero)
+    quot = quot + torch.where(d_cp > 0, d_cp * lm_cp, zero)
+    zc = srow[hs.x_zc] - WR(hs.w_zc, c1)
+    lpm = torch.where(zc > 0, zc * lm_loc, zero)
+    lpm = torch.maximum(lpm, -part_bonus)
+    return quot + torch.where(nep >= 4.5, lpm, zero)
+
+
+def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
+                           v0: "torch.Tensor", debug_vals: bool = False):
+    """The plain PyTorch version of K2: augustus_tpu's
+    `scan.make_scan_fn(debug_vals=True)` as an eager loop over positions
+    j = 1 .. n-1 (float32, the same operand order and tie rules).  Gates,
+    classes and band bounds are read on the host from the int table; all
+    float arithmetic runs in torch on the tables' device.  A convolution
+    band is scored only over its begins inside [smin, smax] (and vb_lo /
+    vb_hi), as csrc/scan.cu clips it; exact, since the reference scores the
+    others NEG (csrc/scan.cu says why).
+
+    Returns (bp (n, S) int32, v_final (S,) float32, vals (n, S) float32 or
+    None): row j of bp and vals belongs to base j (the reference's
+    bps[j - 1]); row 0 of bp is 0, of vals v0."""
+    import torch
+    n, S, NL, PAD, GPAD = st.n, st.S, st.NL, st.PAD, st.GPAD
+    f32, i64 = torch.float32, torch.int64
+    stab = t["scalar_table"]
+    dev = stab.device
+    itab = t["int_table"].cpu().numpy()
+    itab_t = t["int_table"].to(i64)
+    G_all, cum_all = t["G_all"], t["cum_all"]
+    ltr, lane_tr = t["log_trans"], t["lane_trans"]
+    NEGt = torch.tensor(NEG, dtype=f32, device=dev)
+    GATEt = torch.tensor(GATE, dtype=f32, device=dev)
+    hw = t["hw_all"]
+    lm = None
+    if st.hint_lm is not None:
+        lm = [torch.tensor(np.float32(x), device=dev) for x in st.hint_lm]
+
+    def T(x, dt=i64):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    LW = n + PAD + END_PAD
+    lanes = torch.full((NL, LW), NEG, dtype=f32, device=dev)
+    largs = torch.zeros((NL, LW), dtype=i64, device=dev)
+    v0 = v0.to(dev, f32)
+    cand0 = v0[None, :] + lane_tr
+    lanes[:, : PAD + 1] = cand0.max(dim=1).values[:, None]
+    largs[:, : PAD + 1] = torch.argmax(cand0, dim=1)[:, None]
+
+    bp = torch.zeros((n, S), dtype=torch.int32, device=dev)
+    vals_out = torch.full((n, S), NEG, dtype=f32, device=dev) \
+        if debug_vals else None
+    if debug_vals:
+        vals_out[0] = v0
+
+    ch_s = T([c.state for c in st.chain])
+    ch_emi = T([c.emi_col for c in st.chain])
+    fx = st.fixed
+    fx_s = T([f.state for f in fx])
+    fx_l = T([f.lane for f in fx])
+    fx_l2 = T([f.lane + 1 if f.kind == 2 else f.lane for f in fx])
+    fx_D = T([f.jump for f in fx])
+    fx_col0 = PAD - fx_D
+    fx_emi = T([f.emi_col for f in fx])
+    fx_x = T([max(f.extra_col, 0) for f in fx])
+    fx_k1 = T([f.kind == 1 for f in fx], torch.bool)
+    fx_k2 = T([f.kind == 2 for f in fx], torch.bool)
+    pn = st.pinned
+    pn_s = T([p.state for p in pn])
+    pn_l = T([p.lane for p in pn])
+    pn_sc = T([p.score_col for p in pn])
+    pn_eop = T([p.eop_col for p in pn])
+    # lessD states, in groups of one window width
+    groups = {}
+    for li, d in enumerate(st.lessd):
+        groups.setdefault(d.window, []).append((li, d))
+    lessd = []
+    for W, g in groups.items():
+        lessd.append((
+            W, T([li for li, _ in g]), T([d.state for _, d in g]),
+            T([d.lane for _, d in g]), T([d.cum_id for _, d in g]),
+            T([d.cumj_col for _, d in g]), T([d.psi_col for _, d in g]),
+            T([d.jsel_col for _, d in g]), T([d.jgate_col for _, d in g]),
+            torch.stack([t[d.lenvec_key] for _, d in g]),
+            torch.arange(W, device=dev)))
+    convs = []
+    for ei, cv in enumerate(st.convs):
+        vs = []
+        for vi, v in enumerate(cv.variants):
+            lrow = None if v.fsel is None else \
+                cv.lane + T(list(v.fsel))
+            vs.append((v, t[f"lenvec{ei}_{vi}"], lrow,
+                       torch.arange(v.width, device=dev)))
+        convs.append((cv, vs))
+
+    vprev = v0.clone()
+    for j in range(1, n):
+        irow = itab[j]
+        irow_t = itab_t[j]
+        c = int(irow[st.cls_col])
+        srow = stab[j]
+        vals = torch.full((S,), NEG, dtype=f32, device=dev)
+        bps = torch.zeros(S, dtype=i64, device=dev)
+
+        # chain states: first argmax over the predecessors
+        if st.chain:
+            cand = vprev[:, None] + ltr[c][:, ch_s]
+            arg = torch.argmax(cand, dim=0)
+            best = torch.gather(cand, 0, arg[None, :])[0]
+            vals[ch_s] = torch.where(best > GATEt, best + srow[ch_emi], NEGt)
+            bps[ch_s] = (arg << 20) | 1
+
+        # fixed-jump states
+        if fx:
+            col = fx_col0 + j
+            A, Aa = lanes[fx_l, col], largs[fx_l, col]
+            X = srow[fx_x]
+            B = lanes[fx_l2, col] + X
+            lv = torch.where(fx_k1, A + X,
+                             torch.where(fx_k2, torch.maximum(A, B), A))
+            la = torch.where(fx_k2 & (B > A), largs[fx_l2, col], Aa)
+            emi = srow[fx_emi]
+            ok = (fx_D <= j) & (lv > GATEt) & (emi > GATEt)
+            vals[fx_s] = torch.where(ok, lv + emi, NEGt)
+            bps[fx_s] = (la << 20) | fx_D
+
+        # lessD: last argmax over the window's ends of the previous segment
+        for (W, li, ls, ll, lcum, lcj, lpsi, ljs, ljg, lvd, widx) in lessd:
+            c0 = j - W + PAD
+            lsl = lanes[ll, c0: c0 + W]
+            csl = cum_all[lcum, c, j - W + GPAD + 1: j + GPAD + 1]
+            seg = srow[lcj][:, None] - csl
+            bval = t["lessd_bvalid_all"][li, c0: c0 + W]
+            bst = t["lessd_bstop_all"][li, c0: c0 + W]
+            stop = (bst & irow_t[ljs].to(torch.int8)[:, None]) != 0
+            ok = (widx >= W - j)[None, :] & (bval != 0) & ~stop
+            score = torch.where(ok & (lsl > GATEt),
+                                ((lsl + seg) + lvd) + srow[lpsi][:, None],
+                                NEGt)
+            flip = score.flip(1)
+            ridx = W - 1 - torch.argmax(flip, dim=1)
+            best = torch.gather(score, 1, ridx[:, None])[:, 0]
+            gated = (irow_t[ljg] != 0) & (best > GATEt)
+            vals[ls] = torch.where(gated, best, NEGt)
+            bps[ls] = (largs[ll, c0 + ridx] << 20) | (W - ridx)
+
+        # pinned states: one far-back candidate
+        if pn:
+            eop = irow_t[pn_eop]
+            row = torch.clamp(eop, min=-PAD) + PAD
+            lv, la = lanes[pn_l, row], largs[pn_l, row]
+            sc = srow[pn_sc]
+            ok = (sc > GATEt) & (lv > GATEt)
+            vals[pn_s] = torch.where(ok, lv + sc, NEGt)
+            bps[pn_s] = (la << 20) | (j - eop)
+
+        # exon and UTR convolutions, skipped where the end gate is off
+        for cv, variants in convs:
+            gp = int(irow[cv.gate_col])
+            if not gp & 1:
+                bps[cv.state] = 1
+                continue
+            phi = gp >> 1
+            smin, smax = int(irow[cv.smin_col]), int(irow[cv.smax_col])
+            best, bpred, boff = NEGt, 0, 1
+            for var, lvd, lrow, widx in variants:
+                b0 = j + cv.a_off - var.len_hi
+                lo, hi = smin, smax
+                if var.vb_lo is not None:
+                    lo = max(lo, var.vb_lo)
+                if var.vb_hi is not None:
+                    hi = min(hi, var.vb_hi)
+                w0, w1 = max(0, lo - b0), min(var.width - 1, hi - b0) + 1
+                if w1 <= w0:
+                    continue
+                e0 = b0 - cv.bpl - 1 + PAD           # lanes column of w=0
+                G = G_all[var.g_id, c, phi, GPAD + b0 + w0: GPAD + b0 + w1]
+                if lrow is None:
+                    L = lanes[cv.lane, e0 + w0: e0 + w1]
+                else:
+                    L = lanes[lrow[w0: w1], e0 + widx[w0: w1]]
+                base = (L + G) + lvd[w0: w1]
+                if cv.hint is not None:
+                    base = base + _hint_quot_ref(
+                        st, cv.hint, hw, srow, irow, lm, b0 + widx[w0: w1],
+                        widx[w0: w1], var.len_hi)
+                score = torch.where((L > GATEt) & (G > GATEt), base, NEGt)
+                sbest, ridx = _last_max(score)
+                H = srow[var.h_col]
+                if bool(sbest > GATEt) and bool(H > GATEt):
+                    vbest = sbest + H
+                    if bool(vbest > best):
+                        best = vbest
+                        w = w0 + ridx
+                        r = cv.lane if lrow is None else int(lrow[w])
+                        bpred = int(largs[r, e0 + w])
+                        boff = (var.len_hi - cv.a_off + cv.bpl + 1) - w
+            vals[cv.state] = best
+            bps[cv.state] = (bpred << 20) | boff
+
+        bp[j] = bps.to(torch.int32)
+        if debug_vals:
+            vals_out[j] = vals
+        cand = vals[None, :] + lane_tr
+        lanes[:, j + PAD] = cand.max(dim=1).values
+        largs[:, j + PAD] = torch.argmax(cand, dim=1)
+        vprev = vals
+    return bp, vprev, vals_out
+
+
+# --------------------------------------------------------------------------
+# the kernel's descriptor, the wrapper, the work count and the engine
+# --------------------------------------------------------------------------
+
+D_HEADER = 32
+T_CHAIN, T_FIXED, T_LESSD, T_PINNED, T_CONV = range(5)
+
+
+def check_limits(st: ScanStatic) -> None:
+    """Raise NotImplementedError, on every device, for a piece beyond what
+    csrc/scan.cu holds: more than MAX_STATES states or lanes (the lane args
+    are int8, as in the reference)."""
+    if st.S > MAX_STATES or st.NL > MAX_STATES:
+        raise NotImplementedError(
+            f"{st.S} states and {st.NL} lanes: the general Viterbi kernel "
+            f"takes at most {MAX_STATES} of each")
+
+
+def _descriptor(st: ScanStatic, t: Dict[str, object]):
+    """(int32 descriptor, float32 table) of csrc/scan.cu: the header, one
+    task word (kind << 24 | record offset) per state, the records of the
+    states, variants and hint records; the floats hold hint_lm and every
+    length vector (reversed, as split_tracks stores them)."""
+    n = st.n
+    ints: List[int] = [0] * D_HEADER
+    floats: List[np.ndarray] = [np.asarray(
+        st.hint_lm if st.hint_lm is not None else (0.0,) * 5, np.float32)]
+    nfl = [5]
+
+    def fl(a) -> int:
+        a = np.asarray(a.cpu() if hasattr(a, "cpu") else a,
+                       np.float32).reshape(-1)
+        floats.append(a)
+        nfl[0] += a.size
+        return nfl[0] - a.size
+
+    tasks: List[int] = []
+
+    def rec(kind: int, fields) -> None:
+        tasks.append((kind << 24) | len(ints))
+        ints.extend(int(x) for x in fields)
+
+    for cv in st.convs:
+        hint = -1
+        if cv.hint is not None:
+            h = cv.hint
+            hint = len(ints)
+            ints.extend([h.ipo, int(h.aL), int(h.aR), h.exclass])
+            ints.extend(getattr(h, k) for k in HINT_W)
+            ints.extend(getattr(h, k) for k in HINT_X)
+            ints.extend([len(h.cross_cols), len(h.ex_cols)])
+            for tr in tuple(h.cross_cols) + tuple(h.ex_cols):
+                ints.extend(int(x) for x in tr)
+        var_off = len(ints)
+        ei = st.convs.index(cv)
+        for vi, v in enumerate(cv.variants):
+            if v.fsel is None:
+                r0 = -1
+            else:
+                r0 = v.fsel[0]
+            ints.extend([v.g_id, v.h_col, v.len_lo, v.len_hi, v.width, r0,
+                         int(v.vb_lo is not None), v.vb_lo or 0,
+                         int(v.vb_hi is not None), v.vb_hi or 0,
+                         fl(t[f"lenvec{ei}_{vi}"])])
+        rec(T_CONV, [cv.state, cv.bpl, cv.a_off, cv.lane, cv.frame_mode,
+                     cv.smin_col, cv.smax_col, cv.gate_col,
+                     len(cv.variants), var_off, hint])
+    for li, d in enumerate(st.lessd):
+        rec(T_LESSD, [d.state, d.lane, d.window, d.cum_id, d.cumj_col,
+                      d.psi_col, d.jsel_col, d.jgate_col,
+                      fl(t[d.lenvec_key]), li])
+    for c in st.chain:
+        rec(T_CHAIN, [c.state, c.emi_col])
+    for f in st.fixed:
+        rec(T_FIXED, [f.state, f.jump, f.kind, f.lane, f.emi_col,
+                      f.extra_col])
+    for p in st.pinned:
+        rec(T_PINNED, [p.state, p.lane, p.score_col, p.eop_col])
+    off_task = len(ints)
+    ints.extend(tasks)
+    head = [n, st.S, st.NL, st.C, st.PAD, st.GPAD, st.NSC, st.NIC,
+            st.cls_col, len(tasks), off_task, n + st.PAD + END_PAD,
+            st.GPAD + n + END_PAD, st.GPAD + n + 1 + END_PAD,
+            st.PAD + n + END_PAD, st.GPAD + n + END_PAD, int(st.NHW > 0)]
+    ints[: len(head)] = head
+    desc = np.asarray(ints, dtype=np.int64)
+    if desc.size > MAX_DESC:
+        raise NotImplementedError(
+            f"a descriptor of {desc.size} ints (the general Viterbi kernel "
+            f"holds {MAX_DESC})")
+    return desc.astype(np.int32), np.concatenate(floats)
+
+
+def _check(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0):
+    """The device of a piece's tables after checking their types and shapes,
+    and the kernel's descriptor."""
+    import torch
+    check_limits(st)
+    dev = t["scalar_table"].device
+    n, C = st.n, st.C
+    ext = st.GPAD + n + END_PAD
+    want = {"scalar_table": (torch.float32, (n, st.NSC)),
+            "int_table": (torch.int32, (n, st.NIC)),
+            "log_trans": (torch.float32, (C, st.S, st.S)),
+            "lane_trans": (torch.float32, (st.NL, st.S)),
+            "hw_all": (torch.float32, (st.NHW, ext))}
+    G, cu = t["G_all"], t["cum_all"]
+    want["G_all"] = (torch.float32, (G.shape[0], C, 3, ext))
+    want["cum_all"] = (torch.float32, (cu.shape[0], C, ext + 1))
+    if st.lessd:
+        for k in ("lessd_bvalid_all", "lessd_bstop_all"):
+            want[k] = (torch.int8, (len(st.lessd), st.PAD + n + END_PAD))
+    for k, (dt, shape) in want.items():
+        a = t[k]
+        if a.device != dev:
+            raise ValueError(f"{k} on {a.device}, expected {dev}")
+        if a.dtype != dt:
+            raise ValueError(f"{k} has dtype {a.dtype}, expected {dt}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{k} has shape {tuple(a.shape)}, expected "
+                             f"{shape}")
+        if not a.is_contiguous():
+            raise ValueError(f"{k} is not contiguous")
+    if tuple(v0.shape) != (st.S,) or v0.device != dev:
+        raise ValueError("v0 must be the (S,) start column on the tables' "
+                         "device")
+    # what the kernel holds, on every device, so that the CPU refuses what
+    # the card would
+    return dev, _descriptor(st, {k: v for k, v in t.items()
+                                 if "lenvec" in k})
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16 + \
+    [ctypes.c_int, ctypes.c_void_p]
+
+
+def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
+                 debug_vals: bool = False):
+    """(bp (n, S) int32, v_final (S,) float32, vals (n, S) float32 | None)
+    of one piece (row j at base j; row 0 of bp 0, of vals v0).
+
+    CPU tensors run the plain version; CUDA tensors launch csrc/scan.cu
+    (and raise if it does not build or launch).  `scan_forward.launches`
+    counts kernel launches."""
+    import torch
+    dev, (desc_h, fdesc_h) = _check(st, t, v0)
+    if dev.type == "cpu":
+        return scan_forward_reference(st, t, v0, debug_vals)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ._build import load
+    fn = load("scan").scan_forward_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    n, S, NL = st.n, st.S, st.NL
+    desc = torch.from_numpy(desc_h).to(dev)
+    fdesc = torch.from_numpy(fdesc_h).to(dev)
+    LW = n + st.PAD + END_PAD
+    lanes = torch.full((NL, LW), float(NEG), dtype=torch.float32,
+                       device=dev)
+    largs = torch.zeros((NL, LW), dtype=torch.int8, device=dev)
+    bp = torch.zeros((n, S), dtype=torch.int32, device=dev)
+    vals = None
+    if debug_vals:
+        vals = torch.full((n, S), float(NEG), dtype=torch.float32,
+                          device=dev)
+        vals[0] = v0
+    v_final = torch.empty(S, dtype=torch.float32, device=dev)
+    empty8 = torch.zeros(1, dtype=torch.int8, device=dev)
+    bv = t.get("lessd_bvalid_all", empty8)
+    bs = t.get("lessd_bstop_all", empty8)
+    v0 = v0.to(torch.float32).contiguous()
+
+    def ptr(x):
+        return x.data_ptr() if x is not None and x.numel() else None
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(desc.data_ptr(), int(desc.shape[0]), fdesc.data_ptr(),
+             ptr(t["G_all"]), ptr(t["cum_all"]), t["log_trans"].data_ptr(),
+             t["lane_trans"].data_ptr(), t["scalar_table"].data_ptr(),
+             t["int_table"].data_ptr(), ptr(bv), ptr(bs), ptr(t["hw_all"]),
+             v0.data_ptr(), lanes.data_ptr(), largs.data_ptr(),
+             bp.data_ptr(), ptr(vals), v_final.data_ptr(), K2_THREADS,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"scan_forward kernel launch failed: CUDA error "
+                           f"{err}")
+    scan_forward.launches += 1
+    return bp, v_final, vals
+
+
+scan_forward.launches = 0
+
+
+def scan_work(st: ScanStatic, arrays: Dict[str, object]):
+    """What one launch must move and compute on this piece's data, for the
+    roofline bound: ({part: bytes}, {part: float ops}), counted like
+    engine/viterbi.py:kernel_work.
+
+    Bytes count each input element that the function reads for these
+    inputs once: the scalar and int table columns that a record names, on
+    rows 1..n-1 (a convolution's H, quotient and index columns only where
+    its gate is on); the G columns that a convolution's bands cover inside
+    [smin, smax] (and vb_lo / vb_hi) at its gated positions, per (pool row,
+    class, phase); the cumulative and mask columns that lessD windows
+    cover; the hint window columns of hinted bands; the transition tables
+    and length vectors once.  Outputs: bp (n, S) and v_final; the lane
+    history written once (`scratch`: NL values and args per position).
+    Ops: per position each chain state's and lane's S adds and maxima, a
+    fixed or pinned state's 3, per lessD window entry 4 adds and a max, per
+    band entry inside its bounds 3 adds and a max (`dp`), and per hinted
+    band entry the quotient's fixed terms as engine/viterbi.py counts them
+    (`hint_quot`; its per-slot terms, a few per entry, are left out)."""
+    from .viterbi import QUOT_OPS, QUOT_SIDE_OPS
+    n, S, NL, PAD, GPAD, C = st.n, st.S, st.NL, st.PAD, st.GPAD, st.C
+    itab = np.asarray(arrays["int_table"])
+    J = np.arange(1, n)
+    rows = itab[1:n]
+    cls = rows[:, st.cls_col].astype(np.int64)
+    scol = np.zeros((n - 1, st.NSC), dtype=bool)
+    icol = np.zeros((n - 1, st.NIC), dtype=bool)
+    icol[:, st.cls_col] = True
+    ext = GPAD + n + END_PAD
+    NG = np.asarray(arrays["G_all"]).shape[0]
+    gdiff = np.zeros((NG, C, 3, ext + 1), dtype=np.int64)
+    NCU = np.asarray(arrays["cum_all"]).shape[0]
+    cdiff = np.zeros((max(NCU, 1), C, ext + 2), dtype=np.int64)
+    mdiff = np.zeros((max(len(st.lessd), 1), PAD + n + END_PAD + 1),
+                     dtype=np.int64)
+    hdiff = np.zeros((max(st.NHW, 1), ext + 1), dtype=np.int64)
+    dp = quot = 0
+    for c in st.chain:
+        scol[:, c.emi_col] = True
+    dp += (n - 1) * (len(st.chain) + NL) * S * 2
+    for f in st.fixed:
+        scol[:, f.emi_col] = True
+        if f.extra_col >= 0:
+            scol[:, f.extra_col] = True
+    dp += (n - 1) * 3 * (len(st.fixed) + len(st.pinned))
+    for p in st.pinned:
+        scol[:, p.score_col] = True
+        icol[:, p.eop_col] = True
+    for li, d in enumerate(st.lessd):
+        scol[:, [d.cumj_col, d.psi_col]] = True
+        icol[:, [d.jsel_col, d.jgate_col]] = True
+        W = d.window
+        np.add.at(cdiff, (d.cum_id, cls, J - W + GPAD + 1), 1)
+        np.add.at(cdiff, (d.cum_id, cls, J + GPAD + 1), -1)
+        mdiff[li, J - W + PAD] += 1
+        mdiff[li, J + PAD] -= 1
+        dp += (n - 1) * W * 5
+    for cv in st.convs:
+        icol[:, cv.gate_col] = True
+        gp = rows[:, cv.gate_col]
+        on = (gp & 1) != 0
+        if not on.any():
+            continue
+        jj, cc, ph = J[on], cls[on], (gp[on] >> 1).astype(np.int64)
+        icol[on, cv.smin_col] = True
+        icol[on, cv.smax_col] = True
+        smin = rows[on, cv.smin_col].astype(np.int64)
+        smax = rows[on, cv.smax_col].astype(np.int64)
+        h = cv.hint
+        if h is not None:
+            cols = [getattr(h, k) for k in HINT_X] + \
+                [c_ for tr in h.cross_cols + h.ex_cols for c_ in tr[1:2]]
+            scol[np.ix_(on, cols)] = True
+            icol[np.ix_(on, [c_ for tr in h.cross_cols + h.ex_cols
+                             for c_ in (tr[0], tr[2])])] = True
+        for v in cv.variants:
+            scol[on, v.h_col] = True
+            b0 = jj + cv.a_off - v.len_hi
+            lo, hi = smin, smax
+            if v.vb_lo is not None:
+                lo = np.maximum(lo, v.vb_lo)
+            if v.vb_hi is not None:
+                hi = np.minimum(hi, v.vb_hi)
+            lo = np.maximum(lo, b0)
+            hi = np.minimum(hi, b0 + v.width - 1)
+            k = hi >= lo
+            np.add.at(gdiff, (v.g_id, cc[k], ph[k], lo[k] + GPAD), 1)
+            np.add.at(gdiff, (v.g_id, cc[k], ph[k], hi[k] + GPAD + 1), -1)
+            cnt = int((hi - lo + 1)[k].sum())
+            dp += cnt * 4
+            if h is not None:
+                quot += cnt * (QUOT_OPS + QUOT_SIDE_OPS * (int(h.aL)
+                                                           + int(h.aR)))
+                for row in (getattr(h, k_) for k_ in HINT_W):
+                    np.add.at(hdiff, (row, lo[k] - h.ipo - 1 + GPAD), 1)
+                    np.add.at(hdiff, (row, hi[k] - h.ipo + 1 + GPAD), -1)
+    covered = lambda d: int((np.cumsum(d, axis=-1) > 0).sum())  # noqa: E731
+    lv = sum(np.asarray(v).size * 4 for k, v in arrays.items()
+             if "lenvec" in k)
+    parts = {"scalar_table": int(scol.sum()) * 4,
+             "int_table": int(icol.sum()) * 4,
+             "G_all": covered(gdiff) * 4,
+             "cum_all": covered(cdiff) * 4 if st.lessd else 0,
+             "lessd_masks": covered(mdiff) * 2 if st.lessd else 0,
+             "hw_all": covered(hdiff) * 4 if st.NHW else 0,
+             "constants": (C * S * S + NL * S + S) * 4 + lv,
+             "outputs": (n * S + S) * 4,
+             "scratch": (n - 1) * NL * 5}
+    return parts, {"dp": dp, "hint_quot": quot}
+
+
+def needs_general_scan(tracks: DPTracks) -> bool:
+    """True for a piece that the 64-state kernel (engine/viterbi.py) cannot
+    take and K2 decodes: more than 64 states or lanes, or a convolution
+    variant with absolute begin bounds (the UTR states).  The reference
+    routes such pieces to its scan engine the same way
+    (augustus_tpu/predict.py:168-175)."""
+    return tracks.S > 64 or tracks.n_lanes > 64 or any(
+        v.vb_lo is not None or v.vb_hi is not None
+        for cv in tracks.exon_conv for v in cv.variants)
+
+
+class ScanEngine:
+    """Split one piece's tracks, run K2 on `device`, and walk the
+    backpointers on the host (the port's counterpart of
+    augustus_tpu/engine/scan.py:ScanEngine, without the bucket padding: the
+    reference freezes its carry past n_true, so padding changes nothing)."""
+
+    def __init__(self, tracks: DPTracks, device):
+        import torch
+        self.tracks = tracks
+        self.device = torch.device(device)
+        self.static, self.arrays = split_tracks(tracks)
+        check_limits(self.static)
+        self.n, self.S = self.static.n, self.static.S
+
+    def run(self, debug_vals: bool = False) -> None:
+        import torch
+        from .. import stats
+        with stats.stage("expand", self.device):
+            t = scan_tensors(self.arrays, self.device)
+            v0 = torch.from_numpy(np.asarray(
+                self.tracks.log_init, np.float32)).to(self.device)
+        with stats.stage("kernel", self.device):
+            self.bp, vfin, self.vals = scan_forward(self.static, t, v0,
+                                                    debug_vals)
+        self.v_final = vfin.cpu().numpy()
+
+    def _walk_start(self) -> int:
+        last = self.v_final + np.asarray(self.tracks.log_term)
+        state = int(np.argmax(last))
+        if last[state] <= float(NEG) / 2:
+            raise RuntimeError("No feasible path found in HMM (scan)")
+        return state
+
+    def trace_packed(self) -> Tuple[np.ndarray, int]:
+        from .traceback import trace_packed
+        return trace_packed(self.bp.cpu().numpy(), self._walk_start(),
+                            self.n)
+
+    def traceback(self) -> List[Tuple[int, int, ST]]:
+        from .traceback import raw_segments
+        packed, fb = self.trace_packed()
+        return raw_segments(packed, fb, self.tracks.gold.sg.state_types)
+
+    def traceback_path(self, dnalen: int):
+        """Condensed PathState list; equals og.condense_path(traceback())."""
+        from .traceback import condensed_path
+        packed, fb = self.trace_packed()
+        return condensed_path(packed, fb, dnalen,
+                              self.tracks.gold.sg.state_types)

@@ -1,8 +1,8 @@
 """Species parameter (.pbl) file compiler.
 
 Parses the AUGUSTUS species parameter files (``*_igenic_probs.pbl``,
-``*_exon_probs.pbl``, ``*_intron_probs.pbl``) into typed NumPy structures,
-one block per GC-content class.  Formats follow the
+``*_exon_probs.pbl``, ``*_intron_probs.pbl``, ``*_utr_probs.pbl``) into
+typed NumPy structures, one block per GC-content class.  Formats follow the
 reference readers:
 
   * igenic: src/igenicmodel.cc readAllParameters ([P_ls], [EMISSION])
@@ -11,6 +11,8 @@ reference readers:
             [EMISSION] [INITEMISSION] [ETEMISSION])
   * intron: src/intronmodel.cc readAllParameters ([ASS] [ASSBIN]? [DSS]
             [DSSBIN]? [LENGTH], per-class [TRANSITION] [EMISSION] [ASSMOTIF])
+  * UTR:    src/utrmodel.cc readAllParameters ([UTRLENGTH] [AATAAA], per-class
+            emission tables, TSS/TATA/TTS motifs)
 
 All probabilities are kept linear float64 here; log conversion happens in the
 track builders.
@@ -399,3 +401,143 @@ def read_intron_pbl(path: str, num_classes: int, cn: Constants,
                         c_ass=c_ass, c_dss=c_dss, ass_pseudo=ass_pseudo,
                         dss_pseudo=dss_pseudo, non_ag_ass_prob=non_ag,
                         non_gt_dss_prob=non_gt, gc=gc)
+
+
+# ---------------------------------------------------------------------------
+# UTR
+# ---------------------------------------------------------------------------
+
+@dataclass
+class UtrGCParams:
+    emi_5init: np.ndarray        # (4^{k+1},) mixed with intron emissions
+    emi_5: np.ndarray
+    emi_3: np.ndarray
+    tssup: np.ndarray            # (4^{tssup_k+1},)
+    tss_motif: Motif
+    tss_motif_tata: Motif
+    tata_motif: Motif
+    tts_motif: Motif
+
+
+@dataclass
+class UtrParams:
+    k: int
+    tssup_k: int
+    exon_len_d: int
+    aataaa_probs: np.ndarray     # (4^boxlen,)
+    aataaa_boxlen: int
+    len_dist: Dict[str, np.ndarray]      # keys like "5single".."3term"
+    tail_len_dist5: np.ndarray
+    tail_len_dist3: np.ndarray
+    gc: List[UtrGCParams] = field(default_factory=list)
+
+
+def read_utr_pbl(path: str, num_classes: int, cn: Constants, props,
+                 intron: IntronParams) -> UtrParams:
+    """reference UtrModel::readAllParameters (src/utrmodel.cc:600-700).
+
+    The 5'/3' content tables are mixed with the intron content model using
+    utr5patternweight / utr3patternweight (src/utrmodel.cc:682-687)."""
+    cur = TokenCursor(path)
+
+    max_exon_length = props.get_int("/UtrModel/maxexonlength", 1500)
+    max3single = props.get_int("/UtrModel/max3singlelength", 5500)
+    max3term = props.get_int("/UtrModel/max3termlength", 3500)
+    w5 = props.get_float("/UtrModel/utr5patternweight", 0.0)
+    w3 = props.get_float("/UtrModel/utr3patternweight", 0.0)
+    polyasig = props.get("/UtrModel/polyasig_consensus", "aataaa")
+    boxlen = len(polyasig)
+
+    cur.seek_after("[UTRLENGTH]")
+    exon_len_d = cur.next_int()
+    cur.next_float()   # slope_of_bandwidth
+    cur.next_float()   # minwindowcount
+    kinds = ("5single", "5initial", "5internal", "5terminal",
+             "3single", "3initial", "3internal", "3terminal")
+    num = {kk: int(float(cur.next())) for kk in kinds}
+    num_huge = {kk: int(float(cur.next())) for kk in kinds}
+    sizes = {"5single": max_exon_length, "5initial": max_exon_length,
+             "5internal": max_exon_length, "5terminal": max_exon_length,
+             "3single": max3single, "3initial": max_exon_length,
+             "3internal": max_exon_length, "3terminal": max3term}
+    dists = {kk: np.zeros(sizes[kk] + 1) for kk in kinds}
+    for i in range(exon_len_d + 1):
+        cur.next_int()
+        for kk in kinds:
+            dists[kk][i] = cur.next_float() / 1000.0
+    for kk in kinds:
+        _fill_length_tail(dists[kk], exon_len_d, num[kk], num_huge[kk],
+                          sizes[kk])
+
+    # tail length distributions for truncated single UTRs
+    def tail_of(dist):
+        total = dist.sum()
+        out = np.zeros_like(dist)
+        cumsum = 0.0
+        for i in range(dist.shape[0] - 1, -1, -1):
+            cumsum += dist[i]
+            out[i] = cumsum / total if total > 0 else 0.0
+        return out
+
+    tail5 = tail_of(dists["5single"])
+    tail3 = tail_of(dists["3single"])
+
+    cur.seek_after("[AATAAA]")
+    size = cur.next_int()
+    aataaa = np.zeros(size)
+    while cur.peek() is not None and not cur.peek().startswith("["):
+        pn = pattern_index(cur.next())
+        aataaa[pn] = cur.next_float()
+
+    gc: List[UtrGCParams] = []
+    k = props.get_int("/UtrModel/k", 4)
+    tssup_k = props.get_int("/UtrModel/tssup_k", 0)
+    for idx in range(num_classes):
+        cur.seek_after(f"[{idx + 1}]")
+
+        def emis(tag):
+            cur.seek_after(tag)
+            sz = cur.next_int()
+            cur.next_int()     # k
+            cur.next_float()   # patpseudo
+            out = np.zeros(sz)
+            for _ in range(sz):
+                pn = pattern_index(cur.next())
+                out[pn] = cur.next_float()
+            return out
+
+        e5i = emis("[EMISSION-5INITIAL]")
+        e5 = emis("[EMISSION-5]")
+        e3 = emis("[EMISSION-3]")
+        # tssup table has its own header: size then values
+        cur.seek_after("[EMISSION-TSSUPWIN]")
+        sz = cur.next_int()
+        cur.next_int()
+        cur.next_float()
+        tssup = np.zeros(sz)
+        for _ in range(sz):
+            pn = pattern_index(cur.next())
+            tssup[pn] = cur.next_float()
+
+        # mix with the intron content model (same GC class)
+        iem = intron.gc[idx].emiprobs
+        e5i = e5i * w5 + iem * (1.0 - w5)
+        e5 = e5 * w5 + iem * (1.0 - w5)
+        e3 = e3 * w3 + iem * (1.0 - w3)
+
+        cur.seek_after("[TSSMOTIF]")
+        tssm = Motif.read(cur)
+        cur.seek_after("[TSSMOTIFTATA]")
+        tssmt = Motif.read(cur)
+        cur.seek_after("[TATAMOTIF]")
+        tatam = Motif.read(cur)
+        cur.seek_after("[TTSMOTIF]")
+        ttsm = Motif.read(cur)
+        gc.append(UtrGCParams(emi_5init=e5i, emi_5=e5, emi_3=e3, tssup=tssup,
+                              tss_motif=tssm, tss_motif_tata=tssmt,
+                              tata_motif=tatam, tts_motif=ttsm))
+
+    return UtrParams(k=k, tssup_k=tssup_k, exon_len_d=exon_len_d,
+                     aataaa_probs=aataaa, aataaa_boxlen=boxlen,
+                     len_dist=dists, tail_len_dist5=tail5,
+                     tail_len_dist3=tail3, gc=gc)

@@ -137,6 +137,14 @@ def is_r_terminal_exon(t: ST) -> bool:
     return t in (ST.rterminal0, ST.rterminal1, ST.rterminal2)
 
 
+def is_first_exon(t: ST) -> bool:
+    return is_initial_exon(t) or is_r_terminal_exon(t) or t in (ST.singleG, ST.rsingleG)
+
+
+def is_last_exon(t: ST) -> bool:
+    return t in (ST.terminal, ST.rinitial, ST.singleG, ST.rsingleG)
+
+
 def is_coding_exon(t: ST) -> bool:
     return (ST.singleG <= t <= ST.terminal) or (ST.rsingleG <= t <= ST.rterminal2)
 
@@ -145,12 +153,26 @@ def is_coding_intron(t: ST) -> bool:
     return (ST.lessD0 <= t <= ST.longass2) or (ST.rlessD0 <= t <= ST.rlongass2)
 
 
+def is_geometric_intron(t: ST) -> bool:
+    return t in (ST.geometric0, ST.geometric1, ST.geometric2,
+                 ST.rgeometric0, ST.rgeometric1, ST.rgeometric2)
+
+
+def is_utr(t: ST) -> bool:
+    return (ST.utr5single <= t <= ST.utr3term) or (ST.rutr5single <= t <= ST.rutr3term)
+
+
 def is_5utr(t: ST) -> bool:
     return (ST.utr5single <= t <= ST.utr5term) or (ST.rutr5single <= t <= ST.rutr5term)
 
 
 def is_3utr(t: ST) -> bool:
     return (ST.utr3single <= t <= ST.utr3term) or (ST.rutr3single <= t <= ST.rutr3term)
+
+
+def is_utr_intron(t: ST) -> bool:
+    return t in (ST.utr5intron, ST.utr5intronvar, ST.utr3intron, ST.utr3intronvar,
+                 ST.rutr5intron, ST.rutr5intronvar, ST.rutr3intron, ST.rutr3intronvar)
 
 
 @dataclass

@@ -14,6 +14,12 @@ decoded on one of two routes, chosen as augustus_tpu chooses them:
   scan, pack), the Viterbi kernel on `device` (engine/viterbi.py) and the
   host traceback.
 
+With --UTR=on (the 71-state architecture, model/pbl.read_utr_pbl and
+engine/gold_utr.py) every piece takes the host route and the general
+Viterbi kernel K2 (engine/scan.py), as augustus_tpu sends such pieces to
+its scan engine; the output gains tss/tts lines and, with --print_utr=on,
+5'-UTR/3'-UTR lines.
+
 `stats` counts the route of every piece.  Softmasked or hinted runs print
 the evidence block of every transcript.  Pieces decode in order.
 
@@ -36,8 +42,8 @@ evaluate_genbank predicts on the records of an annotated GenBank file
 (io/genbank.py), each a sequence of its own, and prints the annotation, the
 prediction and the accuracy tables (output/evaluation.py).
 
-Outside the port so far, and raising NotImplementedError: UTR and ncRNA
-architectures.
+Outside the port so far, and raising NotImplementedError: ncRNA
+architectures, and sampling or MEA with UTR models.
 """
 
 from __future__ import annotations
@@ -90,6 +96,8 @@ class Model:
     inp: pbl.IntronParams
     decomp: gcmod.Decomposition
     gcode: genetics.GeneticCode
+    utr: object = None           # model.pbl.UtrParams (UTR architectures)
+    utr_cfg: object = None       # engine.gold_utr.UtrConfig
     ext_cfg: object = None       # hints.config.ExtrinsicConfig or None
     gff_hints: object = None     # {seqname: [Feature]} of --hintsfile
     # "auto": each piece on the route augustus_tpu chooses; "host": every
@@ -101,18 +109,17 @@ class Model:
 
     @classmethod
     def load(cls, args: dict, config_path: Optional[str] = None) -> "Model":
-        for key in ("UTR", "nc"):
-            if parse_bool(str(args.get(key, "off"))):
-                raise NotImplementedError(
-                    "not ported yet: UTR / ncRNA models (--UTR=off)")
+        if parse_bool(str(args.get("nc", "off"))):
+            raise NotImplementedError("not ported yet: ncRNA models "
+                                      "(--nc=off)")
         props = init_properties(args, config_path)
         cn = Constants.from_properties(props)
         _check_scope(props)
         sg = parse_state_config(props)
-        if any(mc != "igenicmodel" and mc != "exonmodel"
-               and mc != "intronmodel" for mc in sg.model_class):
+        if any(mc not in ("igenicmodel", "exonmodel", "intronmodel",
+                          "utrmodel") for mc in sg.model_class):
             raise NotImplementedError(
-                "UTR / ncRNA state architectures are not ported yet")
+                "not ported yet: ncRNA state architectures (--nc=off)")
         igp = pbl.read_igenic_pbl(props.species_file("_igenic_probs.pbl"),
                                   cn.decomp_num_steps)
         exp = pbl.read_exon_pbl(props.species_file("_exon_probs.pbl"),
@@ -122,6 +129,12 @@ class Model:
                                   cn.decomp_num_steps, cn, props)
         decomp = gcmod.make_decomposition(cn, props)
         table = props.get_int("translation_table", 1)
+        utr = utr_cfg = None
+        if any(mc == "utrmodel" for mc in sg.model_class):
+            from .engine.gold_utr import UtrConfig
+            utr = pbl.read_utr_pbl(props.species_file("_utr_probs.pbl"),
+                                   cn.decomp_num_steps, cn, props, inp)
+            utr_cfg = UtrConfig.from_properties(props)
         ext_cfg = gff_hints = None
         path = hints_config.default_config_path(props)
         if path is not None and (cn.softmasking or "hintsfile" in props):
@@ -136,16 +149,21 @@ class Model:
                           if "predictionEnd" in props else None))
         return cls(props=props, cn=cn, sg=sg, igp=igp, exp=exp, inp=inp,
                    decomp=decomp, gcode=genetics.GeneticCode(table),
-                   ext_cfg=ext_cfg, gff_hints=gff_hints)
+                   utr=utr, utr_cfg=utr_cfg, ext_cfg=ext_cfg,
+                   gff_hints=gff_hints)
 
 
 def _check_scope(props: Properties) -> None:
-    """Raise for every request the port does not cover yet."""
-    missing = []
-    if props.get_bool("UTR", False) or props.get_bool("nc", False):
-        missing.append("UTR / ncRNA models (--UTR=off)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    """Raise for a request the port does not cover yet (ncRNA is refused
+    before the properties are read: its state files are not in the port's
+    configuration)."""
+    if props.get_bool("UTR", False) and \
+            Sampling.from_properties(props).iters > 1:
+        # no forward table over the UTR scan's layout yet (K3 reads K1's
+        # planes of at most 64 lanes)
+        raise NotImplementedError(
+            "not ported yet: sampling and MEA with UTR models (--UTR=on "
+            "with --sample or --mea)")
 
 
 def _strand_option(props) -> str:
@@ -165,11 +183,15 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
             need_forward: bool = False):
     """One Viterbi decode on the piece's route (augustus_tpu/predict.py:
     113-157; route "host" forces the host route); returns the condensed
-    PathState list.  need_forward (sampling): the host route, and gold.f
-    filled with the forward table of the same packing."""
+    PathState list.  A piece of the UTR architecture takes the host route
+    and the general Viterbi kernel K2 (engine/scan.py), as augustus_tpu
+    sends it to its scan engine; the others the 64-state kernel K1.
+    need_forward (sampling): the host route, and gold.f filled with the
+    forward table of the same packing."""
     from .engine.device import build_tracks
     from .engine.device_prep import try_device_decode
     from .engine.forward import ForwardEngine
+    from .engine.scan import ScanEngine, needs_general_scan
     from .engine.viterbi import ViterbiEngine
     if _auto_route(route) and not need_forward:
         path = try_device_decode(gold, codes, softmask, gff_hints, device)
@@ -184,6 +206,12 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
         gold.prepare_collected()
     with stats.stage("build_tracks"):
         tracks = build_tracks(gold)
+    if needs_general_scan(tracks):
+        with stats.stage("pack"):
+            eng = ScanEngine(tracks, device)
+        eng.run()
+        with stats.stage("traceback"):
+            return eng.traceback_path(codes.shape[0])
     with stats.stage("pack"):
         eng = ViterbiEngine(tracks, device)
         fwd = ForwardEngine(tracks, device, (eng.static, eng.arrays)) \
@@ -205,7 +233,8 @@ def _auto_route(route: str) -> bool:
 
 def _new_gold(model: Model, init_synch: bool, term_synch: bool) -> GoldEngine:
     gold = GoldEngine(model.sg, model.cn, model.igp, model.exp, model.inp,
-                      model.decomp, model.gcode, ext_cfg=model.ext_cfg)
+                      model.decomp, model.gcode, utr=model.utr,
+                      utr_cfg=model.utr_cfg, ext_cfg=model.ext_cfg)
     gold.set_boundaries(init_synch, term_synch)
     return gold
 
@@ -411,6 +440,23 @@ def piece_planes(model: Model, rec: FastaRecord, n: Optional[int], device):
                                                           route="host"),
                                       rec, n, device)
     return st, planes_for(st, arr, device), gold
+
+
+def piece_scan(model: Model, rec: FastaRecord, n: Optional[int], device):
+    """The general Viterbi kernel's inputs (engine/scan.py) for the first n
+    bases of rec on the host route: (ScanStatic, tables as tensors on
+    `device`, the start column v0 on `device`, the piece's GoldEngine)."""
+    from .engine.device import build_tracks
+    from .engine.scan import scan_tensors, split_tracks
+    codes, softmask, gff_hints = _piece_input(model, rec, n)
+    gold = _new_gold(model, False, False)
+    gold.collect_hints(codes, softmask, gff_hints)
+    gold.prepare_collected()
+    tracks = build_tracks(gold)
+    st, arrays = split_tracks(tracks)
+    dev = resolve_device(device)
+    v0 = torch.from_numpy(np.asarray(tracks.log_init, np.float32)).to(dev)
+    return st, scan_tensors(arrays, dev), v0, gold
 
 
 def _try_find_cut(path, exam_start: int, exam_end: int, gaps,

@@ -8,14 +8,17 @@ falls back to the CPU or to a kernel's plain version).  Phases, one JSON
 line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu and forward.cu, and
+  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu, forward.cu and
+          scan.cu, and
           of forward.cu's measurement builds (K3_TWO_PASS: the earlier design;
           K3_SPLIT: clock64 stamps), all started together (set-up time;
           nvcc's -Xptxas=-v report of registers, shared memory and spills
           goes to stderr)
   parity  the Viterbi kernel on the card against its plain PyTorch version
           on copies of the same planes on the host CPU (an eager loop of
-          small operations, faster there than as launches on the card), on
+          small operations, faster there than as launches on the card; the
+          plain versions of parity, forward_parity and scan_parity run in
+          one spawned process per piece, all at once), on
           6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
           inside the chunk), on all of HS04636.fa, the chunk that the gff
@@ -83,10 +86,11 @@ line each:
   full_sm the same letters softmasked (io/tiled.py:tiled_hinted) with the
           hints of data/hints/tiled_sm.E.gff without their exonpart,
           CDSpart, exon and CDS lines: the device route cold and warm, then
-          the host route (Model.route = "host") cold and warm, all four
-          GFF texts byte-equal, evidence blocks included
+          the host route (Model.route = "host") warm, all three GFF texts
+          byte-equal, evidence blocks included, and equal to
+          repo_fixture_tiled_sm.gff
   full_hints  the softmasked letters with all the EST hints of every
-          inserted gene (host route), cold and warm, each byte-equal to
+          inserted gene (host route), one warm run, byte-equal to
           repo_fixture_tiled_hints.gff
   full_forward  the forward kernel on the full cell's planes (device
           route) and on full_hints' (host route): its time and time per
@@ -126,6 +130,29 @@ line each:
           repo_fixture_eval_crf3.out from its first '# ----- sequence
           number' line on without time and command-line lines; every record
           on the device route
+  scan_parity  the general Viterbi kernel K2 (csrc/scan.cu) on the card
+          against its plain PyTorch version on host copies of the same
+          tables, on the pieces of the UTR runs, built as they build them
+          (host route, repo_fixture_utr, 71 states): 6 kb of HS04636.fa,
+          all of HS04636.fa, all of HS04636sm.fa softmasked with its EST
+          hints (the hint quotient) and 6 kb of HS04636rc.fa (reverse-strand
+          UTRs); and 6 kb of HS04636.fa with the 47-state repo_fixture,
+          where K2's values, backpointers and final column must also equal
+          K1's (csrc/viterbi.cu) on the same piece: values, every
+          backpointer and the final column bit-equal (tolerance 0); the
+          kernel's time and time per position, the widest band, the bound
+          from scan_work's bytes and operations
+  gff_utr --UTR=on with repo_fixture_utr: HS04636.fa with --print_utr=on,
+          HS04636sm.fa softmasked with its hints, and the GenBank set
+          tests/data/utrtrain.gb evaluated, each cold (the command line, in
+          the cold group) and warm (in this process), held to
+          repo_fixture_utr_HS04636.gff, repo_fixture_utr_HS04636sm_hints.gff
+          and repo_fixture_utr_eval_utrtrain.out; every piece on the host
+          route through K2
+  full_utr  the full cell's sequence with --UTR=on --print_utr=on (host
+          route, K2, the host walk), byte-equal to
+          repo_fixture_utr_tiled.gff: stage times, K2 ms, peak device
+          memory, launches, Mb/s
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.  Then the kernels line, the card line and the
 final status line.  The golden comparisons leave out comment lines.
@@ -160,8 +187,9 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 SPLIT = ("K3_SPLIT",)       # forward.cu's cycle-stamping build
 TWO_PASS = ("K3_TWO_PASS",)  # forward.cu's earlier two-pass design
 # the libraries: each kernel, and forward.cu's measurement builds
-KERNELS = ("viterbi", "prefix", "trace", "forward", ("forward", TWO_PASS),
-           ("forward", SPLIT), ("forward", SPLIT + TWO_PASS))
+KERNELS = ("viterbi", "prefix", "trace", "forward", "scan",
+           ("forward", TWO_PASS), ("forward", SPLIT),
+           ("forward", SPLIT + TWO_PASS))
 # forward_parity's largest |df| per piece as PERF.md recorded it for the
 # two-pass design before the redesign (H100 80GB HBM3, 700 W)
 RECORDED_MAX_DF = {"HS04636": 9.77e-4, "HS04636sm_hints": 9.77e-4,
@@ -177,6 +205,8 @@ NOLOGREG = {"/CompPred/logreg": "false"}
 # the GenBank sets of eval_genbank and their goldens
 EVAL_SETS = {"genes_test1.gb": "repo_fixture_eval_test1.out",
              "genes_crf3.gb": "repo_fixture_eval_crf3.out"}
+UTR_PRINT = {"print_utr": "on"}
+UTR_EVAL = ("utrtrain.gb", "repo_fixture_utr_eval_utrtrain.out")
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -195,14 +225,15 @@ def card_line() -> str:
 
 
 def model_args(species: str, hints=None) -> dict:
-    """The species' arguments; with a hints file (a name in data/hints or a
-    path), softmasking on and the EST hints with
-    extrinsic.M.RM.E.W.cfg."""
+    """The species' arguments (--UTR=on for a species named *_utr); with a
+    hints file (a name in data/hints or a path), softmasking on and the EST
+    hints with extrinsic.M.RM.E.W.cfg."""
+    utr = "on" if species.endswith("_utr") else "off"
     if hints is None:
         return {"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
-                "UTR": "off", "softmasking": "0"}
+                "UTR": utr, "softmasking": "0"}
     return {"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
-            "UTR": "off", "softmasking": "1",
+            "UTR": utr, "softmasking": "1",
             "hintsfile": os.path.join(HINTS, hints),
             "extrinsicCfgFile": "extrinsic.M.RM.E.W.cfg"}
 
@@ -235,6 +266,37 @@ def on_cpu(planes: dict) -> dict:
             for k, v in planes.items()}
 
 
+def _plain(job):
+    """One plain version on the host CPU, in a process of its own: (its
+    result, its ms)."""
+    import torch
+    torch.set_num_threads(1)
+    kind, args = job
+    if kind == "viterbi":
+        from augustus_tpu_torch.engine.viterbi import \
+            viterbi_forward_reference as fn
+    elif kind == "forward":
+        from augustus_tpu_torch.engine.forward import forward_reference as fn
+    else:
+        from augustus_tpu_torch.engine.scan import \
+            scan_forward_reference as fn
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1000.0
+
+
+def plain_versions(jobs) -> list:
+    """The plain versions of a phase's pieces, all at once, one spawned
+    process each (single-threaded loops of small torch operations; the
+    card's host has 8 cores): [(result, ms)] in the order of `jobs`."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        return list(pool.map(_plain, jobs))
+
+
 def time_cuda(fn, reps: int) -> float:
     import torch
     fn()
@@ -252,11 +314,10 @@ def time_cuda(fn, reps: int) -> float:
 def phase_parity(device, chunks):
     import numpy as np
     import torch
-    from augustus_tpu_torch.engine.viterbi import (
-        kernel_work, viterbi_forward, viterbi_forward_reference)
+    from augustus_tpu_torch.engine.viterbi import kernel_work, viterbi_forward
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.predict import Model, piece_planes
-    rows = []
+    rows, pieces = [], []
     for species, fasta, n, hints in chunks:
         rec = read_fasta(os.path.join(DATA, fasta))[0]
         st, planes, gold = piece_planes(
@@ -269,10 +330,13 @@ def phase_parity(device, chunks):
             raise AssertionError(f"{fasta}: NHW={st.NHW} with hints={hints}")
         bp_k, vf_k, v_k = viterbi_forward(st, planes, debug_vals=True)
         torch.cuda.synchronize()
-        cpu_planes = on_cpu(planes)
-        t0 = time.perf_counter()
-        bp_p, vf_p, v_p = viterbi_forward_reference(st, cpu_planes, True)
-        plain_ms = (time.perf_counter() - t0) * 1000.0
+        pieces.append((species, fasta, n, hints, st, planes, switches,
+                       (bp_k, vf_k, v_k)))
+    plain = plain_versions([("viterbi", (st, on_cpu(planes), True))
+                            for (*_, st, planes, _, _) in pieces])
+    for (species, fasta, n, hints, st, planes, switches,
+         (bp_k, vf_k, v_k)), ((bp_p, vf_p, v_p), plain_ms) in zip(pieces,
+                                                                 plain):
         S = st.S
         vk, vp = v_k[1:, :S].cpu().numpy(), v_p[1:, :S].cpu().numpy()
         live = vp > -5.0e29
@@ -301,7 +365,8 @@ def phase_parity(device, chunks):
                                     if live.any() else 0.0),
                "live_values": int(live.sum()), "kernel_ms": kernel_ms,
                "us_per_position": kernel_ms * 1e3 / n,
-               "plain_ms": plain_ms, "plain_on": "CPU", "bytes": nbytes,
+               "plain_ms": plain_ms, "plain_on": "CPU, one process per "
+               "chunk at once", "bytes": nbytes,
                "bytes_per_position": nbytes / n, "bytes_by_part": parts,
                "ops": ops, "ops_by_part": ops_by_part,
                "bound_bytes_ms": bound_bytes_ms,
@@ -530,9 +595,8 @@ def phase_forward_parity(device, pieces, card):
     """pieces: (label, model, record, bases or None for all of it), each
     prepared on the host route, as a sampled piece is."""
     import torch
-    from augustus_tpu_torch.engine.forward import (
-        forward_reference, forward_table, forward_work)
-    rows = []
+    from augustus_tpu_torch.engine.forward import forward_table, forward_work
+    rows, done = [], []
     for label, model, rec, n in pieces:
         st, planes, _, _ = forward_planes(
             dataclasses.replace(model, route="host"), rec, n, device)
@@ -543,10 +607,11 @@ def phase_forward_parity(device, pieces, card):
             bad = (got.view(torch.int32) != two.view(torch.int32)).sum()
             raise AssertionError(f"forward_parity {label}: {int(bad)} entries "
                                  "differ from the two-pass kernel")
-        cpu_planes = on_cpu(planes)
-        t0 = time.perf_counter()
-        ref, sfu = forward_reference(st, cpu_planes)
-        plain_ms = (time.perf_counter() - t0) * 1000.0
+        done.append((label, model, rec, st, planes, got))
+    plain = plain_versions([("forward", (st, on_cpu(planes)))
+                            for (_, _, _, st, planes, _) in done])
+    for (label, model, rec, st, planes, got), ((ref, sfu), plain_ms) in zip(
+            done, plain):
         err, share = fwd_gate(st, ref, got, f"forward_parity {label}")
         kernel_ms = time_cuda(lambda: forward_table(st, planes), 3)
         two_ms = time_cuda(lambda: forward_table(st, planes, TWO_PASS), 3)
@@ -566,7 +631,8 @@ def phase_forward_parity(device, pieces, card):
                "max_tolerance_share": share,
                "bit_equal_to_two_pass": True, "kernel_ms": kernel_ms,
                "two_pass_ms": two_ms, "us_per_position": kernel_ms * 1e3
-               / st.n, "plain_ms": plain_ms, "plain_on": "CPU",
+               / st.n, "plain_ms": plain_ms,
+               "plain_on": "CPU, one process per piece at once",
                "bytes": nbytes,
                "bytes_by_part": parts, "exp_log": sfu,
                "bound_bytes_ms": bound_bytes_ms,
@@ -819,6 +885,14 @@ def phase_cold(card):
                                      **MEA_ARGS)) + [hs04636]}
     for gb in EVAL_SETS:
         cmds[gb] = cli_args(species) + [os.path.join(DATA, gb)]
+    utr = dict(model_args("repo_fixture_utr"), **UTR_PRINT)
+    cmds["gff_utr"] = cli_args(utr) + [hs04636]
+    cmds["gff_utr_hints"] = cli_args(model_args(
+        "repo_fixture_utr", "HS04636sm.E.gff")) + [
+        os.path.join(DATA, "HS04636sm.fa")]
+    cmds[UTR_EVAL[0]] = cli_args({k: v for k, v in utr.items()
+                                  if k != "softmasking"}) + [
+        os.path.join(DATA, UTR_EVAL[0])]
 
     def run(cmd):
         t0 = time.perf_counter()
@@ -841,12 +915,14 @@ def launch_counts() -> dict:
     from augustus_tpu_torch.engine import traceback as tb
     from augustus_tpu_torch.engine import xputil as U
     from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.scan import scan_forward
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     return {"viterbi_forward": viterbi_forward.launches,
             "viterbi_forward:hint_quot": viterbi_forward.hinted_launches,
             "prefix_sum_f64": U.prefix_sum_f64.launches,
             "event_walk": tb.event_walk.launches,
-            "forward_table": forward_table.launches}
+            "forward_table": forward_table.launches,
+            "scan_forward": scan_forward.launches}
 
 
 def launches_since(before: dict) -> dict:
@@ -947,6 +1023,156 @@ def phase_eval_genbank(model, cold, card):
               "predicted_genes": text.count("\tgene\t"), "wall_s": wall,
               "launches": launches_since(before), "counts": counts,
               "stages_s": tm, "card": card})
+
+
+def phase_scan_parity(device, pieces, card):
+    """K2 on the card against its plain version on host copies of the same
+    tables (bit-equal everywhere); a 47-state piece also against K1."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_forward, scan_work
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    from augustus_tpu_torch.predict import piece_planes, piece_scan
+    rows, done = [], []
+    for name, model, rec, n in pieces:
+        st, t, v0, gold = piece_scan(model, rec, n, device)
+        got = scan_forward(st, t, v0, debug_vals=True)
+        torch.cuda.synchronize()
+        done.append((name, model, rec, n, st, t, v0, got))
+    plain = plain_versions([("scan", (st, on_cpu(t), v0.cpu(), True))
+                            for (*_, st, t, v0, _) in done])
+    for (name, model, rec, n, st, t, v0, (bp_k, vf_k, v_k)), (
+            (bp_p, vf_p, v_p), plain_ms) in zip(done, plain):
+        host = on_cpu(t)
+        vk, vp = v_k.cpu().numpy(), v_p.numpy()
+        if not np.array_equal(vk.view(np.int32), vp.view(np.int32)):
+            bad = np.argwhere(vk.view(np.int32) != vp.view(np.int32))
+            raise AssertionError(f"scan_parity {name}: values differ at "
+                                 f"{bad[:5].tolist()} ({len(bad)} entries)")
+        if not np.array_equal(bp_k.cpu().numpy(), bp_p.numpy()):
+            bad = np.argwhere(bp_k.cpu().numpy() != bp_p.numpy())
+            raise AssertionError(f"scan_parity {name}: backpointers differ "
+                                 f"at {bad[:5].tolist()}")
+        if not torch.equal(vf_k.cpu(), vf_p):
+            raise AssertionError(f"scan_parity {name}: final column differs")
+        live = vp[1:] > -5.0e29
+        row = {"phase": "scan_parity", "piece": name, "n": st.n, "S": st.S,
+               "NL": st.NL, "NHW": st.NHW, "GPAD": st.GPAD,
+               "widest_band": max(v.width for c in st.convs
+                                  for v in c.variants),
+               "parity": "bit-exact", "tolerance": 0.0,
+               "max_abs_err": float(np.abs(vk[1:][live] - vp[1:][live]).max()
+                                    if live.any() else 0.0),
+               "live_values": int(live.sum())}
+        if st.S <= 64:
+            st1, planes, _ = piece_planes(model, rec, n, device)
+            bp1, vf1, v1 = viterbi_forward(st1, planes, debug_vals=True)
+            S = st.S
+            v1 = v1[:, :S].cpu().numpy()
+            live1 = v1[1:] > -5.0e29
+            if not (np.array_equal(v1[1:].view(np.int32),
+                                   vk[1:].view(np.int32))
+                    and ((bp1[1:, :S].cpu().numpy() == bp_k[1:].cpu().numpy())
+                         | ~live1).all()
+                    and torch.equal(vf1[:S].cpu(), vf_k.cpu())):
+                raise AssertionError(f"scan_parity {name}: K2 and K1 "
+                                     "differ on a 47-state piece")
+            row["equal_to_k1"] = True
+        kernel_ms = time_cuda(lambda: scan_forward(st, t, v0), 3)
+        parts, ops_by_part = scan_work(st, {k: v.numpy()
+                                            for k, v in host.items()})
+        nbytes, ops = sum(parts.values()), sum(ops_by_part.values())
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = ops / F32_OPS_PER_S * 1e3
+        row.update({
+            "kernel_ms": kernel_ms, "us_per_position": kernel_ms * 1e3 / st.n,
+            "plain_ms": plain_ms,
+            "plain_on": "CPU, one process per piece at once", "bytes": nbytes,
+            "bytes_by_part": parts, "ops": ops, "ops_by_part": ops_by_part,
+            "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"), "card": card})
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_gff_utr(cold, card):
+    """--UTR=on runs, cold (the command line) and warm, each held to its
+    golden; every piece on the host route through K2."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, evaluate_genbank
+    runs = [("gff_utr", Model.load(dict(model_args("repo_fixture_utr"),
+                                        **UTR_PRINT)),
+             "HS04636.fa", "repo_fixture_utr_HS04636.gff"),
+            ("gff_utr_hints", Model.load(model_args(
+                "repo_fixture_utr", "HS04636sm.E.gff")),
+             "HS04636sm.fa", "repo_fixture_utr_HS04636sm_hints.gff")]
+    for key, model, fasta, golden_name in runs:
+        golden = golden_body(golden_name)
+        out, cold_s = cold[key]
+        if strip_comments(out) != golden:
+            raise AssertionError(f"{key} cold run (command line): GFF "
+                                 f"differs from {golden_name}")
+        emit({"phase": "gff_utr", "input": fasta, "run": "cold",
+              "via": "command line", "equal_to_golden": True,
+              "seconds": cold_s, "card": card})
+        rec = read_fasta(os.path.join(DATA, fasta))[0]
+        before = launch_counts()
+        gff, tm, counts, wall, peak = run_predict(model, rec, "host_prep")
+        if strip_comments(gff) != golden:
+            raise AssertionError(f"{key} warm run: GFF differs from "
+                                 f"{golden_name}")
+        for line in ("\ttss\t", "\ttts\t"):
+            if line not in gff:
+                raise AssertionError(f"{key}: no {line.strip()} line")
+        emit({"phase": "gff_utr", "input": fasta, "run": "warm",
+              "equal_to_golden": True, "genes": gff.count("\tgene\t"),
+              "wall_s": wall, "kernel_ms": tm.get("kernel", 0) * 1e3,
+              "launches": launches_since(before), "counts": counts,
+              "stages_s": tm, "peak_mem_bytes": peak, "card": card})
+    gb, golden_name = UTR_EVAL
+    with open(os.path.join(GOLDEN_DIR, golden_name)) as fh:
+        golden = eval_filter(fh.read())
+    out, cold_s = cold[gb]
+    if eval_filter(out.split("# command line:\n")[0]) != golden:
+        raise AssertionError(f"gff_utr cold run (command line) of {gb}: "
+                             f"text differs from {golden_name}")
+    emit({"phase": "gff_utr", "input": gb, "run": "cold",
+          "via": "command line", "equal_to_golden": True, "seconds": cold_s,
+          "card": card})
+    model = Model.load(dict(model_args("repo_fixture_utr"), **UTR_PRINT))
+    path = os.path.join(DATA, gb)
+    before = launch_counts()
+    text, tm, counts, wall, _ = measured(
+        lambda: evaluate_genbank(model, path, device="cuda"))
+    if eval_filter(text) != golden:
+        raise AssertionError(f"gff_utr warm run of {gb}: text differs from "
+                             f"{golden_name}")
+    if set(routes_of(counts)) != {"host_prep"}:
+        raise AssertionError(f"gff_utr {gb}: routes {routes_of(counts)}")
+    emit({"phase": "gff_utr", "input": gb, "run": "warm",
+          "via": "evaluate_genbank", "equal_to_golden": True,
+          "wall_s": wall, "launches": launches_since(before),
+          "counts": counts, "stages_s": tm, "card": card})
+
+
+def phase_full_utr(rec, card):
+    """The full cell's sequence with --UTR=on --print_utr=on, held to
+    repo_fixture_utr_tiled.gff."""
+    from augustus_tpu_torch.predict import Model
+    model = Model.load(dict(model_args("repo_fixture_utr"), **UTR_PRINT))
+    before = launch_counts()
+    runs, texts = phase_full("full_utr", model, rec,
+                             golden_body("repo_fixture_utr_tiled.gff"),
+                             card, {}, "host_prep", labels=("warm",))
+    text = strip_comments(texts[0])
+    emit({"phase": "full_utr", "launches": launches_since(before),
+          "tss": text.count("\ttss\t"), "tts": text.count("\ttts\t"),
+          "k2_ms": runs[0]["kernel_ms"],
+          "k2_us_per_position": runs[0]["kernel_ms"] * 1e3 / len(
+              rec.sequence)})
 
 
 def measured(fn):
@@ -1054,6 +1280,7 @@ def main() -> int:
     from augustus_tpu_torch.engine import traceback as tb
     from augustus_tpu_torch.engine import xputil as U
     from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.scan import scan_forward
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
@@ -1086,10 +1313,20 @@ def main() -> int:
 
     model = Model.load(model_args("repo_fixture"))
     gc2 = Model.load(model_args("repo_fixture_gc2"))
-    write_exon_free("HS04636sm.E.gff", EXON_FREE_SM)
-    sm_model = Model.load(model_args("repo_fixture", EXON_FREE_SM))
+    utr = Model.load(dict(model_args("repo_fixture_utr"), **UTR_PRINT))
     hs04636 = read_fasta(os.path.join(DATA, "HS04636.fa"))[0]
     hs04636sm = read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0]
+    hs04636rc = read_fasta(os.path.join(DATA, "HS04636rc.fa"))[0]
+    # the UTR runs' pieces (the first gives the kernels line's row), then
+    # K2 against K1 on the 47-state architecture
+    scan_rows = phase_scan_parity(device, [
+        ("HS04636_6kb", utr, hs04636, 6000), ("HS04636", utr, hs04636, None),
+        ("HS04636sm_hints", Model.load(model_args(
+            "repo_fixture_utr", "HS04636sm.E.gff")), hs04636sm, None),
+        ("HS04636rc_6kb", utr, hs04636rc, 6000),
+        ("47_state_6kb", model, hs04636, 6000)], card)
+    write_exon_free("HS04636sm.E.gff", EXON_FREE_SM)
+    sm_model = Model.load(model_args("repo_fixture", EXON_FREE_SM))
     rec = tiled_record(DATA)
     phase_prep_parity(device, [
         ("HS04636", model, hs04636, None), ("gc2_6kb", gc2, hs04636, 6000),
@@ -1120,6 +1357,7 @@ def main() -> int:
     U.prefix_sum_f64.launches = 0
     tb.event_walk.launches = 0
     forward_table.launches = 0
+    scan_forward.launches = 0
     predict_phase("gff", model, os.path.join(DATA, "HS04636.fa"),
                   "repo_fixture_HS04636.gff", "device_prep", False)
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
@@ -1128,6 +1366,7 @@ def main() -> int:
     phase_gff_sample(model_sampled, cold, card)
     phase_gff_mea(model_sampled, cold, card)
     phase_eval_genbank(model, cold, card)
+    phase_gff_utr(cold, card)
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")
@@ -1143,22 +1382,25 @@ def main() -> int:
                                                    EXON_FREE))
     sm_dev = Model.load(model_args("repo_fixture", EXON_FREE))
     sm_host = dataclasses.replace(sm_dev, route="host")
-    _, dev_texts = phase_full("full_sm", sm_dev, hrec, None, card,
+    sm_golden = golden_body("repo_fixture_tiled_sm.gff")
+    _, dev_texts = phase_full("full_sm", sm_dev, hrec, sm_golden, card,
                               sm_counts, "device_prep")
-    _, host_texts = phase_full("full_sm", sm_host, hrec, None, card,
-                               sm_counts, "host_prep")
+    _, host_texts = phase_full("full_sm", sm_host, hrec, sm_golden, card,
+                               sm_counts, "host_prep", labels=("warm",))
     if len(set(dev_texts + host_texts)) != 1:
         raise AssertionError("full_sm: the device and host routes' GFF "
                              "texts differ")
     if "# Evidence for and against" not in dev_texts[0]:
         raise AssertionError("full_sm: no evidence block")
     emit({"phase": "full_sm", "routes_equal": True,
+          "equal_to_golden": True,
           "genes": dev_texts[0].count("\tgene\t")})
 
     hmodel = Model.load(model_args("repo_fixture", "tiled_sm.E.gff"))
     phase_full("full_hints", hmodel, hrec, golden_body(
         "repo_fixture_tiled_hints.gff"), card,
-        dict(counts, hints=len(hint_lines)), "host_prep")
+        dict(counts, hints=len(hint_lines)), "host_prep", labels=("warm",))
+    phase_full_utr(rec, card)
     phase_sample_depth(model_sampled(), rec, card)
     phase_mea_depth(model_sampled(**MEA_ARGS), rec, card)
     launches = launch_counts()
@@ -1175,6 +1417,11 @@ def main() -> int:
     hrow = dict(vrow, max_abs_err=max(r["max_abs_err"] for r in parity[3:]),
                 ms=ph["kernel_ms"], plain_ms=ph["plain_ms"],
                 bound_ms=ph["bound_ms"], bound_by=ph["bound_by"])
+    sp = scan_rows[0]
+    srow = {"max_abs_err": max(r["max_abs_err"] for r in scan_rows),
+            "ms": sp["kernel_ms"], "plain_ms": sp["plain_ms"],
+            "bound_ms": sp["bound_ms"], "bound_by": sp["bound_by"],
+            "library_ms": None}
     fp = fwd_parity[0]
     frow = {"max_abs_err": max(r["max_abs_err"] for r in fwd_parity),
             "ms": fp["kernel_ms"], "plain_ms": fp["plain_ms"],
@@ -1202,7 +1449,10 @@ def main() -> int:
                    "augustus_tpu/engine/scan.py:740",
                    launches["forward_table"], frow,
                    f"support identical, |df| <= {FWD_ABS_TOL} + "
-                   f"{FWD_REL_TOL} * |f|")]})
+                   f"{FWD_REL_TOL} * |f|"),
+        kernel_row("scan_forward", "augustus_tpu_torch/csrc/scan.cu",
+                   "augustus_tpu/engine/scan.py:502",
+                   launches["scan_forward"], srow, "bit-exact")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

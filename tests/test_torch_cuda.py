@@ -220,3 +220,54 @@ def test_sampled_prediction_on_the_card_reproduces_the_golden(cuda):
     def body(t):
         return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
     assert body(got) == body(golden)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fasta,n,hints", [
+    ("HS04636.fa", 6000, None), ("HS04636sm.fa", None, "HS04636sm.E.gff"),
+    ("HS04636rc.fa", 6000, None)])
+def test_scan_kernel_equals_plain_version(cuda, fasta, n, hints):
+    """K2 (csrc/scan.cu) on UTR pieces of the 71-state fixture against its
+    plain version on host copies: values, backpointers and final column
+    bit-equal."""
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan
+    args = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
+            "UTR": "on", "softmasking": "0"}
+    if hints:
+        args.update(softmasking="1", extrinsicCfgFile="extrinsic.M.RM.E.W.cfg",
+                    hintsfile=os.path.join(ROOT, "augustus_tpu_torch", "data",
+                                           "hints", hints))
+    rec = read_fasta(os.path.join(ROOT, "tests", "data", fasta))[0]
+    st, t, v0, _ = piece_scan(Model.load(args), rec, n, cuda)
+    before = S.scan_forward.launches
+    bp, vf, vals = S.scan_forward(st, t, v0, debug_vals=True)
+    torch.cuda.synchronize()
+    assert S.scan_forward.launches == before + 1
+    rbp, rvf, rvals = S.scan_forward_reference(
+        st, {k: v.cpu() for k, v in t.items()}, v0.cpu(), True)
+    assert np.array_equal(vals.cpu().numpy().view(np.int32),
+                          rvals.numpy().view(np.int32))
+    assert np.array_equal(bp.cpu().numpy(), rbp.numpy())
+    assert torch.equal(vf.cpu(), rvf)
+
+
+@pytest.mark.cuda
+def test_utr_prediction_on_the_card_reproduces_the_golden(cuda):
+    """--UTR=on --print_utr=on on HS04636.fa through K2 on the card."""
+    from augustus_tpu_torch.engine.scan import scan_forward
+    from augustus_tpu_torch.predict import Model, predict_file
+    args = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
+            "UTR": "on", "softmasking": "0", "print_utr": "on"}
+    before = scan_forward.launches
+    got = predict_file(Model.load(args),
+                       os.path.join(ROOT, "tests", "data", "HS04636.fa"))
+    assert scan_forward.launches == before + 1
+    with open(os.path.join(ROOT, "augustus_tpu_torch", "data", "golden",
+                           "repo_fixture_utr_HS04636.gff")) as fh:
+        want = fh.read()
+
+    def body(t):
+        return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
+    assert body(got) == body(want)

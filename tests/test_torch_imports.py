@@ -87,7 +87,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("args", [
-    {"UTR": "on"}, {"nc": "1"}, {"nc": "true"},
+    {"UTR": "on", "sample": "100", "alternatives-from-sampling": "1"},
+    {"nc": "1"}, {"nc": "true"},
     {"nc": "on", "mea": "1", "sample": "100",
      "alternatives-from-sampling": "1"},
     {"UTR": "on", "mea": "1"}])

@@ -2,7 +2,8 @@
 
     python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints] \
         [sample] [sample_hints] [sample_depth] [mea] [mea_hints] \
-        [mea_nologreg] [mea_depth] [eval_test1] [eval_crf3]
+        [mea_nologreg] [mea_depth] [eval_test1] [eval_crf3] [tiled_sm] \
+        [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -58,6 +59,29 @@ augustus_tpu_torch/data/hints/ and extrinsic.M.RM.E.W.cfg:
            tables -> repo_fixture_eval_test1.out, repo_fixture_eval_crf3.out
            (tests/test_torch_evaluation.py keeps them equal to
            `augustus_tpu`, the whole sets in a test marked slow)
+  tiled_sm the letters of tiled_hints with the hints of tiled_sm.E.gff
+           without their exonpart, CDSpart, exon and CDS lines
+           (io/tiled.py:exon_free_hints; chip_smoke.py's full_sm), the
+           port's CPU path -> repo_fixture_tiled_sm.gff
+The UTR goldens use the `repo_fixture_utr` species (71 states, written by
+augustus_tpu_torch/data/make_utr_fixture.py) with `--UTR=on`:
+  utr_hs04636  tests/data/HS04636.fa with --print_utr=on through
+           `augustus_tpu` predict_file(engine="scan")
+           -> repo_fixture_utr_HS04636.gff
+  utr_hints  HS04636sm.fa softmasked with HS04636sm.E.gff, the same way
+           -> repo_fixture_utr_HS04636sm_hints.gff
+  utr_rc   HS04636rc.fa with --print_utr=on, the same way
+           -> repo_fixture_utr_HS04636rc.gff
+  utr_eval  the GenBank set tests/data/utrtrain.gb through `augustus_tpu`
+           evaluate_genbank(engine="scan") -> repo_fixture_utr_eval_utrtrain.out
+           (tests/test_torch_utr.py keeps the port's four texts equal to
+           these; a test marked slow recomputes them with `augustus_tpu`)
+  utr_tiled  the tiled sequence with --print_utr=on through the port's CPU
+           path -> repo_fixture_utr_tiled.gff (`augustus_tpu`'s scan took
+           364 s for its first 80,000 bases on a CPU, 4.5 ms per
+           base against 1.7 on HS04636.fa: its time per base grows with the
+           length, so 1 Mb would take hours; a test marked slow keeps the
+           first 21,000 bases equal between the two packages)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
@@ -91,7 +115,13 @@ GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "mea_nologreg": "repo_fixture_HS04636_mea_nologreg.gff",
            "mea_depth": "repo_fixture_tiled21k_mea.gff",
            "eval_test1": "repo_fixture_eval_test1.out",
-           "eval_crf3": "repo_fixture_eval_crf3.out"}
+           "eval_crf3": "repo_fixture_eval_crf3.out",
+           "tiled_sm": "repo_fixture_tiled_sm.gff",
+           "utr_hs04636": "repo_fixture_utr_HS04636.gff",
+           "utr_hints": "repo_fixture_utr_HS04636sm_hints.gff",
+           "utr_rc": "repo_fixture_utr_HS04636rc.gff",
+           "utr_eval": "repo_fixture_utr_eval_utrtrain.out",
+           "utr_tiled": "repo_fixture_utr_tiled.gff"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 SAMPLED = dict(ARGS, sample="100")
@@ -105,6 +135,42 @@ NOLOGREG = dict(MEA, **{"/CompPred/logreg": "false"})
 # the GenBank sets of eval_test1 and eval_crf3 (softmasking off, as the
 # command line sets it for GenBank input)
 EVAL_SETS = {"eval_test1": "genes_test1.gb", "eval_crf3": "genes_crf3.gb"}
+UTR_ARGS = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
+            "UTR": "on", "softmasking": "0", "print_utr": "on"}
+UTR_DEPTH = 21_000     # bases of the tiled sequence that the slow UTR test
+#                        decodes with both packages
+
+
+def utr_run(which: str):
+    """(arguments, input path) of a UTR golden other than utr_tiled."""
+    hinted = dict(hinted_args("HS04636sm.E.gff"), species="repo_fixture_utr",
+                  UTR="on")
+    return {"utr_hs04636": (UTR_ARGS, os.path.join(DATA, "HS04636.fa")),
+            "utr_hints": (hinted, os.path.join(DATA, "HS04636sm.fa")),
+            "utr_rc": (UTR_ARGS, os.path.join(DATA, "HS04636rc.fa")),
+            "utr_eval": (dict(UTR_ARGS, softmasking="0"),
+                         os.path.join(DATA, "utrtrain.gb"))}[which]
+
+
+def utr_reference(which: str) -> str:
+    """augustus_tpu's text (engine="scan", JAX on the CPU) of a UTR golden
+    other than utr_tiled."""
+    from augustus_tpu.predict import Model, evaluate_genbank, predict_file
+    args, path = utr_run(which)
+    if which == "utr_eval":
+        return evaluate_genbank(Model.load(dict(args)), path, engine="scan")
+    return predict_file(Model.load(dict(args)), path, engine="scan")
+
+
+def exon_free_file(dst: str) -> str:
+    """dst: the hints of data/hints/tiled_sm.E.gff without exonpart,
+    CDSpart, exon and CDS lines (chip_smoke.py's full_sm input)."""
+    from augustus_tpu_torch.io.tiled import exon_free_hints
+    with open(os.path.join(HINTS, "tiled_sm.E.gff")) as fh:
+        lines = exon_free_hints(fh.read().splitlines(True))
+    with open(dst, "w") as fh:
+        fh.write("".join(lines))
+    return dst
 
 
 def depth_record():
@@ -168,6 +234,8 @@ def reference_gff(which: str) -> str:
 
 def golden_gff(which: str) -> str:
     """The GFF text of one golden, computed anew."""
+    if which.startswith("utr_") and which != "utr_tiled":
+        return utr_reference(which)
     if which in ("hs04636", "hints"):
         from augustus_tpu.predict import Model, predict_file
         args, fasta = (dict(ARGS), "HS04636.fa") if which == "hs04636" \
@@ -203,6 +271,15 @@ def golden_gff(which: str) -> str:
                                 device="cpu")
     if which == "tiled":
         args, rec = dict(ARGS), tiled_record(DATA)
+    elif which == "utr_tiled":
+        args, rec = dict(UTR_ARGS), tiled_record(DATA)
+    elif which == "tiled_sm":
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            args = hinted_args(exon_free_file(os.path.join(
+                tmp, "tiled_sm.exon_free.gff")))
+            return predict_records(Model.load(args), [tiled_hinted(DATA)[0]],
+                                   device="cpu")
     else:
         args, rec = hinted_args("tiled_sm.E.gff"), tiled_hinted(DATA)[0]
     return predict_records(Model.load(args), [rec], device="cpu")
