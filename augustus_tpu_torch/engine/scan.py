@@ -14,8 +14,13 @@ launches `csrc/scan.cu` for CUDA tensors and runs `scan_forward_reference`,
 the plain PyTorch version (augustus_tpu's `make_scan_fn` as an eager loop),
 for CPU tensors; `scan_work` counts its bytes and operations and
 `ScanEngine` drives it for one piece and walks the backpointers on the
-host.  The port sends a piece to K2 when the 64-state kernel cannot take
-it (`needs_general_scan`: the 71-state UTR architecture).  The logsumexp
+host.  `_descriptor` and `smem_layout` give the kernel its records and
+shared-memory regions; `segment_counts` and `k2_shares` are the kernel's
+arithmetic of the band list (which entries each warp walks at a
+position), kept here for the CPU tests as the plain version is kept for
+the kernel's results.  The port sends a piece to K2 when the 64-state
+kernel cannot take it (`needs_general_scan`: the 71-state UTR
+architecture).  The logsumexp
 twin of the reference module (`make_forward_fn`) is a later slice.
 """
 
@@ -415,8 +420,11 @@ def split_tracks(tr: DPTracks):
 NEG = np.float32(F32_NEG)
 GATE = np.float32(-1.0e29)
 MAX_STATES = 128         # states and lanes csrc/scan.cu holds (int8 args)
-K2_THREADS = 512         # csrc/scan.cu: one block of 16 warps
+K2_WARPS = 16            # csrc/scan.cu: one block of 16 warps
 MAX_DESC = 12_288        # descriptor ints the kernel holds in shared memory
+MAX_SEG = 256            # segments of a position's band list (csrc/scan.cu)
+STAGES = 4               # table rows staged in shared memory
+SMEM_BYTES = 232_448     # shared memory one block may take on an H100
 
 # the order of a hint record's window rows and x columns in the descriptor
 # (csrc/scan.cu HINT_W / HINT_X)
@@ -727,18 +735,125 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
 # the kernel's descriptor, the wrapper, the work count and the engine
 # --------------------------------------------------------------------------
 
-D_HEADER = 32
+D_HEADER = 48
 T_CHAIN, T_FIXED, T_LESSD, T_PINNED, T_CONV = range(5)
+VR_SIZE = 11             # ints of a variant record
+# the shared-memory regions of csrc/scan.cu after the descriptor, in this
+# order (header fields D_SM_LT .. D_SM_SCRATCH, in 4-byte words)
+SMEM_REGIONS = ("lt", "ltc", "stage", "vbuf", "bpbuf", "segoff", "segw0",
+                "segwf", "res", "edge", "fp", "segbase", "scratch")
+MAXP = 8                 # segments of a chunk of a warp's share
+# a segment record (csrc/scan.cu SG_REC .. SG_OFFB): record offset,
+# variant (-1: lessD), gate / smin / smax columns, a_off - len_hi, vb_lo,
+# vb_hi, width, G row, length vector offset, r0, frame mode, lane, lanes
+# column of entry 0 less j, hint record, H column, len_hi - a_off + bpl + 1
+SG_SIZE = 18
+INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def smem_layout(st: ScanStatic, desc_len: int) -> Dict[str, int]:
+    """Word offsets of csrc/scan.cu's shared-memory regions, the staged
+    row width `rw` and the total `bytes`: the descriptor, lane_trans (NL,
+    S) and the chain states' log_trans columns (C, chain, S) in rows of S
+    padded to a multiple of 16, STAGES table rows, values and backpointers
+    of two positions, the segment offsets and clipped starts of two
+    positions, the first and last warps of each segment, the
+    segments' results, the warps' FIRST / LAST pieces, the lane history
+    words of the fixed and pinned states, the segments' band bases of two
+    positions and each warp's parked lane partials."""
+    def up4(x):
+        return (x + 3) // 4 * 4
+    rw = up4(st.NSC + st.NIC)
+    sp = (st.S + 15) // 16 * 16        # S padded, the rows of lt and ltc
+    sizes = {"lt": st.NL * sp, "ltc": st.C * len(st.chain) * sp,
+             "stage": STAGES * rw, "vbuf": 2 * MAX_STATES,
+             "bpbuf": 2 * MAX_STATES, "segoff": 2 * (MAX_SEG + 1),
+             "segw0": 2 * MAX_SEG, "segwf": 2 * MAX_SEG, "res": 3 * MAX_SEG,
+             "edge": 3 * 2 * K2_WARPS, "fp": 4 * MAX_STATES,
+             "segbase": 2 * 2 * MAX_SEG, "scratch": K2_WARPS * 3 * MAXP * 32}
+    out, at = {}, up4(desc_len)
+    for k in SMEM_REGIONS:
+        out[k] = at
+        at = up4(at + sizes[k])
+    out["rw"] = rw
+    out["words"] = at
+    out["bytes"] = at * 4
+    return out
+
+
+def segments(st: ScanStatic) -> List[Tuple[int, int]]:
+    """The band list's segments of every position, in the kernel's order:
+    (conv index, variant) for each variant of each convolution, then
+    (lessD index, -1) for each lessD window."""
+    return [(ci, vi) for ci, cv in enumerate(st.convs)
+            for vi in range(len(cv.variants))] + \
+        [(li, -1) for li in range(len(st.lessd))]
+
+
+def segment_counts(st: ScanStatic, irow, j: int):
+    """(counts, clipped starts) of the segments at position j, as csrc/
+    scan.cu's warps 12-15 compute them from the int table row `irow`: a gated
+    variant's begins inside [smin, smax] (and vb_lo / vb_hi), none where
+    its end gate is off; a lessD window's W entries."""
+    cnt, w0s = [], []
+    for ci, vi in segments(st):
+        if vi < 0:
+            cnt.append(st.lessd[ci].window)
+            w0s.append(0)
+            continue
+        cv = st.convs[ci]
+        v = cv.variants[vi]
+        c, w0 = 0, 0
+        if int(irow[cv.gate_col]) & 1:
+            b0 = j + cv.a_off - v.len_hi
+            lo, hi = int(irow[cv.smin_col]), int(irow[cv.smax_col])
+            if v.vb_lo is not None:
+                lo = max(lo, v.vb_lo)
+            if v.vb_hi is not None:
+                hi = min(hi, v.vb_hi)
+            w0 = max(0, lo - b0)
+            c = max(0, min(v.width - 1, hi - b0) - w0 + 1)
+        cnt.append(c)
+        w0s.append(w0)
+    return cnt, w0s
+
+
+def k2_shares(st: ScanStatic, irow, j: int):
+    """The shares of csrc/scan.cu's phase A at position j: for each warp w,
+    the list of (segment, first entry w, last entry w) it walks, from
+    entries [T w / 16, T (w + 1) / 16) of the T in the band list."""
+    cnt, w0s = segment_counts(st, irow, j)
+    off = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+    T = int(off[-1])
+    out = []
+    for w in range(K2_WARPS):
+        s0, s1 = T * w // K2_WARPS, T * (w + 1) // K2_WARPS
+        share = []
+        # the first segment whose end passes s0, as the kernel's search
+        q = int(np.searchsorted(off[1:], s0, side="right"))
+        while s1 > s0 and q < len(cnt) and off[q] < s1:
+            i0, i1 = max(s0, int(off[q])), min(s1, int(off[q + 1]))
+            if i1 > i0:
+                share.append((q, w0s[q] + i0 - int(off[q]),
+                              w0s[q] + i1 - int(off[q]) - 1))
+            q += 1
+        out.append(share)
+    return out
 
 
 def check_limits(st: ScanStatic) -> None:
     """Raise NotImplementedError, on every device, for a piece beyond what
     csrc/scan.cu holds: more than MAX_STATES states or lanes (the lane args
-    are int8, as in the reference)."""
+    are int8, as in the reference), more than MAX_SEG band segments."""
     if st.S > MAX_STATES or st.NL > MAX_STATES:
         raise NotImplementedError(
             f"{st.S} states and {st.NL} lanes: the general Viterbi kernel "
             f"takes at most {MAX_STATES} of each")
+    nseg = len(segments(st))
+    if nseg > MAX_SEG:
+        raise NotImplementedError(
+            f"{nseg} convolution variants and lessD windows: the general "
+            f"Viterbi kernel takes at most {MAX_SEG}")
 
 
 def _descriptor(st: ScanStatic, t: Dict[str, object]):
@@ -765,6 +880,8 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
         tasks.append((kind << 24) | len(ints))
         ints.extend(int(x) for x in fields)
 
+    seg_first = np.cumsum([0] + [len(cv.variants) for cv in st.convs])
+    seg_recs: List[List[int]] = []
     for cv in st.convs:
         hint = -1
         if cv.hint is not None:
@@ -778,22 +895,33 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
                 ints.extend(int(x) for x in tr)
         var_off = len(ints)
         ei = st.convs.index(cv)
+        rec_off = var_off + VR_SIZE * len(cv.variants)
         for vi, v in enumerate(cv.variants):
             if v.fsel is None:
                 r0 = -1
             else:
                 r0 = v.fsel[0]
+            lv = fl(t[f"lenvec{ei}_{vi}"])
             ints.extend([v.g_id, v.h_col, v.len_lo, v.len_hi, v.width, r0,
                          int(v.vb_lo is not None), v.vb_lo or 0,
-                         int(v.vb_hi is not None), v.vb_hi or 0,
-                         fl(t[f"lenvec{ei}_{vi}"])])
+                         int(v.vb_hi is not None), v.vb_hi or 0, lv])
+            boff = cv.a_off - v.len_hi
+            seg_recs.append([
+                rec_off, vi, cv.gate_col, cv.smin_col, cv.smax_col, boff,
+                INT_MIN if v.vb_lo is None else v.vb_lo,
+                INT_MAX if v.vb_hi is None else v.vb_hi, v.width, v.g_id, lv,
+                r0, cv.frame_mode, cv.lane, boff - cv.bpl - 1 + st.PAD, hint,
+                v.h_col, v.len_hi - cv.a_off + cv.bpl + 1])
         rec(T_CONV, [cv.state, cv.bpl, cv.a_off, cv.lane, cv.frame_mode,
                      cv.smin_col, cv.smax_col, cv.gate_col,
-                     len(cv.variants), var_off, hint])
+                     len(cv.variants), var_off, hint, seg_first[ei]])
     for li, d in enumerate(st.lessd):
+        lv = fl(t[d.lenvec_key])
+        seg_recs.append([len(ints), -1, -1, 0, 0, 0, 0, 0, d.window, 0, lv,
+                         0, 0, d.lane, st.PAD - d.window, -1, 0, 0])
         rec(T_LESSD, [d.state, d.lane, d.window, d.cum_id, d.cumj_col,
-                      d.psi_col, d.jsel_col, d.jgate_col,
-                      fl(t[d.lenvec_key]), li])
+                      d.psi_col, d.jsel_col, d.jgate_col, lv, li,
+                      seg_first[-1] + li])
     for c in st.chain:
         rec(T_CHAIN, [c.state, c.emi_col])
     for f in st.fixed:
@@ -803,16 +931,28 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
         rec(T_PINNED, [p.state, p.lane, p.score_col, p.eop_col])
     off_task = len(ints)
     ints.extend(tasks)
+    off_seg = len(ints)
+    for sg in seg_recs:
+        ints.extend(sg)
     head = [n, st.S, st.NL, st.C, st.PAD, st.GPAD, st.NSC, st.NIC,
             st.cls_col, len(tasks), off_task, n + st.PAD + END_PAD,
             st.GPAD + n + END_PAD, st.GPAD + n + 1 + END_PAD,
-            st.PAD + n + END_PAD, st.GPAD + n + END_PAD, int(st.NHW > 0)]
+            st.PAD + n + END_PAD, st.GPAD + n + END_PAD, int(st.NHW > 0),
+            len(st.convs), len(st.lessd), len(st.chain), len(st.fixed),
+            len(st.pinned), len(segments(st)), off_seg]
+    lay = smem_layout(st, len(ints))
+    head += [lay[k] for k in SMEM_REGIONS[:3]] + [lay["rw"]] + \
+        [lay[k] for k in SMEM_REGIONS[3:]] + [lay["words"]]
     ints[: len(head)] = head
     desc = np.asarray(ints, dtype=np.int64)
     if desc.size > MAX_DESC:
         raise NotImplementedError(
             f"a descriptor of {desc.size} ints (the general Viterbi kernel "
             f"holds {MAX_DESC})")
+    if lay["bytes"] > SMEM_BYTES:
+        raise NotImplementedError(
+            f"{lay['bytes']} bytes of shared memory (the general Viterbi "
+            f"kernel's block may take {SMEM_BYTES})")
     return desc.astype(np.int32), np.concatenate(floats)
 
 
@@ -860,13 +1000,15 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16 + \
 
 
 def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
-                 debug_vals: bool = False):
+                 debug_vals: bool = False, defines=()):
     """(bp (n, S) int32, v_final (S,) float32, vals (n, S) float32 | None)
     of one piece (row j at base j; row 0 of bp 0, of vals v0).
 
     CPU tensors run the plain version; CUDA tensors launch csrc/scan.cu
-    (and raise if it does not build or launch).  `scan_forward.launches`
-    counts kernel launches."""
+    (and raise if it does not build or launch), built with the preprocessor
+    `defines` of a measurement variant when they are given (K2_SIMPLE: the
+    earlier design, a warp per state; K2_SPLIT: the clock64 split).
+    `scan_forward.launches` counts kernel launches."""
     import torch
     dev, (desc_h, fdesc_h) = _check(st, t, v0)
     if dev.type == "cpu":
@@ -874,7 +1016,7 @@ def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from ._build import load
-    fn = load("scan").scan_forward_launch
+    fn = load("scan", defines).scan_forward_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     n, S, NL = st.n, st.S, st.NL
@@ -905,8 +1047,8 @@ def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
              t["lane_trans"].data_ptr(), t["scalar_table"].data_ptr(),
              t["int_table"].data_ptr(), ptr(bv), ptr(bs), ptr(t["hw_all"]),
              v0.data_ptr(), lanes.data_ptr(), largs.data_ptr(),
-             bp.data_ptr(), ptr(vals), v_final.data_ptr(), K2_THREADS,
-             stream)
+             bp.data_ptr(), ptr(vals), v_final.data_ptr(),
+             smem_layout(st, int(desc.shape[0]))["bytes"], stream)
     if err != 0:
         raise RuntimeError(f"scan_forward kernel launch failed: CUDA error "
                            f"{err}")

@@ -9,11 +9,11 @@ line each:
 
   device  card name and power limit (nvidia-smi)
   build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu, forward.cu and
-          scan.cu, and
-          of forward.cu's measurement builds (K3_TWO_PASS: the earlier design;
-          K3_SPLIT: clock64 stamps), all started together (set-up time;
-          nvcc's -Xptxas=-v report of registers, shared memory and spills
-          goes to stderr)
+          scan.cu, and of the measurement builds of forward.cu (K3_TWO_PASS:
+          the earlier design; K3_SPLIT: clock64 stamps) and scan.cu
+          (K2_SIMPLE: the earlier design; K2_SPLIT: clock64 stamps), all
+          started together (set-up time; nvcc's -Xptxas=-v report of registers,
+          shared memory and spills goes to stderr)
   parity  the Viterbi kernel on the card against its plain PyTorch version
           on copies of the same planes on the host CPU (an eager loop of
           small operations, faster there than as launches on the card; the
@@ -153,6 +153,15 @@ line each:
           route, K2, the host walk), byte-equal to
           repo_fixture_utr_tiled.gff: stage times, K2 ms, peak device
           memory, launches, Mb/s
+  k2_compare  K2 against its earlier design (the K2_SIMPLE build of
+          csrc/scan.cu) on 6 kb of HS04636.fa with repo_fixture_utr, on the
+          same 6 kb with the 47-state repo_fixture and on full_utr's piece:
+          values, backpointers and final column bit-equal; both timed in
+          turns (simple, new, new, simple); registers, spills and shared
+          memory of the four builds (cuobjdump -res-usage); the clock64
+          split of a position for both (the K2_SPLIT builds): cycles of each
+          phase and barrier wait by warp role, which role reaches each
+          barrier last, band entries and segments per warp
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.  Then the kernels line, the card line and the
 final status line.  The golden comparisons leave out comment lines.
@@ -186,10 +195,14 @@ F64_OPS_PER_S = 34e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 SPLIT = ("K3_SPLIT",)       # forward.cu's cycle-stamping build
 TWO_PASS = ("K3_TWO_PASS",)  # forward.cu's earlier two-pass design
-# the libraries: each kernel, and forward.cu's measurement builds
+K2_SPLIT = ("K2_SPLIT",)     # scan.cu's cycle-stamping build
+K2_SIMPLE = ("K2_SIMPLE",)   # scan.cu's earlier design, a warp per state
+# the libraries: each kernel, and forward.cu's and scan.cu's measurement
+# builds
 KERNELS = ("viterbi", "prefix", "trace", "forward", "scan",
            ("forward", TWO_PASS), ("forward", SPLIT),
-           ("forward", SPLIT + TWO_PASS))
+           ("forward", SPLIT + TWO_PASS), ("scan", K2_SIMPLE),
+           ("scan", K2_SPLIT), ("scan", K2_SPLIT + K2_SIMPLE))
 # forward_parity's largest |df| per piece as PERF.md recorded it for the
 # two-pass design before the redesign (H100 80GB HBM3, 700 W)
 RECORDED_MAX_DF = {"HS04636": 9.77e-4, "HS04636sm_hints": 9.77e-4,
@@ -722,16 +735,159 @@ def k3_split(st, planes, defines=()):
     return out
 
 
-def res_usage(defines=()) -> str:
-    """Registers and stack (spills) of forward.cu's kernel built with
-    `defines` (cuobjdump -res-usage)."""
+def res_usage(defines=(), name="forward",
+              kernel="forward_table_kernel") -> str:
+    """Registers, stack (spills) and static shared memory of a kernel built
+    with `defines` (cuobjdump -res-usage; nvcc's -Xptxas=-v says the same
+    on stderr at the build)."""
     from augustus_tpu_torch.engine import _build
     cuobj = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out = subprocess.run([cuobj, "-res-usage",
-                          _build._lib_path("forward", defines)],
+                          _build._lib_path(name, defines)],
                          check=True, capture_output=True, text=True).stdout
-    m = re.search(r"forward_table_kernel\S*:\s*\n\s*(REG:\d+ STACK:\d+)", out)
+    m = re.search(kernel + r"\S*:\s*\n\s*(REG:\d+ STACK:\d+ SHARED:\d+)",
+                  out)
     return m.group(1) if m else out
+
+
+K2_SLOTS = ("w1", "bar1", "w2", "bar2", "w3", "bar3", "entries", "segs",
+            "max_entries", "band", "loads", "red", "last1", "last2",
+            "last3", "ph1", "ph2", "ph3", "npos")
+# what phases 1-3 of a position hold in each design (csrc/scan.cu)
+K2_PHASES = {"simple": ("tasks", "bp row and lane update", "vprev copy"),
+             "new": ("row staging and band shares",
+                     "conv and lessD states, fixed and pinned states, next "
+                     "segments",
+                     "lanes and next chain states")}
+
+
+def k2_split(st, t, v0, defines=()):
+    """One launch of scan.cu's K2_SPLIT build (with `defines`): per
+    position, each phase from barrier release to barrier release, and by
+    warp role (in the earlier design the kinds of task a warp holds; in the new
+    one what it does in phases 2 and 3) each warp's work from the previous
+    release to its arrival and its wait until the release, the share of
+    positions in which each role arrived last, and the band entries,
+    segment pieces and cycles in band walks of each warp."""
+    import ctypes
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine import _build
+    from augustus_tpu_torch.engine.scan import scan_forward
+    build = K2_SPLIT + tuple(defines)
+    scan_forward(st, t, v0, defines=build)
+    torch.cuda.synchronize()
+    lib = _build.load("scan", build)
+    nw, ns = lib.k2_split_warps(), lib.k2_split_slots()
+    if ns != len(K2_SLOTS):
+        raise AssertionError(f"scan.cu has {ns} split slots")
+    buf = np.zeros((nw, ns), np.uint64)
+    err = lib.k2_split_fetch(ctypes.c_void_p(buf.ctypes.data))
+    if err:
+        raise RuntimeError(f"k2_split_fetch: CUDA error {err}")
+    c = {k: buf[:, i].astype(np.float64) for i, k in enumerate(K2_SLOTS)}
+    npos = max(c["npos"][0], 1.0)     # positions with all three phases
+    pos = st.n - 1
+    simple = K2_SIMPLE[0] in defines
+    if simple:
+        kinds = ["conv"] * len(st.convs) + ["lessd"] * len(st.lessd) + \
+            ["chain"] * len(st.chain) + ["fixed"] * len(st.fixed) + \
+            ["pinned"] * len(st.pinned)
+
+        def role(w):
+            return "+".join(sorted({kinds[i] for i in range(w, len(kinds),
+                                                         nw)})) or "idle"
+    else:
+        # csrc/scan.cu: phase 1 bands on every warp; phase 2 4 conv / lessD
+        # states a warp on warps 0-13, the fixed and pinned states on warp
+        # 14, the next segments on warp 15; phase 3 8 lanes / chain states
+        # a warp
+        ncomb = len(st.convs) + len(st.lessd)
+        nred = st.NL + len(st.chain)
+
+        def role(w):
+            b = ("combine" if w < 14 and 4 * w < ncomb else
+                 "fixed+pinned" if w == 14 else
+                 "next segments" if w == 15 else "idle")
+            r = "lanes+chain" if 8 * w < nred else "idle"
+            return f"2: {b}, 3: {r}"
+    roles = {}
+    for w in range(nw):
+        roles.setdefault(role(w), []).append(w)
+    phases = K2_PHASES["simple" if simple else "new"]
+    out = {"design": "simple" if simple else "new", "warps": nw,
+           "positions": int(npos),
+           "cycles_per_position": float(
+               (c["ph1"][0] + c["ph2"][0] + c["ph3"][0]) / npos),
+           "phase_cycles": {ph: float(c[k][0] / npos) for ph, k in
+                            zip(phases, ("ph1", "ph2", "ph3"))},
+           "roles": roles}
+    for r, ws in roles.items():
+        out[r] = {k: {"mean": float(c[k][ws].mean() / npos),
+                      "max": float(c[k][ws].max() / npos)}
+                  for k in ("w1", "bar1", "w2", "bar2", "w3", "bar3")}
+    for b in ("last1", "last2", "last3"):
+        out[f"{b}_share_by_role"] = {
+            r: float(c[b][ws].sum() / npos) for r, ws in roles.items()
+            if c[b][ws].sum()}
+    for k in ("band", "loads", "red"):
+        out[f"{k}_cycles_per_position_by_warp"] = [
+            round(float(x / pos)) for x in c[k]]
+    out["entries_per_position_by_warp"] = [
+        round(float(x / pos), 1) for x in c["entries"]]
+    out["max_entries_by_warp"] = [int(x) for x in c["max_entries"]]
+    out["segs_per_position_by_warp"] = [
+        round(float(x / pos), 2) for x in c["segs"]]
+    return out
+
+
+def phase_k2_compare(device, pieces, card):
+    """scan.cu's design against its earlier one (the K2_SIMPLE build) on
+    the same tables: values, backpointers and final column bit-equal; timed
+    in turns (simple, new, new, simple); registers, spills and shared
+    memory of both builds; the clock64 split of both (the K2_SPLIT
+    builds)."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_forward
+    from augustus_tpu_torch.predict import piece_scan
+    usage = {"new": res_usage((), "scan", "scan_forward_kernel"),
+             "simple": res_usage(K2_SIMPLE, "scan", "scan_forward_kernel"),
+             "new_split": res_usage(K2_SPLIT, "scan", "scan_forward_kernel"),
+             "simple_split": res_usage(K2_SPLIT + K2_SIMPLE, "scan",
+                                       "scan_forward_kernel")}
+    rows = []
+    for name, model, rec, n in pieces:
+        st, t, v0, _ = piece_scan(model, rec, n, device)
+        new = scan_forward(st, t, v0, debug_vals=True)
+        old = scan_forward(st, t, v0, debug_vals=True, defines=K2_SIMPLE)
+        torch.cuda.synchronize()
+        if not (torch.equal(new[0], old[0]) and
+                torch.equal(new[1].view(torch.int32),
+                            old[1].view(torch.int32)) and
+                torch.equal(new[2].view(torch.int32),
+                            old[2].view(torch.int32))):
+            raise AssertionError(f"k2_compare {name}: the new design and "
+                                 "K2_SIMPLE differ")
+        del new, old
+        turns = {K2_SIMPLE: [], (): []}
+        for d in (K2_SIMPLE, (), (), K2_SIMPLE):
+            turns[d].append(time_cuda(
+                lambda: scan_forward(st, t, v0, defines=d), 1))
+        simple, new_ms = (float(np.mean(turns[d])) for d in (K2_SIMPLE, ()))
+        row = {"phase": "k2_compare", "piece": name, "n": st.n, "S": st.S,
+               "NHW": st.NHW, "bit_equal_to_simple": True,
+               "simple_ms": turns[K2_SIMPLE], "new_ms": turns[()],
+               "simple_us_per_position": simple * 1e3 / st.n,
+               "new_us_per_position": new_ms * 1e3 / st.n,
+               "speedup": simple / new_ms, "res_usage": usage,
+               "split_simple": k2_split(st, t, v0, K2_SIMPLE),
+               "split_new": k2_split(st, t, v0), "card": card}
+        emit(row)
+        rows.append(row)
+        del t
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_full_forward(device, cells, card):
@@ -1408,6 +1564,9 @@ def main() -> int:
         raise AssertionError(f"the main path's kernel launches: {launches}")
     phase_full_forward(device, [("full", model, rec),
                                 ("full_hints", hmodel, hrec)], card)
+    phase_k2_compare(device, [("HS04636_6kb", utr, hs04636, 6000),
+                              ("47_state_6kb", model, hs04636, 6000),
+                              ("full_utr", utr, rec, None)], card)
 
     p, ph = parity[2], parity[3]
     vrow = {"max_abs_err": max(r["max_abs_err"] for r in parity),

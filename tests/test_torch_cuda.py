@@ -228,8 +228,9 @@ def test_sampled_prediction_on_the_card_reproduces_the_golden(cuda):
     ("HS04636rc.fa", 6000, None)])
 def test_scan_kernel_equals_plain_version(cuda, fasta, n, hints):
     """K2 (csrc/scan.cu) on UTR pieces of the 71-state fixture against its
-    plain version on host copies: values, backpointers and final column
-    bit-equal."""
+    plain version on host copies and against its earlier design (the K2_SIMPLE
+    build): values, backpointers and final column bit-equal; one launch per
+    call on the wrapper."""
     from augustus_tpu_torch.engine import scan as S
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.predict import Model, piece_scan
@@ -251,6 +252,13 @@ def test_scan_kernel_equals_plain_version(cuda, fasta, n, hints):
                           rvals.numpy().view(np.int32))
     assert np.array_equal(bp.cpu().numpy(), rbp.numpy())
     assert torch.equal(vf.cpu(), rvf)
+    sbp, svf, svals = S.scan_forward(st, t, v0, debug_vals=True,
+                                     defines=("K2_SIMPLE",))
+    torch.cuda.synchronize()
+    assert S.scan_forward.launches == before + 2
+    assert torch.equal(svals.view(torch.int32), vals.view(torch.int32))
+    assert torch.equal(sbp, bp)
+    assert torch.equal(svf.view(torch.int32), vf.view(torch.int32))
 
 
 @pytest.mark.cuda
