@@ -88,74 +88,18 @@
 // w + 16, ... on warp w, each band walked by one warp) as the yardstick of
 // chip_smoke.py's k2_compare; -DK2_SPLIT either design with clock64 stamps
 // per position and warp (k2_split_fetch).  The main path loads neither.
+//
+// The descriptor records, the hint quotient, the share cut, the segments'
+// clipping and the cp.async staging live in csrc/k2_common.cuh, shared with
+// K2's logsumexp twin csrc/scan_lse.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <limits.h>
+#include "k2_common.cuh"
 
 namespace {
 
-constexpr float NEG = -1.0e30f;
-constexpr float GATE = -1.0e29f;
-constexpr int MAX_STATES = 128;
-constexpr int MAX_DESC = 12288;
-constexpr int K2_WARPS = 16;
-constexpr int K2_THREADS = K2_WARPS * 32;
-constexpr int MAX_SEG = 256;      // segments of the band list (8 per lane)
-constexpr int STAGES = 4;         // staged table rows
-constexpr unsigned FULL = 0xffffffffu;
+using namespace k2;
 
-__device__ __forceinline__ float ninf() { return __int_as_float(0xff800000); }
-
-// descriptor header (engine/scan.py:_descriptor)
-enum {
-  D_N, D_S, D_NL, D_C, D_PAD, D_GPAD, D_NSC, D_NIC, D_CLS, D_NTASK,
-  D_OFF_TASK, D_LW, D_GL, D_CL, D_ML, D_HL, D_HINTED,
-  // task counts (tasks: convs, lessD, chain, fixed, pinned, in this order)
-  D_NCONV, D_NLESSD, D_NCHAIN, D_NFIXED, D_NPINNED,
-  // the segment table: a record of SG_SIZE ints per segment
-  D_NSEG, D_OFF_SEG,
-  // shared-memory layout in 4-byte words (engine/scan.py:smem_layout)
-  D_SM_LT, D_SM_LTC, D_SM_STAGE, D_SM_RW, D_SM_VBUF, D_SM_BPBUF,
-  D_SM_SEGOFF, D_SM_SEGW0, D_SM_SEGWF, D_SM_RES, D_SM_EDGE, D_SM_FP,
-  D_SM_SEGBASE, D_SM_SCRATCH, D_SM_WORDS,
-  D_HEADER = 48
-};
-// task kinds (high 8 bits of a task word; the low 24 bits: record offset)
-enum { T_CHAIN, T_FIXED, T_LESSD, T_PINNED, T_CONV };
-// record fields
-enum { CH_STATE, CH_EMI };
-enum { FX_STATE, FX_JUMP, FX_KIND, FX_LANE, FX_EMI, FX_EXTRA };
-enum { LD_STATE, LD_LANE, LD_W, LD_CUM, LD_CUMJ, LD_PSI, LD_JSEL, LD_JGATE,
-       LD_LV, LD_LI, LD_SEG };
-enum { PN_STATE, PN_LANE, PN_SCORE, PN_EOP };
-enum { CV_STATE, CV_BPL, CV_AOFF, CV_LANE, CV_FMODE, CV_SMIN, CV_SMAX,
-       CV_GATE, CV_NVAR, CV_VAR, CV_HINT, CV_SEG };
-enum { VR_G, VR_H, VR_LO, VR_HI, VR_W, VR_R0, VR_HAS_LO, VR_VB_LO,
-       VR_HAS_HI, VR_VB_HI, VR_LV, VR_SIZE };
-// hint record: ipo, aL, aR, exclass, 11 window rows, 13 x columns, the
-// counts of crossing and exact-match slots, then their (int, scalar, int)
-// column triples
-enum { HR_IPO, HR_AL, HR_AR, HR_EXCLASS, HR_W, HR_X = HR_W + 11,
-       HR_NCROSS = HR_X + 13, HR_NEX, HR_SLOTS };
-enum { W_BE_EP, W_BE_CP, W_CNTBE_EP, W_CNTBE_CP, W_CR_EP, W_CR_CP,
-       W_CNTCR_EP, W_CNTCR_CP, W_CNTE_EP, W_CNTE_CP, W_ZC };
-enum { X_BE_EP, X_BE_CP, X_CNTBE_EP, X_CNTBE_CP, X_C2_EP, X_CNTC2_EP,
-       X_CNTE_EP, X_CNTE_CP, X_ZC, X_TX_EP, X_TX_CP, X_TXC_EP, X_TXC_CP };
-
-struct Args {
-  const float* fdesc;       // hint_lm[5], then the length vectors
-  const float* G_all;       // (NG, C, 3, GL)
-  const float* cum_all;     // (NCU, C, CL)
-  const float* log_trans;   // (C, S, S) [c][p][s]
-  const float* lane_trans;  // (NL, S)
-  const float* stab;        // (n, NSC)
-  const int* itab;          // (n, NIC)
-  const int8_t* bvalid;     // (NLD, ML)
-  const int8_t* bstop;      // (NLD, ML)
-  const float* hw;          // (NHW, HL)
-  const float* v0;          // (S,)
-  float* lanes;             // (NL, LW)
+struct Args : Tables {
   int8_t* largs;            // (NL, LW)
   int* bp;                  // (n, S)
   float* vals;              // (n, S) or null
@@ -256,98 +200,6 @@ __device__ __forceinline__ void split_barrier(const long long* arr,
 #else
 #define SPLIT(...)
 #endif
-
-// augustus_tpu/engine/scan.py:_hint_quot at one begin b (entry w of a band
-// of len_hi), term for term in its operand order; out of line, since only
-// hinted bands call it
-__device__ __noinline__ float hint_quot(const int* h, const float* srow,
-                                        const int* irow, const float* hw,
-                                        int HL, int GPAD, const float* lm,
-                                        int b, int w, int len_hi) {
-  const int bob = b - h[HR_IPO];
-  const int c1 = GPAD + bob - 1;
-  const int* W = h + HR_W;
-  const int* X = h + HR_X;
-  const int ncross = h[HR_NCROSS], nex = h[HR_NEX];
-  const int* cross = h + HR_SLOTS;
-  const int* ex = cross + 3 * ncross;
-#define WR(k, col) hw[(size_t)W[k] * HL + (col)]
-  float cov_ep = srow[X[X_TX_EP]], cov_cp = srow[X[X_TX_CP]];
-  float covc_ep = srow[X[X_TXC_EP]], covc_cp = srow[X[X_TXC_CP]];
-  for (int k = 0; k < ncross; ++k) {
-    const int sk = irow[cross[3 * k]], fl = irow[cross[3 * k + 2]];
-    const float wk = srow[cross[3 * k + 1]];
-    const float sub = sk >= bob ? 1.0f : 0.0f;
-    cov_ep = cov_ep - (fl == 1 ? wk : 0.0f) * sub;
-    covc_ep = covc_ep - (fl == 1 ? 1.0f : 0.0f) * sub;
-    cov_cp = cov_cp - (fl == 2 ? wk : 0.0f) * sub;
-    covc_cp = covc_cp - (fl == 2 ? 1.0f : 0.0f) * sub;
-  }
-  const float crw_ep = WR(W_CR_EP, c1 + 1);
-  const float inside_ep =
-      ((srow[X[X_BE_EP]] - WR(W_BE_EP, c1)) - crw_ep) + cov_ep;
-  const float inside_cp =
-      ((srow[X[X_BE_CP]] - WR(W_BE_CP, c1)) - WR(W_CR_CP, c1 + 1)) + cov_cp;
-  const float ccw_ep = WR(W_CNTCR_EP, c1 + 1);
-  const float cin_ep =
-      ((srow[X[X_CNTBE_EP]] - WR(W_CNTBE_EP, c1)) - ccw_ep) + covc_ep;
-  const float cin_cp = ((srow[X[X_CNTBE_CP]] - WR(W_CNTBE_CP, c1)) -
-                        WR(W_CNTCR_CP, c1 + 1)) + covc_cp;
-  float part_bonus = inside_ep + inside_cp;
-  float nep = cin_ep + cin_cp;
-  if (h[HR_AL]) {
-    part_bonus = part_bonus + 0.5f * (crw_ep - cov_ep);
-    nep = nep + (ccw_ep - covc_ep);
-  }
-  if (h[HR_AR]) {
-    part_bonus = part_bonus + 0.5f * (srow[X[X_C2_EP]] - cov_ep);
-    nep = nep + (srow[X[X_CNTC2_EP]] - covc_ep);
-  }
-  float quot = part_bonus;
-  float sup_ex = 0.0f, sup_cds = 0.0f;
-  const int exclass = h[HR_EXCLASS];
-  for (int k = 0; k < nex; ++k) {
-    const int pk = irow[ex[3 * k]], kd = irow[ex[3 * k + 2]];
-    const float wk = srow[ex[3 * k + 1]];
-    float cond = (bob == pk && kd == 1) ? 1.0f : 0.0f;
-    quot = quot + wk * cond;
-    sup_cds = fmaxf(sup_cds, cond);
-    if (exclass == 1) {
-      cond = (bob == pk && kd == 2) ? 1.0f : 0.0f;
-      quot = quot + wk * cond;
-      sup_ex = fmaxf(sup_ex, cond);
-    } else if (exclass == 3) {
-      cond = (pk < bob && kd == 3 && pk > -(1 << 29)) ? 1.0f : 0.0f;
-      quot = quot + (0.5f * wk) * cond;
-      sup_ex = fmaxf(sup_ex, cond);
-    }
-  }
-  if (exclass == 2) {
-    for (int k = 0; k < ncross; ++k) {
-      const int sk = irow[cross[3 * k]], fl = irow[cross[3 * k + 2]];
-      const float wk = srow[cross[3 * k + 1]];
-      const float cond = (bob == sk && fl == 4) ? 1.0f : 0.0f;
-      quot = quot + (0.5f * wk) * cond;
-      sup_ex = fmaxf(sup_ex, cond);
-    }
-  }
-  quot = (quot + lm[2] * (1.0f - sup_ex)) + lm[3] * (1.0f - sup_cds);
-  const float lenv = (float)len_hi - (float)w;
-  const float d_ep = lenv - (srow[X[X_CNTE_EP]] - WR(W_CNTE_EP, c1));
-  const float d_cp = lenv - (srow[X[X_CNTE_CP]] - WR(W_CNTE_CP, c1));
-  quot = quot + (d_ep > 0.0f ? d_ep * lm[0] : 0.0f);
-  quot = quot + (d_cp > 0.0f ? d_cp * lm[1] : 0.0f);
-  const float zc = srow[X[X_ZC]] - WR(W_ZC, c1);
-  float lpm = zc > 0.0f ? zc * lm[4] : 0.0f;
-  lpm = fmaxf(lpm, -part_bonus);
-  return quot + (nep >= 4.5f ? lpm : 0.0f);
-#undef WR
-}
-
-__device__ __forceinline__ int frame_of(int r0, int fmode, int w) {
-  return r0 < 0 ? 0
-      : (fmode == 1 ? (r0 + w) % 3 : ((r0 - w) % 3 + 3) % 3);
-}
 
 #ifdef K2_SIMPLE
 // ---------------------------------------------------------------------------
@@ -613,28 +465,6 @@ constexpr bool SIMPLE = true;
 #else  // the design described at the top
 // ---------------------------------------------------------------------------
 
-constexpr int FP_WARP = 11;       // phase B: the fixed and pinned states
-constexpr int SEG_WARP = 12;      // phase B: warps 12-15, the next
-                                  // position's segments, 2 a thread
-constexpr int ROW_WARP = 15;      // phase A: the previous position's rows
-constexpr int SEG_THREADS = K2_THREADS - SEG_WARP * 32;
-constexpr int COMB_G = 8;         // phase B: lanes per conv / lessD state
-constexpr int MAXP = 8;           // phase A: segments of a chunk of a share
-constexpr int RED_G = 4;          // phase C: lanes per lane / chain state
-constexpr int BATCH = 4;          // band entries a lane loads at once
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // (v, i, p) = the last maximum of itself and (ov, oi, op)
 __device__ __forceinline__ void last_max_into(float& v, int& i, int& p,
@@ -654,88 +484,52 @@ __device__ __forceinline__ void group_first_max(float& v, int& i) {
   }
 }
 
-// a segment record of the descriptor (engine/scan.py:_descriptor)
-enum { SG_REC, SG_VAR, SG_GATE, SG_SMIN, SG_SMAX, SG_BOFF, SG_VLO, SG_VHI,
-       SG_WIDTH, SG_G, SG_LV, SG_R0, SG_FMODE, SG_LANE, SG_EOFF, SG_HINT,
-       SG_H, SG_OFFB, SG_SIZE };
 
 __global__ void __launch_bounds__(K2_THREADS, 1)
 scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
   extern __shared__ int smem[];
-  int* desc = smem;
+  const int* desc = smem;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   SPLIT(SPLIT_SHARED)
-  for (int i = tid; i < desc_len; i += K2_THREADS) desc[i] = desc_g[i];
+  for (int i = tid; i < desc_len; i += K2_THREADS) smem[i] = desc_g[i];
   __syncthreads();
 
-  const int n = desc[D_N], S = desc[D_S], NL = desc[D_NL];
-  const int SP = (S + 15) & ~15;   // S padded (engine/scan.py:smem_layout)
-  const int PAD = desc[D_PAD], GPAD = desc[D_GPAD];
-  const int NSC = desc[D_NSC], NIC = desc[D_NIC], cls_col = desc[D_CLS];
-  const int* tasks = desc + desc[D_OFF_TASK];
-  const int nconv = desc[D_NCONV], nlessd = desc[D_NLESSD];
-  const int nchain = desc[D_NCHAIN];
-  const int nfixed = desc[D_NFIXED], npinned = desc[D_NPINNED];
-  const int* chain_tasks = tasks + nconv + nlessd;
-  const int* fp_tasks = chain_tasks + nchain;
-  const int nfp = nfixed + npinned;
-  const int ncomb = nconv + nlessd;
-  const int NSEG = desc[D_NSEG];
-  const int* segs = desc + desc[D_OFF_SEG];           // SG_SIZE per segment
-  const size_t LW = desc[D_LW], GL = desc[D_GL], CL = desc[D_CL];
-  const size_t ML = desc[D_ML], HL = desc[D_HL];
-  const int C = desc[D_C];
+  const K2Ctx x(smem);
+  const int n = x.n, S = x.S, NL = x.NL, SP = x.SP, PAD = x.PAD;
+  const int GPAD = x.GPAD, NSC = x.NSC, cls_col = x.cls_col;
+  const int* tasks = x.tasks;
+  const int nconv = x.nconv, nchain = x.nchain, nfixed = x.nfixed;
+  const int* chain_tasks = x.chain_tasks;
+  const int* fp_tasks = x.fp_tasks;
+  const int nfp = x.nfp, ncomb = x.ncomb, NSEG = x.NSEG;
+  const int* segs = x.segs;
+  const size_t LW = x.LW, ML = x.ML, HL = x.HL;
+  const int C = x.C;
   const float* lm = a.fdesc;
-
-  float* lt_s = (float*)(smem + desc[D_SM_LT]);       // (NL, SP)
-  float* ltc_s = (float*)(smem + desc[D_SM_LTC]);     // (C, nchain, SP)
-  float* stage = (float*)(smem + desc[D_SM_STAGE]);   // STAGES rows
-  const int RW = desc[D_SM_RW];
+  float* lt_s = x.lt_s;
+  float* ltc_s = x.ltc_s;
   float* vbuf = (float*)(smem + desc[D_SM_VBUF]);     // 2 x MAX_STATES
   int* bpbuf = smem + desc[D_SM_BPBUF];               // 2 x MAX_STATES
-  int* segoff = smem + desc[D_SM_SEGOFF];             // 2 x (MAX_SEG + 1)
-  int* segw0 = smem + desc[D_SM_SEGW0];               // 2 x MAX_SEG
-  int* segwf = smem + desc[D_SM_SEGWF];               // MAX_SEG
-  int* segwl = segwf + MAX_SEG;                       // MAX_SEG
+  int* segoff = x.segoff;
+  int* segw0 = x.segw0;
+  int* segwf = x.segwf;
+  int* segwl = x.segwl;
   float* res_v = (float*)(smem + desc[D_SM_RES]);     // MAX_SEG each
   int* res_i = (int*)(res_v + MAX_SEG);
   int* res_p = res_i + MAX_SEG;
   float* edge_v = (float*)(smem + desc[D_SM_EDGE]);   // 2 K2_WARPS each:
   int* edge_i = (int*)(edge_v + 2 * K2_WARPS);        // [w][0] FIRST,
   int* edge_p = edge_i + 2 * K2_WARPS;                // [w][1] LAST
-  int* fpw = smem + desc[D_SM_FP];                    // 4 x MAX_STATES
-  // the band bases of each segment at a position (G or cum_all offset of
-  // its entry 0), 2 x MAX_SEG
-  long long* segbase = (long long*)(smem + desc[D_SM_SEGBASE]);
+  int* fpw = x.fpw;
+  long long* segbase = x.segbase;
   // the lanes' parked partials, K2_WARPS x (3 x MAXP x 32)
-  float* scratch = (float*)(smem + desc[D_SM_SCRATCH]);
+  float* scratch = x.scratch;
   __shared__ int seg_tot[SEG_THREADS / 32];
 
-  // row r of the scalar and int tables into its slot (one commit group)
-  auto stage_row = [&](int r) {
-    if (r < n) {
-      float* dst = stage + (r & (STAGES - 1)) * RW;
-      for (int i = tid; i < NSC + NIC; i += K2_THREADS) {
-        if (i < NSC) cp_async4(dst + i, a.stab + (size_t)r * NSC + i);
-        else cp_async4(dst + i, a.itab + (size_t)r * NIC + (i - NSC));
-      }
-    }
-    cp_async_commit();
-  };
-  auto srow_of = [&](int r) -> const float* {
-    return stage + (r & (STAGES - 1)) * RW;
-  };
-  // the lane history that fixed / pinned state t reads at position j:
-  // (index of the value of its lane, index of the second lane's or -1)
+  auto stage_row = [&](int r) { x.stage_row(r, a, tid); };
+  auto srow_of = [&](int r) -> const float* { return x.srow_of(r); };
   auto fp_at = [&](int t, int j, const int* irow) -> int2 {
-    const int* fr = desc + (fp_tasks[t] & 0xFFFFFF);
-    if (t < nfixed) {
-      const int l = fr[FX_LANE], col = j - fr[FX_JUMP] + PAD;
-      return make_int2(l * (int)LW + col,
-                       fr[FX_KIND] == 2 ? (l + 1) * (int)LW + col : -1);
-    }
-    const int eop = irow[fr[PN_EOP]];
-    return make_int2(fr[PN_LANE] * (int)LW + max(eop, -PAD) + PAD, -1);
+    return x.fp_at(t, j, irow);
   };
   auto arg_word = [&](int at) -> const void* {
     return (const void*)((uintptr_t)(a.largs + at) & ~(uintptr_t)3);
@@ -743,56 +537,8 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
   auto arg_byte = [&](int word, int at) -> int {
     return (int)(int8_t)(word >> (8 * ((uintptr_t)(a.largs + at) & 3)));
   };
-  // the segments of position jn: counts, clipped starts and their
-  // exclusive prefix into buffer nb; warps SEG_WARP.., thread t takes
-  // segments 2t and 2t + 1
   auto seg_counts = [&](int jn, int nb) {
-    const int* irow1 = (const int*)(srow_of(jn) + NSC);
-    int* so = segoff + nb * (MAX_SEG + 1);
-    int* sw = segw0 + nb * MAX_SEG;
-    long long* sb = segbase + nb * MAX_SEG;
-    const int t = tid - SEG_WARP * 32;
-    const int c1 = irow1[cls_col];
-    int cnt[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int q = 2 * t + u;
-      int cq = 0, w0 = 0;
-      if (q < NSEG) {
-        const int* sg = segs + q * SG_SIZE;
-        if (sg[SG_GATE] < 0) {   // a lessD window: cum_all at its start
-          const int W = sg[SG_WIDTH];
-          cq = W;
-          sb[q] = ((long long)desc[sg[SG_REC] + LD_CUM] * C + c1) *
-                  (long long)CL + (jn - W + GPAD + 1);
-        } else if (irow1[sg[SG_GATE]] & 1) {
-          const int b0 = jn + sg[SG_BOFF];
-          const int lo = max(irow1[sg[SG_SMIN]], sg[SG_VLO]);
-          const int hi = min(irow1[sg[SG_SMAX]], sg[SG_VHI]);
-          w0 = max(0, lo - b0);
-          cq = max(0, min(sg[SG_WIDTH] - 1, hi - b0) - w0 + 1);
-          // G at the variant's begin b0, phase phi(jn), class c(jn)
-          sb[q] = (((long long)sg[SG_G] * C + c1) * 3 +
-                   (irow1[sg[SG_GATE]] >> 1)) * (long long)GL + GPAD + b0;
-        }
-        sw[q] = w0;
-      }
-      cnt[u] = cq;
-    }
-    const int tot = cnt[0] + cnt[1];
-    int incl = tot;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += y;
-    }
-    // add the totals of the segment warps before this one
-    if (lane == 31) seg_tot[warp - SEG_WARP] = incl;
-    asm volatile("bar.sync 1, %0;" :: "n"(SEG_THREADS) : "memory");
-    int off = incl - tot;
-    for (int w = 0; w < warp - SEG_WARP; ++w) off += seg_tot[w];
-    if (2 * t < NSEG) so[2 * t] = off;
-    if (2 * t + 1 < NSEG) so[2 * t + 1] = off + cnt[0];
-    if (t == SEG_THREADS - 1) so[NSEG] = off + tot;
+    x.seg_counts(jn, nb, tid, lane, warp, seg_tot);
   };
   // phase C of position jc (0 for the start column): every warp, groups of
   // RED_G lanes; the lanes of jc from the values vsrc, the chain states of
@@ -893,7 +639,6 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
     }
 
     if (j > 0) {
-      const int c = irow[cls_col];
       // ---------------- phase A: band shares -------------------------------
       // the lane history of the fixed and pinned states into shared memory
       // (read in phase B), then row j + 2: one commit group each
@@ -916,25 +661,13 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
       }
 
       const int T = so[NSEG];
-      const int sh0 = (int)((long long)T * warp / K2_WARPS);
-      const int sh1 = (int)((long long)T * (warp + 1) / K2_WARPS);
+      const int sh0 = share_start(T, warp), sh1 = share_start(T, warp + 1);
       if (sh0 == sh1 && lane == 0) {
         edge_v[2 * warp] = ninf();
         edge_i[2 * warp] = -1;
         edge_p[2 * warp] = 0;
       }
-      // the first segment whose end passes sh0: by chunks of 8, then in it
-      int qa = 0;
-      if (sh0 < sh1) {
-        const int qe = min(lane * 8 + 8, NSEG);
-        const unsigned m1 =
-            __ballot_sync(FULL, lane * 8 < NSEG && so[qe] > sh0);
-        const int ch = __ffs(m1) - 1;
-        const int q2 = ch * 8 + lane;
-        const unsigned m2 =
-            __ballot_sync(FULL, lane < 8 && q2 < NSEG && so[q2 + 1] > sh0);
-        qa = ch * 8 + __ffs(m2) - 1;
-      }
+      const int qa = x.first_segment(so, sh0, sh1, lane);
       SPLIT(SPLIT_ADD(SP_ENTRIES, sh1 - sh0) SPLIT_MAX(SP_MAXENT, sh1 - sh0))
       float* scr_v = scratch + warp * (3 * MAXP * 32);
       int* scr_i = (int*)(scr_v + MAXP * 32);

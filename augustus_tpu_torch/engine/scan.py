@@ -20,8 +20,14 @@ arithmetic of the band list (which entries each warp walks at a
 position), kept here for the CPU tests as the plain version is kept for
 the kernel's results.  The port sends a piece to K2 when the 64-state
 kernel cannot take it (`needs_general_scan`: the 71-state UTR
-architecture).  The logsumexp
-twin of the reference module (`make_forward_fn`) is a later slice.
+architecture).
+
+K5, the logsumexp twin of K2 (augustus_tpu's `make_forward_fn` over the
+same tables), gives such a piece its forward table when it is sampled:
+`scan_table` launches `csrc/scan_lse.cu` for CUDA tensors and runs
+`scan_table_reference` for CPU tensors, `scan_table_work` counts its bytes
+and operations, and `ScanForwardEngine` heats the tables of the piece's
+ScanEngine and adds the baseline back.
 """
 
 from __future__ import annotations
@@ -529,6 +535,114 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
     return quot + torch.where(nep >= 4.5, lpm, zero)
 
 
+class _Plain:
+    """What the plain versions of K2 and K5 read, gathered once per piece:
+    the tables `t`, the int table on the host, constants as tensors, and the
+    index tensors of the chain, fixed and pinned states, of the lessD windows
+    (in groups of one width) and of the convolution variants."""
+
+    def __init__(self, st: ScanStatic, t: Dict[str, "torch.Tensor"]):
+        import torch
+        i64 = torch.int64
+        self.st, self.t = st, t
+        self.stab = t["scalar_table"]
+        dev = self.dev = self.stab.device
+        self.itab = t["int_table"].cpu().numpy()
+        self.itab_t = t["int_table"].to(i64)
+        self.NEGt = torch.tensor(NEG, dtype=torch.float32, device=dev)
+        self.GATEt = torch.tensor(GATE, dtype=torch.float32, device=dev)
+        self.lm = None if st.hint_lm is None else [
+            torch.tensor(np.float32(x), device=dev) for x in st.hint_lm]
+
+        def T(x, dt=i64):
+            return torch.tensor(x, dtype=dt, device=dev)
+        self.ch_s = T([c.state for c in st.chain])
+        self.ch_emi = T([c.emi_col for c in st.chain])
+        fx = st.fixed
+        self.fx_s = T([f.state for f in fx])
+        self.fx_l = T([f.lane for f in fx])
+        self.fx_l2 = T([f.lane + 1 if f.kind == 2 else f.lane for f in fx])
+        self.fx_D = T([f.jump for f in fx])
+        self.fx_emi = T([f.emi_col for f in fx])
+        self.fx_x = T([max(f.extra_col, 0) for f in fx])
+        self.fx_k1 = T([f.kind == 1 for f in fx], torch.bool)
+        self.fx_k2 = T([f.kind == 2 for f in fx], torch.bool)
+        pn = st.pinned
+        self.pn_s = T([p.state for p in pn])
+        self.pn_l = T([p.lane for p in pn])
+        self.pn_sc = T([p.score_col for p in pn])
+        self.pn_eop = T([p.eop_col for p in pn])
+        groups = {}
+        for li, d in enumerate(st.lessd):
+            groups.setdefault(d.window, []).append((li, d))
+        self.lessd = [(
+            W, T([li for li, _ in g]), T([d.state for _, d in g]),
+            T([d.lane for _, d in g]), T([d.cum_id for _, d in g]),
+            T([d.cumj_col for _, d in g]), T([d.psi_col for _, d in g]),
+            T([d.jsel_col for _, d in g]), T([d.jgate_col for _, d in g]),
+            torch.stack([t[d.lenvec_key] for _, d in g]),
+            torch.arange(W, device=dev)) for W, g in groups.items()]
+        self.convs = [(cv, [(v, t[f"lenvec{ei}_{vi}"],
+                             None if v.fsel is None else cv.lane +
+                             T(list(v.fsel)),
+                             torch.arange(v.width, device=dev))
+                            for vi, v in enumerate(cv.variants)])
+                      for ei, cv in enumerate(st.convs)]
+
+    def lessd_score(self, group, lanes, j: int, c: int, srow, irow_t):
+        """The scores (windows, W) of one group of lessD windows at j, and
+        the lanes column of their entry 0."""
+        import torch
+        st, t = self.st, self.t
+        W, li, _, ll, lcum, lcj, lpsi, ljs, _, lvd, widx = group
+        c0 = j - W + st.PAD
+        lsl = lanes[ll, c0: c0 + W]
+        csl = t["cum_all"][lcum, c, j - W + st.GPAD + 1: j + st.GPAD + 1]
+        seg = srow[lcj][:, None] - csl
+        bval = t["lessd_bvalid_all"][li, c0: c0 + W]
+        bst = t["lessd_bstop_all"][li, c0: c0 + W]
+        stop = (bst & irow_t[ljs].to(torch.int8)[:, None]) != 0
+        ok = (widx >= W - j)[None, :] & (bval != 0) & ~stop
+        return torch.where(ok & (lsl > self.GATEt),
+                           ((lsl + seg) + lvd) + srow[lpsi][:, None],
+                           self.NEGt), c0
+
+    def band(self, cv, variant, lanes, j: int, c: int, phi: int, smin: int,
+             smax: int, srow, irow):
+        """The scores of a convolution variant at j over its begins inside
+        [smin, smax] (and vb_lo / vb_hi), the entry w0 of the first and the
+        lanes column e0 of entry 0; None when no begin is inside.  The
+        reference scores the other begins NEG, which neither a last maximum
+        nor a logsumexp can take from the band's value (csrc/scan.cu says
+        why)."""
+        import torch
+        st = self.st
+        var, lvd, lrow, widx = variant
+        b0 = j + cv.a_off - var.len_hi
+        lo, hi = smin, smax
+        if var.vb_lo is not None:
+            lo = max(lo, var.vb_lo)
+        if var.vb_hi is not None:
+            hi = min(hi, var.vb_hi)
+        w0, w1 = max(0, lo - b0), min(var.width - 1, hi - b0) + 1
+        if w1 <= w0:
+            return None
+        e0 = b0 - cv.bpl - 1 + st.PAD           # lanes column of w = 0
+        G = self.t["G_all"][var.g_id, c, phi,
+                            st.GPAD + b0 + w0: st.GPAD + b0 + w1]
+        if lrow is None:
+            L = lanes[cv.lane, e0 + w0: e0 + w1]
+        else:
+            L = lanes[lrow[w0: w1], e0 + widx[w0: w1]]
+        base = (L + G) + lvd[w0: w1]
+        if cv.hint is not None:
+            base = base + _hint_quot_ref(
+                st, cv.hint, self.t["hw_all"], srow, irow, self.lm,
+                b0 + widx[w0: w1], widx[w0: w1], var.len_hi)
+        return (torch.where((L > self.GATEt) & (G > self.GATEt), base,
+                            self.NEGt), w0, e0)
+
+
 def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
                            v0: "torch.Tensor", debug_vals: bool = False):
     """The plain PyTorch version of K2: augustus_tpu's
@@ -544,23 +658,11 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
     None): row j of bp and vals belongs to base j (the reference's
     bps[j - 1]); row 0 of bp is 0, of vals v0."""
     import torch
-    n, S, NL, PAD, GPAD = st.n, st.S, st.NL, st.PAD, st.GPAD
+    n, S, NL, PAD = st.n, st.S, st.NL, st.PAD
     f32, i64 = torch.float32, torch.int64
-    stab = t["scalar_table"]
-    dev = stab.device
-    itab = t["int_table"].cpu().numpy()
-    itab_t = t["int_table"].to(i64)
-    G_all, cum_all = t["G_all"], t["cum_all"]
+    P = _Plain(st, t)
+    dev, NEGt, GATEt = P.dev, P.NEGt, P.GATEt
     ltr, lane_tr = t["log_trans"], t["lane_trans"]
-    NEGt = torch.tensor(NEG, dtype=f32, device=dev)
-    GATEt = torch.tensor(GATE, dtype=f32, device=dev)
-    hw = t["hw_all"]
-    lm = None
-    if st.hint_lm is not None:
-        lm = [torch.tensor(np.float32(x), device=dev) for x in st.hint_lm]
-
-    def T(x, dt=i64):
-        return torch.tensor(x, dtype=dt, device=dev)
 
     LW = n + PAD + END_PAD
     lanes = torch.full((NL, LW), NEG, dtype=f32, device=dev)
@@ -576,90 +678,42 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
     if debug_vals:
         vals_out[0] = v0
 
-    ch_s = T([c.state for c in st.chain])
-    ch_emi = T([c.emi_col for c in st.chain])
-    fx = st.fixed
-    fx_s = T([f.state for f in fx])
-    fx_l = T([f.lane for f in fx])
-    fx_l2 = T([f.lane + 1 if f.kind == 2 else f.lane for f in fx])
-    fx_D = T([f.jump for f in fx])
-    fx_col0 = PAD - fx_D
-    fx_emi = T([f.emi_col for f in fx])
-    fx_x = T([max(f.extra_col, 0) for f in fx])
-    fx_k1 = T([f.kind == 1 for f in fx], torch.bool)
-    fx_k2 = T([f.kind == 2 for f in fx], torch.bool)
-    pn = st.pinned
-    pn_s = T([p.state for p in pn])
-    pn_l = T([p.lane for p in pn])
-    pn_sc = T([p.score_col for p in pn])
-    pn_eop = T([p.eop_col for p in pn])
-    # lessD states, in groups of one window width
-    groups = {}
-    for li, d in enumerate(st.lessd):
-        groups.setdefault(d.window, []).append((li, d))
-    lessd = []
-    for W, g in groups.items():
-        lessd.append((
-            W, T([li for li, _ in g]), T([d.state for _, d in g]),
-            T([d.lane for _, d in g]), T([d.cum_id for _, d in g]),
-            T([d.cumj_col for _, d in g]), T([d.psi_col for _, d in g]),
-            T([d.jsel_col for _, d in g]), T([d.jgate_col for _, d in g]),
-            torch.stack([t[d.lenvec_key] for _, d in g]),
-            torch.arange(W, device=dev)))
-    convs = []
-    for ei, cv in enumerate(st.convs):
-        vs = []
-        for vi, v in enumerate(cv.variants):
-            lrow = None if v.fsel is None else \
-                cv.lane + T(list(v.fsel))
-            vs.append((v, t[f"lenvec{ei}_{vi}"], lrow,
-                       torch.arange(v.width, device=dev)))
-        convs.append((cv, vs))
-
     vprev = v0.clone()
     for j in range(1, n):
-        irow = itab[j]
-        irow_t = itab_t[j]
+        irow = P.itab[j]
+        irow_t = P.itab_t[j]
         c = int(irow[st.cls_col])
-        srow = stab[j]
+        srow = P.stab[j]
         vals = torch.full((S,), NEG, dtype=f32, device=dev)
         bps = torch.zeros(S, dtype=i64, device=dev)
 
         # chain states: first argmax over the predecessors
         if st.chain:
-            cand = vprev[:, None] + ltr[c][:, ch_s]
+            cand = vprev[:, None] + ltr[c][:, P.ch_s]
             arg = torch.argmax(cand, dim=0)
             best = torch.gather(cand, 0, arg[None, :])[0]
-            vals[ch_s] = torch.where(best > GATEt, best + srow[ch_emi], NEGt)
-            bps[ch_s] = (arg << 20) | 1
+            vals[P.ch_s] = torch.where(best > GATEt, best + srow[P.ch_emi],
+                                       NEGt)
+            bps[P.ch_s] = (arg << 20) | 1
 
         # fixed-jump states
-        if fx:
-            col = fx_col0 + j
-            A, Aa = lanes[fx_l, col], largs[fx_l, col]
-            X = srow[fx_x]
-            B = lanes[fx_l2, col] + X
-            lv = torch.where(fx_k1, A + X,
-                             torch.where(fx_k2, torch.maximum(A, B), A))
-            la = torch.where(fx_k2 & (B > A), largs[fx_l2, col], Aa)
-            emi = srow[fx_emi]
-            ok = (fx_D <= j) & (lv > GATEt) & (emi > GATEt)
-            vals[fx_s] = torch.where(ok, lv + emi, NEGt)
-            bps[fx_s] = (la << 20) | fx_D
+        if st.fixed:
+            col = PAD - P.fx_D + j
+            A, Aa = lanes[P.fx_l, col], largs[P.fx_l, col]
+            X = srow[P.fx_x]
+            B = lanes[P.fx_l2, col] + X
+            lv = torch.where(P.fx_k1, A + X,
+                             torch.where(P.fx_k2, torch.maximum(A, B), A))
+            la = torch.where(P.fx_k2 & (B > A), largs[P.fx_l2, col], Aa)
+            emi = srow[P.fx_emi]
+            ok = (P.fx_D <= j) & (lv > GATEt) & (emi > GATEt)
+            vals[P.fx_s] = torch.where(ok, lv + emi, NEGt)
+            bps[P.fx_s] = (la << 20) | P.fx_D
 
         # lessD: last argmax over the window's ends of the previous segment
-        for (W, li, ls, ll, lcum, lcj, lpsi, ljs, ljg, lvd, widx) in lessd:
-            c0 = j - W + PAD
-            lsl = lanes[ll, c0: c0 + W]
-            csl = cum_all[lcum, c, j - W + GPAD + 1: j + GPAD + 1]
-            seg = srow[lcj][:, None] - csl
-            bval = t["lessd_bvalid_all"][li, c0: c0 + W]
-            bst = t["lessd_bstop_all"][li, c0: c0 + W]
-            stop = (bst & irow_t[ljs].to(torch.int8)[:, None]) != 0
-            ok = (widx >= W - j)[None, :] & (bval != 0) & ~stop
-            score = torch.where(ok & (lsl > GATEt),
-                                ((lsl + seg) + lvd) + srow[lpsi][:, None],
-                                NEGt)
+        for g in P.lessd:
+            W, ls, ll, ljg = g[0], g[2], g[3], g[8]
+            score, c0 = P.lessd_score(g, lanes, j, c, srow, irow_t)
             flip = score.flip(1)
             ridx = W - 1 - torch.argmax(flip, dim=1)
             best = torch.gather(score, 1, ridx[:, None])[:, 0]
@@ -668,46 +722,30 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
             bps[ls] = (largs[ll, c0 + ridx] << 20) | (W - ridx)
 
         # pinned states: one far-back candidate
-        if pn:
-            eop = irow_t[pn_eop]
+        if st.pinned:
+            eop = irow_t[P.pn_eop]
             row = torch.clamp(eop, min=-PAD) + PAD
-            lv, la = lanes[pn_l, row], largs[pn_l, row]
-            sc = srow[pn_sc]
+            lv, la = lanes[P.pn_l, row], largs[P.pn_l, row]
+            sc = srow[P.pn_sc]
             ok = (sc > GATEt) & (lv > GATEt)
-            vals[pn_s] = torch.where(ok, lv + sc, NEGt)
-            bps[pn_s] = (la << 20) | (j - eop)
+            vals[P.pn_s] = torch.where(ok, lv + sc, NEGt)
+            bps[P.pn_s] = (la << 20) | (j - eop)
 
         # exon and UTR convolutions, skipped where the end gate is off
-        for cv, variants in convs:
+        for cv, variants in P.convs:
             gp = int(irow[cv.gate_col])
             if not gp & 1:
                 bps[cv.state] = 1
                 continue
-            phi = gp >> 1
             smin, smax = int(irow[cv.smin_col]), int(irow[cv.smax_col])
             best, bpred, boff = NEGt, 0, 1
-            for var, lvd, lrow, widx in variants:
-                b0 = j + cv.a_off - var.len_hi
-                lo, hi = smin, smax
-                if var.vb_lo is not None:
-                    lo = max(lo, var.vb_lo)
-                if var.vb_hi is not None:
-                    hi = min(hi, var.vb_hi)
-                w0, w1 = max(0, lo - b0), min(var.width - 1, hi - b0) + 1
-                if w1 <= w0:
+            for variant in variants:
+                got = P.band(cv, variant, lanes, j, c, gp >> 1, smin, smax,
+                             srow, irow)
+                if got is None:
                     continue
-                e0 = b0 - cv.bpl - 1 + PAD           # lanes column of w=0
-                G = G_all[var.g_id, c, phi, GPAD + b0 + w0: GPAD + b0 + w1]
-                if lrow is None:
-                    L = lanes[cv.lane, e0 + w0: e0 + w1]
-                else:
-                    L = lanes[lrow[w0: w1], e0 + widx[w0: w1]]
-                base = (L + G) + lvd[w0: w1]
-                if cv.hint is not None:
-                    base = base + _hint_quot_ref(
-                        st, cv.hint, hw, srow, irow, lm, b0 + widx[w0: w1],
-                        widx[w0: w1], var.len_hi)
-                score = torch.where((L > GATEt) & (G > GATEt), base, NEGt)
+                score, w0, e0 = got
+                var, lrow = variant[0], variant[2]
                 sbest, ridx = _last_max(score)
                 H = srow[var.h_col]
                 if bool(sbest > GATEt) and bool(H > GATEt):
@@ -729,6 +767,107 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
         largs[:, j + PAD] = torch.argmax(cand, dim=1)
         vprev = vals
     return bp, vprev, vals_out
+
+
+def scan_table_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
+                         v0: "torch.Tensor"):
+    """The plain PyTorch version of K5: augustus_tpu's
+    `scan.make_forward_fn` as an eager loop over positions j = 1 .. n-1
+    (float32, the same operations: `lse_vec` and `lse2` as
+    engine/forward.py:_lse computes them, the score ((L + G) + lenvec)
+    [+ quot] and + H, the lane update a logsumexp over S).  It reads the
+    tables of scan_forward_reference and clips the bands as it does: exact
+    for a logsumexp too, since a clipped entry is NEG and adds nothing, and
+    when no entry passes GATE the value is NEG either way.
+
+    Returns (rows (n, S) float32, row j the values of base j and row 0 v0;
+    the count of exp and log evaluations over live candidates)."""
+    import torch
+    from .forward import _lse, _lse2
+    n, S, NL, PAD = st.n, st.S, st.NL, st.PAD
+    f32 = torch.float32
+    P = _Plain(st, t)
+    dev, NEGt, GATEt = P.dev, P.NEGt, P.GATEt
+    ltr, lane_tr = t["log_trans"], t["lane_trans"]
+    fx_i2 = P.fx_k2.nonzero()[:, 0]
+
+    lanes = torch.full((NL, n + PAD + END_PAD), NEG, dtype=f32, device=dev)
+    v0 = v0.to(dev, f32)
+    l0, sfu = _lse(v0[None, :] + lane_tr, 1)
+    lanes[:, : PAD + 1] = l0[:, None]
+    rows = torch.full((n, S), NEG, dtype=f32, device=dev)
+    rows[0] = v0
+
+    vprev = v0
+    for j in range(1, n):
+        irow = P.itab[j]
+        irow_t = P.itab_t[j]
+        c = int(irow[st.cls_col])
+        srow = P.stab[j]
+        vals = torch.full((S,), NEG, dtype=f32, device=dev)
+
+        # chain states: a logsumexp over the predecessors
+        if st.chain:
+            best, k = _lse(vprev[:, None] + ltr[c][:, P.ch_s], 0)
+            sfu += k
+            vals[P.ch_s] = torch.where(best > GATEt, best + srow[P.ch_emi],
+                                       NEGt)
+
+        # fixed-jump states (kind 2: lse2 of its two lanes)
+        if st.fixed:
+            col = PAD - P.fx_D + j
+            A = lanes[P.fx_l, col]
+            X = srow[P.fx_x]
+            lv = torch.where(P.fx_k1, A + X, A)
+            if fx_i2.numel():
+                lv[fx_i2], k = _lse2(A[fx_i2], lanes[P.fx_l2[fx_i2],
+                                                     col[fx_i2]] + X[fx_i2])
+                sfu += k
+            emi = srow[P.fx_emi]
+            ok = (P.fx_D <= j) & (lv > GATEt) & (emi > GATEt)
+            vals[P.fx_s] = torch.where(ok, lv + emi, NEGt)
+
+        # lessD: a logsumexp over the window's ends of the previous segment
+        for g in P.lessd:
+            best, k = _lse(P.lessd_score(g, lanes, j, c, srow, irow_t)[0], 1)
+            sfu += k
+            gated = (irow_t[g[8]] != 0) & (best > GATEt)
+            vals[g[2]] = torch.where(gated, best, NEGt)
+
+        # pinned states: one far-back candidate
+        if st.pinned:
+            eop = irow_t[P.pn_eop]
+            lv = lanes[P.pn_l, torch.clamp(eop, min=-PAD) + PAD]
+            sc = srow[P.pn_sc]
+            vals[P.pn_s] = torch.where((sc > GATEt) & (lv > GATEt), lv + sc,
+                                       NEGt)
+
+        # exon and UTR convolutions: per variant a logsumexp over its
+        # clipped band, then lse2 into the state's value in variant order
+        for cv, variants in P.convs:
+            gp = int(irow[cv.gate_col])
+            if not gp & 1:
+                continue
+            smin, smax = int(irow[cv.smin_col]), int(irow[cv.smax_col])
+            best = NEGt
+            for variant in variants:
+                got = P.band(cv, variant, lanes, j, c, gp >> 1, smin, smax,
+                             srow, irow)
+                if got is None:
+                    continue
+                sbest, k = _lse(got[0])
+                H = srow[variant[0].h_col]
+                vbest = torch.where((sbest > GATEt) & (H > GATEt), sbest + H,
+                                    NEGt)
+                best, k2 = _lse2(best, vbest)
+                sfu += k + k2
+            vals[cv.state] = best
+
+        rows[j] = vals
+        lanes[:, j + PAD], k = _lse(vals[None, :] + lane_tr, 1)
+        sfu += k
+        vprev = vals
+    return rows, int(sfu)
 
 
 # --------------------------------------------------------------------------
@@ -1057,6 +1196,130 @@ def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
 
 
 scan_forward.launches = 0
+
+
+_LSE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13 + \
+    [ctypes.c_int, ctypes.c_void_p]
+
+
+def scan_table(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0):
+    """The forward rows (n, S) float32 of one piece (row j at base j, row 0
+    v0), on the tables' device.
+
+    CPU tensors run the plain version `scan_table_reference`; CUDA tensors
+    launch csrc/scan_lse.cu (and raise if it does not build or launch).  It
+    takes what K2 takes (`_check`: the same limits and descriptor).
+    `scan_table.launches` counts kernel launches."""
+    import torch
+    dev, (desc_h, fdesc_h) = _check(st, t, v0)
+    if dev.type == "cpu":
+        return scan_table_reference(st, t, v0)[0]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ._build import load
+    fn = load("scan_lse").scan_table_launch
+    fn.argtypes = _LSE_ARGTYPES
+    fn.restype = ctypes.c_int
+    n, S, NL = st.n, st.S, st.NL
+    desc = torch.from_numpy(desc_h).to(dev)
+    fdesc = torch.from_numpy(fdesc_h).to(dev)
+    lanes = torch.full((NL, n + st.PAD + END_PAD), float(NEG),
+                       dtype=torch.float32, device=dev)
+    rows = torch.full((n, S), float(NEG), dtype=torch.float32, device=dev)
+    v0 = v0.to(torch.float32).contiguous()
+    rows[0] = v0
+    empty8 = torch.zeros(1, dtype=torch.int8, device=dev)
+
+    def ptr(x):
+        return x.data_ptr() if x.numel() else None
+
+    err = fn(desc.data_ptr(), int(desc.shape[0]), fdesc.data_ptr(),
+             ptr(t["G_all"]), ptr(t["cum_all"]), t["log_trans"].data_ptr(),
+             t["lane_trans"].data_ptr(), t["scalar_table"].data_ptr(),
+             t["int_table"].data_ptr(),
+             ptr(t.get("lessd_bvalid_all", empty8)),
+             ptr(t.get("lessd_bstop_all", empty8)), ptr(t["hw_all"]),
+             v0.data_ptr(), lanes.data_ptr(), rows.data_ptr(),
+             smem_layout(st, int(desc.shape[0]))["bytes"],
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scan_table kernel launch failed: CUDA error "
+                           f"{err}")
+    scan_table.launches += 1
+    return rows
+
+
+scan_table.launches = 0
+
+
+def scan_table_work(st: ScanStatic, arrays: Dict[str, object]):
+    """What one launch of K5 must move and compute, for the roofline bound:
+    scan_work's reads and operations (the same entries, each a logsumexp
+    term where K2 takes a maximum), with K5's own outputs: the rows (n, S)
+    float32 and the lane values (no args) written once.  The exp and log
+    evaluations are counted by the plain version (scan_table_reference)."""
+    parts, ops = scan_work(st, arrays)
+    parts["outputs"] = st.n * st.S * 4
+    parts["scratch"] = (st.n - 1) * st.NL * 4
+    return parts, ops
+
+
+def heated(st: ScanStatic, arrays: Dict[str, object], heat: float):
+    """split_tracks' arrays for a forward pass at heat (8 - t) / 8 of
+    --temperature=t: every float32 array but log_init and log_term scaled
+    by it, as augustus_tpu's ForwardEngine scales them (scan.py:954-970).
+    A piece with sparse exon hints mixes count columns into its scalar
+    table, so heat there raises NotImplementedError, as augustus_tpu refuses
+    it (UnsupportedByDevice, scan.py:961-963)."""
+    if heat == 1.0:
+        return arrays
+    if st.NHW:
+        raise NotImplementedError(
+            "temperature heating (--temperature) of a piece with sparse "
+            "exon/CDS hints: refused, as augustus_tpu's ForwardEngine "
+            "refuses it (UnsupportedByDevice, engine/scan.py:961-963)")
+    h = np.float32(heat)
+    out = {}
+    for k, v in arrays.items():
+        a = np.asarray(v)
+        out[k] = (a * h).astype(np.float32) if a.dtype == np.float32 and \
+            k not in ("log_init", "log_term") else v
+    return out
+
+
+class ScanForwardEngine:
+    """The forward table of one piece over the split tables, in true log
+    space, for the sampling walk (GoldEngine.sample_path): the counterpart
+    of augustus_tpu's scan.ForwardEngine (scan.py:937-991) where K2 decodes
+    the piece.  `split`: the (static, arrays) of the piece's ScanEngine, so
+    that one split serves both passes; the heat of --temperature comes from
+    the piece's constants."""
+
+    def __init__(self, tracks: DPTracks, split, device):
+        import torch
+        self.tracks = tracks
+        self.device = torch.device(device)
+        self.static, arrays = split
+        self.heat = (8.0 - tracks.gold.cn.temperature) / 8.0
+        self.arrays = heated(self.static, arrays, self.heat)
+
+    def rows(self) -> "torch.Tensor":
+        """K5's rows (n, S) float32, rebased, on the device."""
+        import torch
+        from .. import stats
+        with stats.stage("forward", self.device):
+            t = scan_tensors(self.arrays, self.device)
+            v0 = torch.from_numpy(np.asarray(
+                self.tracks.log_init, np.float32)).to(self.device)
+            return scan_table(self.static, t, v0)
+
+    def run(self) -> np.ndarray:
+        """The (n, S) float64 table: rows + tracks.base * heat, -inf where
+        a row is at or below F32_NEG / 2 (augustus_tpu scan.py:977-988)."""
+        n = self.static.n
+        f = self.rows().cpu().numpy().astype(np.float64)
+        base = np.asarray(self.tracks.base) * self.heat
+        return np.where(f > float(F32_NEG) / 2, f + base[:n, None], -np.inf)
 
 
 def scan_work(st: ScanStatic, arrays: Dict[str, object]):

@@ -18,7 +18,8 @@ With --UTR=on (the 71-state architecture, model/pbl.read_utr_pbl and
 engine/gold_utr.py) every piece takes the host route and the general
 Viterbi kernel K2 (engine/scan.py), as augustus_tpu sends such pieces to
 its scan engine; the output gains tss/tts lines and, with --print_utr=on,
-5'-UTR/3'-UTR lines.
+5'-UTR/3'-UTR lines.  Sampled or MEA, such a piece takes its forward table
+from K5, K2's logsumexp twin over the same split tables.
 
 `stats` counts the route of every piece.  Softmasked or hinted runs print
 the evidence block of every transcript.  Pieces decode in order.
@@ -43,7 +44,7 @@ evaluate_genbank predicts on the records of an annotated GenBank file
 prediction and the accuracy tables (output/evaluation.py).
 
 Outside the port so far, and raising NotImplementedError: ncRNA
-architectures, and sampling or MEA with UTR models.
+architectures.
 """
 
 from __future__ import annotations
@@ -114,7 +115,6 @@ class Model:
                                       "(--nc=off)")
         props = init_properties(args, config_path)
         cn = Constants.from_properties(props)
-        _check_scope(props)
         sg = parse_state_config(props)
         if any(mc not in ("igenicmodel", "exonmodel", "intronmodel",
                           "utrmodel") for mc in sg.model_class):
@@ -153,19 +153,6 @@ class Model:
                    gff_hints=gff_hints)
 
 
-def _check_scope(props: Properties) -> None:
-    """Raise for a request the port does not cover yet (ncRNA is refused
-    before the properties are read: its state files are not in the port's
-    configuration)."""
-    if props.get_bool("UTR", False) and \
-            Sampling.from_properties(props).iters > 1:
-        # no forward table over the UTR scan's layout yet (K3 reads K1's
-        # planes of at most 64 lanes)
-        raise NotImplementedError(
-            "not ported yet: sampling and MEA with UTR models (--UTR=on "
-            "with --sample or --mea)")
-
-
 def _strand_option(props) -> str:
     """reference augustus.cc:178-190 strand string parsing."""
     s = props.get("strand", "") or ""
@@ -187,11 +174,13 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
     and the general Viterbi kernel K2 (engine/scan.py), as augustus_tpu
     sends it to its scan engine; the others the 64-state kernel K1.
     need_forward (sampling): the host route, and gold.f filled with the
-    forward table of the same packing."""
+    forward table of the same tables (K3 over K1's packing, or K5 over
+    K2's split tables; augustus_tpu/predict.py:140-155)."""
     from .engine.device import build_tracks
     from .engine.device_prep import try_device_decode
     from .engine.forward import ForwardEngine
-    from .engine.scan import ScanEngine, needs_general_scan
+    from .engine.scan import (ScanEngine, ScanForwardEngine,
+                              needs_general_scan)
     from .engine.viterbi import ViterbiEngine
     if _auto_route(route) and not need_forward:
         path = try_device_decode(gold, codes, softmask, gff_hints, device)
@@ -209,7 +198,12 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
     if needs_general_scan(tracks):
         with stats.stage("pack"):
             eng = ScanEngine(tracks, device)
+            fwd = ScanForwardEngine(tracks, (eng.static, eng.arrays),
+                                    device) if need_forward else None
         eng.run()
+        if fwd is not None:
+            gold.f = fwd.run()
+            gold._classify_states()
         with stats.stage("traceback"):
             return eng.traceback_path(codes.shape[0])
     with stats.stage("pack"):

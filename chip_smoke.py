@@ -8,8 +8,8 @@ falls back to the CPU or to a kernel's plain version).  Phases, one JSON
 line each:
 
   device  card name and power limit (nvidia-smi)
-  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu, forward.cu and
-          scan.cu, and of the measurement builds of forward.cu (K3_TWO_PASS:
+  build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu, forward.cu,
+          scan.cu and scan_lse.cu, and of the measurement builds of forward.cu (K3_TWO_PASS:
           the earlier design; K3_SPLIT: clock64 stamps) and scan.cu
           (K2_SIMPLE: the earlier design; K2_SPLIT: clock64 stamps), all
           started together (set-up time; nvcc's -Xptxas=-v report of registers,
@@ -17,8 +17,10 @@ line each:
   parity  the Viterbi kernel on the card against its plain PyTorch version
           on copies of the same planes on the host CPU (an eager loop of
           small operations, faster there than as launches on the card; the
-          plain versions of parity, forward_parity and scan_parity run in
-          one spawned process per piece, all at once), on
+          plain versions of every parity phase run in one spawned process
+          per piece, a phase's all at once, those of utr_forward_parity and
+          forward_parity while scan_parity, prep_parity and kernels_new
+          run), on
           6 kb of tests/data/HS04636.fa with the repo_fixture species,
           with the two-GC-class species repo_fixture_gc2 (a class switch
           inside the chunk), on all of HS04636.fa, the chunk that the gff
@@ -108,9 +110,10 @@ line each:
   cold    the runs of a process of their own, started together and awaited
           before the warm runs (each takes a CPU core; the card does under
           a second of their work): HS04636.fa sampled (gff_sample) and with
-          --mea=1 (gff_mea) through the command line, and the GenBank sets
+          --mea=1 (gff_mea) through the command line, the GenBank sets
           tests/data/genes_test1.gb and genes_crf3.gb through the command
-          line (eval_genbank), each held to its phase's golden below
+          line (eval_genbank), and the UTR runs of gff_utr, gff_utr_sample
+          and gff_utr_mea, each held to its phase's golden below
   gff_mea HS04636.fa with --mea=1 (100 sampled paths without the
           posterior filters, then the transcripts of the maximum expected
           accuracy path, output/mea.py; host route, the Viterbi and forward
@@ -153,9 +156,34 @@ line each:
           route, K2, the host walk), byte-equal to
           repo_fixture_utr_tiled.gff: stage times, K2 ms, peak device
           memory, launches, Mb/s
+  utr_forward_parity  K5, the logsumexp twin of K2 (csrc/scan_lse.cu), on
+          the card against its plain PyTorch version on host copies of the
+          same tables (the plain versions run while scan_parity runs), on
+          every piece that the sampled UTR runs give it (all of HS04636.fa,
+          all of HS04636sm.fa with its hints, utr_sample_depth's piece),
+          on 6 kb at --temperature=3 (heated tables) and on 6 kb with the
+          47-state repo_fixture, also against K3 (csrc/forward.cu) on the
+          same chunk: the same finite support, |df| <= 4e-3 + 3e-6 * |f|,
+          two launches bit-identical; time per position, widest band, the
+          bound from scan_table_work and the exp/log count
+  gff_utr_sample  --UTR=on --print_utr=on --sample=100
+          --alternatives-from-sampling=true on HS04636.fa, cold (the cold
+          group) and warm, and HS04636sm.fa with its hints and the
+          posterior filters, warm, held to repo_fixture_utr_HS04636_
+          sample100.gff and repo_fixture_utr_HS04636sm_hints_sample100.gff:
+          host route, K2 for the path and K5 for the forward table, the host
+          walk; wall, walk share and launches
+  gff_utr_mea  HS04636.fa with --UTR=on --print_utr=on --mea=1
+          --/CompPred/logreg=false, cold and warm, held to
+          repo_fixture_utr_HS04636_mea_nologreg.gff
+  utr_sample_depth  sample_depth's letters sampled with --UTR=on, held to
+          repo_fixture_utr_tiled21k_sample100.gff: walk seconds per Mb
+  full_utr_forward  one timed launch of K5 on full_utr's piece, its
+          finite support that of K2's values and f >= v - tol
   k2_compare  K2 against its earlier design (the K2_SIMPLE build of
           csrc/scan.cu) on 6 kb of HS04636.fa with repo_fixture_utr, on the
-          same 6 kb with the 47-state repo_fixture and on full_utr's piece:
+          same 6 kb with the 47-state repo_fixture and on the first
+          K2_COMPARE_DEPTH bases of full_utr's piece:
           values, backpointers and final column bit-equal; both timed in
           turns (simple, new, new, simple); registers, spills and shared
           memory of the four builds (cuobjdump -res-usage); the clock64
@@ -163,8 +191,10 @@ line each:
           phase and barrier wait by warp role, which role reaches each
           barrier last, band entries and segments per warp
 Every prediction phase prints the route of each piece (stats counts) and
-asserts the one it expects; the new phases print the kernels' launches.  Then the kernels line, the card line and the
-final status line.  The golden comparisons leave out comment lines.
+asserts the one it expects; the new phases print the kernels' launches.
+Then the seconds of each group of phases, the kernels line, the card line
+and the final status line.  The golden comparisons leave out comment
+lines.
 """
 
 from __future__ import annotations
@@ -199,7 +229,7 @@ K2_SPLIT = ("K2_SPLIT",)     # scan.cu's cycle-stamping build
 K2_SIMPLE = ("K2_SIMPLE",)   # scan.cu's earlier design, a warp per state
 # the libraries: each kernel, and forward.cu's and scan.cu's measurement
 # builds
-KERNELS = ("viterbi", "prefix", "trace", "forward", "scan",
+KERNELS = ("viterbi", "prefix", "trace", "forward", "scan", "scan_lse",
            ("forward", TWO_PASS), ("forward", SPLIT),
            ("forward", SPLIT + TWO_PASS), ("scan", K2_SIMPLE),
            ("scan", K2_SPLIT), ("scan", K2_SPLIT + K2_SIMPLE))
@@ -213,6 +243,7 @@ SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
 SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
                   "keep_viterbi": "true"}
 SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence sampled
+K2_COMPARE_DEPTH = 100_000  # bases of full_utr's piece that k2_compare takes
 MEA_ARGS = {"mea": "1"}
 NOLOGREG = {"/CompPred/logreg": "false"}
 # the GenBank sets of eval_genbank and their goldens
@@ -290,6 +321,8 @@ def _plain(job):
             viterbi_forward_reference as fn
     elif kind == "forward":
         from augustus_tpu_torch.engine.forward import forward_reference as fn
+    elif kind == "scan_table":
+        from augustus_tpu_torch.engine.scan import scan_table_reference as fn
     else:
         from augustus_tpu_torch.engine.scan import \
             scan_forward_reference as fn
@@ -298,16 +331,30 @@ def _plain(job):
     return out, (time.perf_counter() - t0) * 1000.0
 
 
-def plain_versions(jobs) -> list:
-    """The plain versions of a phase's pieces, all at once, one spawned
-    process each (single-threaded loops of small torch operations; the
-    card's host has 8 cores): [(result, ms)] in the order of `jobs`."""
+def plain_start(jobs):
+    """Start the plain versions of a phase's pieces, one spawned process
+    each (single-threaded loops of small torch operations; the card's host
+    has 8 cores); plain_results awaits them."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    with ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1),
-                             mp_context=multiprocessing.get_context(
-                                 "spawn")) as pool:
-        return list(pool.map(_plain, jobs))
+    pool = ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1),
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    return pool, [pool.submit(_plain, job) for job in jobs]
+
+
+def plain_results(started) -> list:
+    """[(result, ms)] of plain_start's jobs, in their order."""
+    pool, futures = started
+    try:
+        return [f.result() for f in futures]
+    finally:
+        pool.shutdown()
+
+
+def plain_versions(jobs) -> list:
+    """The plain versions of a phase's pieces, all at once."""
+    return plain_results(plain_start(jobs))
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -604,12 +651,14 @@ def fwd_gate(st, ref, got, what):
     return float(err.max(initial=0.0)), float(share.max(initial=0.0))
 
 
-def phase_forward_parity(device, pieces, card):
-    """pieces: (label, model, record, bases or None for all of it), each
-    prepared on the host route, as a sampled piece is."""
+def forward_parity_start(device, pieces):
+    """forward_parity's first half: K3 on each piece (label, model, record,
+    bases or None for all of it), prepared on the host route as a sampled
+    piece is, bit-equal to the two-pass build; its plain versions started
+    on the host CPU (they run while the next phases run)."""
     import torch
-    from augustus_tpu_torch.engine.forward import forward_table, forward_work
-    rows, done = [], []
+    from augustus_tpu_torch.engine.forward import forward_table
+    done = []
     for label, model, rec, n in pieces:
         st, planes, _, _ = forward_planes(
             dataclasses.replace(model, route="host"), rec, n, device)
@@ -621,10 +670,18 @@ def phase_forward_parity(device, pieces, card):
             raise AssertionError(f"forward_parity {label}: {int(bad)} entries "
                                  "differ from the two-pass kernel")
         done.append((label, model, rec, st, planes, got))
-    plain = plain_versions([("forward", (st, on_cpu(planes)))
-                            for (_, _, _, st, planes, _) in done])
+    return done, plain_start([("forward", (st, on_cpu(planes)))
+                              for (_, _, _, st, planes, _) in done])
+
+
+def forward_parity_finish(started, card):
+    """forward_parity's second half: each piece against its plain version
+    (the same finite support, |df| <= 4e-3 + 3e-6 * |f|), times and bound."""
+    from augustus_tpu_torch.engine.forward import forward_table, forward_work
+    done, plain = started
+    rows = []
     for (label, model, rec, st, planes, got), ((ref, sfu), plain_ms) in zip(
-            done, plain):
+            done, plain_results(plain)):
         err, share = fwd_gate(st, ref, got, f"forward_parity {label}")
         kernel_ms = time_cuda(lambda: forward_table(st, planes), 3)
         two_ms = time_cuda(lambda: forward_table(st, planes, TWO_PASS), 3)
@@ -989,17 +1046,18 @@ def phase_gff_sample(model_sampled, cold, card):
           "counts": counts, "stages_s": tm, "card": card})
 
 
-def phase_sample_depth(model, rec, card):
+def phase_sample_depth(model, rec, card, phase="sample_depth",
+                       golden="repo_fixture_tiled21k_sample100.gff"):
     from augustus_tpu_torch.io.fasta import FastaRecord
     srec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
+    before = launch_counts()
     gff, tm, counts, wall, peak = run_predict(model, srec, "host_prep")
-    if strip_comments(gff) != golden_body(
-            "repo_fixture_tiled21k_sample100.gff"):
-        raise AssertionError("sample_depth: GFF differs from the committed "
+    if strip_comments(gff) != golden_body(golden):
+        raise AssertionError(f"{phase}: GFF differs from the committed "
                              "golden")
     mb = SAMPLE_DEPTH / 1e6
     paths = int(SAMPLE_ARGS["sample"]) - 1
-    emit({"phase": "sample_depth", "length": SAMPLE_DEPTH,
+    emit({"phase": phase, "length": SAMPLE_DEPTH,
           "samples": int(SAMPLE_ARGS["sample"]), "equal_to_golden": True,
           "genes": gff.count("\tgene\t"),
           "transcripts": gff.count("\ttranscript\t"), "wall_s": wall,
@@ -1009,8 +1067,8 @@ def phase_sample_depth(model, rec, card):
           "kernel_ms": tm.get("kernel", 0) * 1e3,
           "forward_ms": tm.get("forward", 0) * 1e3,
           "walk_share": tm.get("sample", 0.0) / wall,
-          "peak_mem_bytes": peak, "stages_s": tm, "counts": counts,
-          "card": card})
+          "launches": launches_since(before), "peak_mem_bytes": peak,
+          "stages_s": tm, "counts": counts, "card": card})
 
 
 def eval_filter(text: str) -> list:
@@ -1049,6 +1107,9 @@ def phase_cold(card):
     cmds[UTR_EVAL[0]] = cli_args({k: v for k, v in utr.items()
                                   if k != "softmasking"}) + [
         os.path.join(DATA, UTR_EVAL[0])]
+    cmds["gff_utr_sample"] = cli_args(dict(utr, **SAMPLE_ARGS)) + [hs04636]
+    cmds["gff_utr_mea"] = cli_args(dict(utr, **MEA_ARGS, **NOLOGREG)) + [
+        hs04636]
 
     def run(cmd):
         t0 = time.perf_counter()
@@ -1071,14 +1132,15 @@ def launch_counts() -> dict:
     from augustus_tpu_torch.engine import traceback as tb
     from augustus_tpu_torch.engine import xputil as U
     from augustus_tpu_torch.engine.forward import forward_table
-    from augustus_tpu_torch.engine.scan import scan_forward
+    from augustus_tpu_torch.engine.scan import scan_forward, scan_table
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     return {"viterbi_forward": viterbi_forward.launches,
             "viterbi_forward:hint_quot": viterbi_forward.hinted_launches,
             "prefix_sum_f64": U.prefix_sum_f64.launches,
             "event_walk": tb.event_walk.launches,
             "forward_table": forward_table.launches,
-            "scan_forward": scan_forward.launches}
+            "scan_forward": scan_forward.launches,
+            "scan_table": scan_table.launches}
 
 
 def launches_since(before: dict) -> dict:
@@ -1331,6 +1393,178 @@ def phase_full_utr(rec, card):
               rec.sequence)})
 
 
+def utr_forward_tables(model, rec, n, device):
+    """K5's inputs for the first n bases of rec as a sampled UTR piece
+    builds them (host route, the split tables of its ScanEngine heated by
+    --temperature): (static, tables on the card, v0 on the card, host
+    copies of the tables, v0 on the host)."""
+    from augustus_tpu_torch.engine.scan import heated, scan_tensors
+    from augustus_tpu_torch.predict import piece_scan
+    st, t, v0, _ = piece_scan(model, rec, n, "cpu")
+    arrays = heated(st, {k: v.numpy() for k, v in t.items()},
+                    (8.0 - model.cn.temperature) / 8.0)
+    return st, scan_tensors(arrays, device), v0.to(device), \
+        scan_tensors(arrays, "cpu"), v0
+
+
+def utr_forward_start(device, pieces):
+    """utr_forward_parity's first half: K5 (csrc/scan_lse.cu) twice on each
+    piece, bit-identical, and its plain versions started on the host CPU
+    (they run while scan_parity runs)."""
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_table
+    done = []
+    for label, model, rec, n in pieces:
+        st, t, v0, host, hv0 = utr_forward_tables(model, rec, n, device)
+        got = scan_table(st, t, v0)
+        again = scan_table(st, t, v0)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            bad = int((got.view(torch.int32) != again.view(torch.int32))
+                      .sum())
+            raise AssertionError(f"utr_forward_parity {label}: two launches "
+                                 f"differ in {bad} entries")
+        done.append((label, model, rec, n, st, t, v0, got,
+                     ("scan_table", (st, host, hv0))))
+    return done, plain_start([job for *_, job in done])
+
+
+def utr_forward_finish(device, started, card):
+    """utr_forward_parity's second half: each piece against its plain
+    version (the same finite support, |df| <= 4e-3 + 3e-6 * |f|), a
+    47-state piece also against K3 (csrc/forward.cu) on the same chunk; the
+    kernel's time beside its bound (bytes and operations of
+    scan_table_work, the plain version's exp/log count)."""
+    from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.scan import scan_table, scan_table_work
+    done, plain = started
+    rows = []
+    for (label, model, rec, n, st, t, v0, got, (_, (_, host, _))), (
+            (ref, sfu), plain_ms) in zip(done, plain_results(plain)):
+        err, share = fwd_gate(st, ref, got, f"utr_forward_parity {label}")
+        row = {"phase": "utr_forward_parity", "piece": label,
+               "species": model.props.get("species"), "record": rec.name,
+               "n": st.n, "S": st.S, "NL": st.NL, "NHW": st.NHW,
+               "temperature": model.cn.temperature,
+               "widest_band": max(v.width for c in st.convs
+                                  for v in c.variants),
+               "support": "identical",
+               "tolerance": f"{FWD_ABS_TOL} + {FWD_REL_TOL} * |f|",
+               "max_abs_err": err, "max_tolerance_share": share,
+               "two_launches_bit_identical": True}
+        if st.S <= 64:
+            st3, fplanes, _, _ = forward_planes(
+                dataclasses.replace(model, route="host"), rec, n, device)
+            k3_err, k3_share = fwd_gate(st, forward_table(st3, fplanes),
+                                        got, f"utr_forward_parity {label} "
+                                        "against K3")
+            row.update(k3_max_abs_err=k3_err, k3_tolerance_share=k3_share)
+        kernel_ms = time_cuda(lambda: scan_table(st, t, v0), 3)
+        parts, ops_by_part = scan_table_work(
+            st, {k: v.numpy() for k, v in host.items()})
+        nbytes, ops = sum(parts.values()), sum(ops_by_part.values())
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": max(ops / F32_OPS_PER_S,
+                                   sfu / SFU_OPS_PER_S) * 1e3}
+        row.update({
+            "kernel_ms": kernel_ms, "us_per_position": kernel_ms * 1e3 / st.n,
+            "plain_ms": plain_ms,
+            "plain_on": "CPU, one process per piece at once", "bytes": nbytes,
+            "bytes_by_part": parts, "ops": ops, "ops_by_part": ops_by_part,
+            "exp_log": sfu, "bound_bytes_ms": bound["bytes"],
+            "bound_ops_ms": ops / F32_OPS_PER_S * 1e3,
+            "bound_sfu_ms": sfu / SFU_OPS_PER_S * 1e3,
+            "bound_ms": max(bound.values()),
+            "bound_by": max(bound, key=bound.get), "card": card})
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_gff_utr_sample(cold, card):
+    """--UTR=on sampled: HS04636.fa cold (the command line) and warm,
+    HS04636sm.fa with its hints and the posterior filters warm, each held
+    to its golden; every piece on the host route through K2 and K5."""
+    from augustus_tpu_torch.predict import Model
+    runs = [("warm", Model.load(dict(model_args("repo_fixture_utr"),
+                                     **UTR_PRINT, **SAMPLE_ARGS)),
+             "HS04636.fa", "repo_fixture_utr_HS04636_sample100.gff"),
+            ("warm, hints and filters", Model.load(dict(
+                model_args("repo_fixture_utr", "HS04636sm.E.gff"),
+                **SAMPLE_ARGS, **SAMPLE_FILTERS)),
+             "HS04636sm.fa", "repo_fixture_utr_HS04636sm_hints_sample100.gff")]
+    utr_gff_runs("gff_utr_sample", cold, runs, card)
+
+
+def phase_gff_utr_mea(cold, card):
+    """--UTR=on with --mea=1 --/CompPred/logreg=false on HS04636.fa, cold
+    and warm, held to its golden."""
+    from augustus_tpu_torch.predict import Model
+    utr_gff_runs("gff_utr_mea", cold, [
+        ("warm", Model.load(dict(model_args("repo_fixture_utr"), **UTR_PRINT,
+                                 **MEA_ARGS, **NOLOGREG)),
+         "HS04636.fa", "repo_fixture_utr_HS04636_mea_nologreg.gff")], card)
+
+
+def utr_gff_runs(phase, cold, runs, card):
+    """The cold run of `phase` (the command line, the first run's golden),
+    then each warm run, held to its golden: host route, K2 and K5 launched
+    once per piece."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    out, cold_s = cold[phase]
+    if strip_comments(out) != golden_body(runs[0][3]):
+        raise AssertionError(f"{phase} cold run (command line): GFF differs "
+                             f"from {runs[0][3]}")
+    emit({"phase": phase, "input": runs[0][2], "run": "cold",
+          "via": "command line", "equal_to_golden": True, "seconds": cold_s,
+          "transcripts": out.count("\ttranscript\t"), "card": card})
+    for label, model, fasta, golden_name in runs:
+        rec = read_fasta(os.path.join(DATA, fasta))[0]
+        before = launch_counts()
+        gff, tm, counts, wall, peak = run_predict(model, rec, "host_prep")
+        if strip_comments(gff) != golden_body(golden_name):
+            raise AssertionError(f"{phase} {label} run: GFF differs from "
+                                 f"{golden_name}")
+        launches = launches_since(before)
+        if launches["scan_forward"] < 1 or launches["scan_table"] < 1:
+            raise AssertionError(f"{phase} {label}: launches {launches}")
+        emit(dict(mea_row(phase, label, gff, tm, counts, wall, launches,
+                          card), input=fasta, peak_mem_bytes=peak,
+                  walk_share=tm.get("sample", 0.0) / wall))
+
+
+def phase_full_utr_forward(device, model, rec, card):
+    """K5 on full_utr's piece: one timed launch; the same finite support as
+    K2's values of the piece and f >= v - (4e-3 + 3e-6 * |v|) everywhere
+    (a logsumexp is at least the maximum)."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_forward, scan_table
+    from augustus_tpu_torch.predict import piece_scan
+    st, t, v0, _ = piece_scan(model, rec, None, device)
+    v = scan_forward(st, t, v0, debug_vals=True)[2].cpu().numpy()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    f = scan_table(st, t, v0)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    f = f.cpu().numpy()
+    live = v > -5.0e29
+    if not np.array_equal(live, f > -5.0e29):
+        raise AssertionError("full_utr_forward: the forward table's finite "
+                             "support differs from K2's")
+    slack = f[live] - v[live]
+    if (slack < -(FWD_ABS_TOL + FWD_REL_TOL * np.abs(v[live]))).any():
+        raise AssertionError("full_utr_forward: f < v - tol")
+    emit({"phase": "full_utr_forward", "n": st.n, "NHW": st.NHW,
+          "live": int(live.sum()), "min_f_minus_v": float(slack.min()),
+          "max_f_minus_v": float(slack.max()), "kernel_ms": ms,
+          "us_per_position": ms * 1e3 / st.n, "card": card})
+
+
 def measured(fn):
     """fn() with stats on: (its result, stage times, counts, wall s, peak
     device bytes)."""
@@ -1436,11 +1670,20 @@ def main() -> int:
     from augustus_tpu_torch.engine import traceback as tb
     from augustus_tpu_torch.engine import xputil as U
     from augustus_tpu_torch.engine.forward import forward_table
-    from augustus_tpu_torch.engine.scan import scan_forward
+    from augustus_tpu_torch.engine.scan import scan_forward, scan_table
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
     from augustus_tpu_torch.predict import Model
+
+    t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous lap, under `name`."""
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
 
     device = torch.device("cuda")
     card = card_line()
@@ -1457,6 +1700,7 @@ def main() -> int:
         spec if isinstance(spec, str) else " ".join([spec[0]] + list(spec[1]))
         for spec in KERNELS],
           "seconds": time.perf_counter() - t0})
+    lap("device, build")
 
     # the chunks of length None (the whole sequence) are the gff and
     # gff_hints phases' inputs
@@ -1466,6 +1710,7 @@ def main() -> int:
         ("repo_fixture", "HS04636.fa", None, None),
         ("repo_fixture", "HS04636sm.fa", None, "HS04636sm.E.gff"),
         ("repo_fixture", "HS04636rc.fa", 6000, "HS04636rc.E.gff")])
+    lap("parity")
 
     model = Model.load(model_args("repo_fixture"))
     gc2 = Model.load(model_args("repo_fixture_gc2"))
@@ -1473,6 +1718,25 @@ def main() -> int:
     hs04636 = read_fasta(os.path.join(DATA, "HS04636.fa"))[0]
     hs04636sm = read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0]
     hs04636rc = read_fasta(os.path.join(DATA, "HS04636rc.fa"))[0]
+    rec = tiled_record(DATA)
+
+    def model_sampled(species="repo_fixture", **extra):
+        return Model.load(dict(model_args(species), **SAMPLE_ARGS, **extra))
+
+    def utr_sampled(**extra):
+        return model_sampled("repo_fixture_utr", **UTR_PRINT, **extra)
+
+    # K5 on the sampled UTR runs' pieces (the first gives the kernels
+    # line's row), heated tables, and a 47-state piece (also against K3);
+    # its plain versions run on the host while scan_parity runs
+    utr_fwd = utr_forward_start(device, [
+        ("HS04636", utr_sampled(), hs04636, None),
+        ("HS04636sm_hints", Model.load(dict(
+            model_args("repo_fixture_utr", "HS04636sm.E.gff"), **SAMPLE_ARGS,
+            **SAMPLE_FILTERS)), hs04636sm, None),
+        ("utr_sample_depth", utr_sampled(), rec, SAMPLE_DEPTH),
+        ("heated_6kb", utr_sampled(temperature="3"), hs04636, 6000),
+        ("47_state_6kb", model_sampled(), hs04636, 6000)])
     # the UTR runs' pieces (the first gives the kernels line's row), then
     # K2 against K1 on the 47-state architecture
     scan_rows = phase_scan_parity(device, [
@@ -1481,31 +1745,32 @@ def main() -> int:
             "repo_fixture_utr", "HS04636sm.E.gff")), hs04636sm, None),
         ("HS04636rc_6kb", utr, hs04636rc, 6000),
         ("47_state_6kb", model, hs04636, 6000)], card)
-    write_exon_free("HS04636sm.E.gff", EXON_FREE_SM)
-    sm_model = Model.load(model_args("repo_fixture", EXON_FREE_SM))
-    rec = tiled_record(DATA)
-    phase_prep_parity(device, [
-        ("HS04636", model, hs04636, None), ("gc2_6kb", gc2, hs04636, 6000),
-        ("HS04636sm_exon_free", sm_model, hs04636sm, None),
-        ("full", model, rec, None)], card)
-    prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
-
-    def model_sampled(species="repo_fixture", **extra):
-        return Model.load(dict(model_args(species), **SAMPLE_ARGS, **extra))
-
-    # the main path's pieces (the first gives the kernels line's row), then
-    # a GC-class switch and heated tables
-    fwd_parity = phase_forward_parity(device, [
+    lap("scan_parity")
+    # K3 on the main path's sampled pieces (the first gives the kernels
+    # line's row), then a GC-class switch and heated tables; its plain
+    # versions run on the host with K5's while the next phases run
+    fwd = forward_parity_start(device, [
         ("HS04636", model_sampled(), hs04636, None),
         ("HS04636sm_hints", Model.load(dict(
             model_args("repo_fixture", "HS04636sm.E.gff"), **SAMPLE_ARGS,
             **SAMPLE_FILTERS)), hs04636sm, None),
         ("sample_depth", model_sampled(), rec, SAMPLE_DEPTH),
         ("gc2_6kb", model_sampled("repo_fixture_gc2"), hs04636, 6000),
-        ("heated_6kb", model_sampled(temperature="3"), hs04636, 6000)],
-        card)
+        ("heated_6kb", model_sampled(temperature="3"), hs04636, 6000)])
+    write_exon_free("HS04636sm.E.gff", EXON_FREE_SM)
+    sm_model = Model.load(model_args("repo_fixture", EXON_FREE_SM))
+    phase_prep_parity(device, [
+        ("HS04636", model, hs04636, None), ("gc2_6kb", gc2, hs04636, 6000),
+        ("HS04636sm_exon_free", sm_model, hs04636sm, None),
+        ("full", model, rec, None)], card)
+    prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
+    lap("prep_parity, kernels_new")
+    utr_fwd_rows = utr_forward_finish(device, utr_fwd, card)
+    fwd_parity = forward_parity_finish(fwd, card)
+    lap("utr_forward_parity, forward_parity")
 
     cold = phase_cold(card)
+    lap("cold")
 
     # ---- main path: GFF parity, then full size; counts from here on ----
     viterbi_forward.launches = 0
@@ -1514,6 +1779,7 @@ def main() -> int:
     tb.event_walk.launches = 0
     forward_table.launches = 0
     scan_forward.launches = 0
+    scan_table.launches = 0
     predict_phase("gff", model, os.path.join(DATA, "HS04636.fa"),
                   "repo_fixture_HS04636.gff", "device_prep", False)
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
@@ -1523,6 +1789,10 @@ def main() -> int:
     phase_gff_mea(model_sampled, cold, card)
     phase_eval_genbank(model, cold, card)
     phase_gff_utr(cold, card)
+    lap("gff .. gff_utr")
+    phase_gff_utr_sample(cold, card)
+    phase_gff_utr_mea(cold, card)
+    lap("gff_utr_sample, gff_utr_mea")
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")
@@ -1556,17 +1826,30 @@ def main() -> int:
     phase_full("full_hints", hmodel, hrec, golden_body(
         "repo_fixture_tiled_hints.gff"), card,
         dict(counts, hints=len(hint_lines)), "host_prep", labels=("warm",))
+    lap("full, full_sm, full_hints")
     phase_full_utr(rec, card)
+    lap("full_utr")
     phase_sample_depth(model_sampled(), rec, card)
     phase_mea_depth(model_sampled(**MEA_ARGS), rec, card)
+    lap("sample_depth, mea_depth")
+    phase_sample_depth(utr_sampled(), rec, card, "utr_sample_depth",
+                       "repo_fixture_utr_tiled21k_sample100.gff")
+    lap("utr_sample_depth")
     launches = launch_counts()
     if min(launches.values()) < 1:
         raise AssertionError(f"the main path's kernel launches: {launches}")
     phase_full_forward(device, [("full", model, rec),
                                 ("full_hints", hmodel, hrec)], card)
+    lap("full_forward, k3_compare")
+    phase_full_utr_forward(device, utr, rec, card)
+    lap("full_utr_forward")
     phase_k2_compare(device, [("HS04636_6kb", utr, hs04636, 6000),
                               ("47_state_6kb", model, hs04636, 6000),
-                              ("full_utr", utr, rec, None)], card)
+                              ("full_utr_100kb", utr, rec,
+                               K2_COMPARE_DEPTH)], card)
+    lap("k2_compare")
+    emit({"phase": "seconds", "by_phase": laps,
+          "total": time.perf_counter() - t_start})
 
     p, ph = parity[2], parity[3]
     vrow = {"max_abs_err": max(r["max_abs_err"] for r in parity),
@@ -1585,6 +1868,11 @@ def main() -> int:
     frow = {"max_abs_err": max(r["max_abs_err"] for r in fwd_parity),
             "ms": fp["kernel_ms"], "plain_ms": fp["plain_ms"],
             "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"],
+            "library_ms": None}
+    up = utr_fwd_rows[0]
+    lrow = {"max_abs_err": max(r["max_abs_err"] for r in utr_fwd_rows),
+            "ms": up["kernel_ms"], "plain_ms": up["plain_ms"],
+            "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
             "library_ms": None}
     emit({"kernels": [
         kernel_row("viterbi_forward", "augustus_tpu_torch/csrc/viterbi.cu",
@@ -1611,7 +1899,12 @@ def main() -> int:
                    f"{FWD_REL_TOL} * |f|"),
         kernel_row("scan_forward", "augustus_tpu_torch/csrc/scan.cu",
                    "augustus_tpu/engine/scan.py:502",
-                   launches["scan_forward"], srow, "bit-exact")]})
+                   launches["scan_forward"], srow, "bit-exact"),
+        kernel_row("scan_table", "augustus_tpu_torch/csrc/scan_lse.cu",
+                   "augustus_tpu/engine/scan.py:740",
+                   launches["scan_table"], lrow,
+                   f"support identical, |df| <= {FWD_ABS_TOL} + "
+                   f"{FWD_REL_TOL} * |f|")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -279,3 +279,43 @@ def test_utr_prediction_on_the_card_reproduces_the_golden(cuda):
     def body(t):
         return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
     assert body(got) == body(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fasta,n,hints,temperature", [
+    ("HS04636.fa", 3000, None, 0), ("HS04636sm.fa", 3000, "HS04636sm.E.gff", 0),
+    ("HS04636rc.fa", 3000, None, 3)])
+def test_scan_table_kernel_equals_plain_version(cuda, fasta, n, hints,
+                                                temperature):
+    """K5 (csrc/scan_lse.cu) on UTR pieces of the 71-state fixture against
+    its plain version on host copies: the same finite support and |df| <=
+    4e-3 + 3e-6 * |f|; two launches bit-identical, one count each."""
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan
+    args = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
+            "UTR": "on", "softmasking": "0", "temperature": str(temperature)}
+    if hints:
+        args.update(softmasking="1", extrinsicCfgFile="extrinsic.M.RM.E.W.cfg",
+                    hintsfile=os.path.join(ROOT, "augustus_tpu_torch", "data",
+                                           "hints", hints))
+    rec = read_fasta(os.path.join(ROOT, "tests", "data", fasta))[0]
+    model = Model.load(args)
+    st, t, v0, _ = piece_scan(model, rec, n, "cpu")
+    arrays = S.heated(st, {k: v.numpy() for k, v in t.items()},
+                      (8.0 - model.cn.temperature) / 8.0)
+    host = S.scan_tensors(arrays, "cpu")
+    dev = S.scan_tensors(arrays, cuda)
+    before = S.scan_table.launches
+    got = S.scan_table(st, dev, v0.to(cuda))
+    again = S.scan_table(st, dev, v0.to(cuda))
+    torch.cuda.synchronize()
+    assert S.scan_table.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    ref, sfu = S.scan_table_reference(st, host, v0)
+    g, r = got.cpu().numpy(), ref.numpy()
+    live = r > -5.0e29
+    assert np.array_equal(live, g > -5.0e29)
+    assert live.sum() > 10_000 and sfu > 0
+    assert (np.abs(g[live] - r[live]) <=
+            4e-3 + 3e-6 * np.abs(r[live])).all()

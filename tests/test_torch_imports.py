@@ -87,11 +87,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("args", [
-    {"UTR": "on", "sample": "100", "alternatives-from-sampling": "1"},
+    {"nc": "on", "UTR": "on", "sample": "100",
+     "alternatives-from-sampling": "1"},
     {"nc": "1"}, {"nc": "true"},
     {"nc": "on", "mea": "1", "sample": "100",
      "alternatives-from-sampling": "1"},
-    {"UTR": "on", "mea": "1"}])
+    {"nc": "on", "UTR": "on", "mea": "1"}])
 def test_out_of_slice_requests_raise(args):
     from augustus_tpu_torch.predict import Model
     a = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,

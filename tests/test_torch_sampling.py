@@ -128,10 +128,10 @@ def test_sample_depth_golden_equal_to_reference(tmp_path):
 
 @pytest.mark.parametrize("flag,missing", [
     ("nc", "ncRNA"),
-    ("UTR", "UTR")])
+    ("nc UTR", "ncRNA")])
 def test_out_of_slice_flags_refused(flag, missing):
     with pytest.raises(NotImplementedError, match=missing):
-        Model.load(dict(SAMPLED, **{flag: "true"}))
+        Model.load(dict(SAMPLED, **dict.fromkeys(flag.split(), "true")))
 
 
 def test_heat_with_exon_hints_refused():

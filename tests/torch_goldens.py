@@ -3,7 +3,8 @@
     python3 tests/torch_goldens.py [hs04636] [tiled] [hints] [tiled_hints] \
         [sample] [sample_hints] [sample_depth] [mea] [mea_hints] \
         [mea_nologreg] [mea_depth] [eval_test1] [eval_crf3] [tiled_sm] \
-        [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled]
+        [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled] \
+        [utr_sample] [utr_sample_hints] [utr_mea] [utr_sample_depth]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -82,13 +83,28 @@ augustus_tpu_torch/data/make_utr_fixture.py) with `--UTR=on`:
            base against 1.7 on HS04636.fa: its time per base grows with the
            length, so 1 Mb would take hours; a test marked slow keeps the
            first 21,000 bases equal between the two packages)
+  utr_sample  tests/data/HS04636.fa with --print_utr=on --sample=100
+           --alternatives-from-sampling=true through `augustus_tpu`
+           predict_file(engine="scan") -> repo_fixture_utr_HS04636_sample100.gff
+  utr_sample_hints  HS04636sm.fa softmasked with HS04636sm.E.gff, sampled
+           with the posterior filters of sample_hints, the same way
+           -> repo_fixture_utr_HS04636sm_hints_sample100.gff
+  utr_mea  HS04636.fa with --print_utr=on --mea=1
+           --/CompPred/logreg=false, the same way
+           -> repo_fixture_utr_HS04636_mea_nologreg.gff
+           (tests/test_torch_utr_sampling.py, test_torch_utr_sampling_hints.py
+           and test_torch_utr_mea.py keep the port's texts equal to these;
+           tests marked slow recompute them with `augustus_tpu`)
+  utr_sample_depth  sample_depth's letters sampled as utr_sample, through
+           the port's CPU path -> repo_fixture_utr_tiled21k_sample100.gff
+           (kept equal to `augustus_tpu` by a test marked slow)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
 tests/test_torch_*.py hold them to; at 1 Mb it takes about 17 minutes on
 one thread and 13 GB of memory, so run it where that is free.  Each golden
 prints its seconds and the process's peak resident memory.
-`chip_smoke.py` holds the card's output equal to all thirteen goldens.
+`chip_smoke.py` holds the card's output equal to every golden.
 """
 
 import os
@@ -121,7 +137,11 @@ GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "utr_hints": "repo_fixture_utr_HS04636sm_hints.gff",
            "utr_rc": "repo_fixture_utr_HS04636rc.gff",
            "utr_eval": "repo_fixture_utr_eval_utrtrain.out",
-           "utr_tiled": "repo_fixture_utr_tiled.gff"}
+           "utr_tiled": "repo_fixture_utr_tiled.gff",
+           "utr_sample": "repo_fixture_utr_HS04636_sample100.gff",
+           "utr_sample_hints": "repo_fixture_utr_HS04636sm_hints_sample100.gff",
+           "utr_mea": "repo_fixture_utr_HS04636_mea_nologreg.gff",
+           "utr_sample_depth": "repo_fixture_utr_tiled21k_sample100.gff"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 SAMPLED = dict(ARGS, sample="100")
@@ -139,22 +159,32 @@ UTR_ARGS = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
             "UTR": "on", "softmasking": "0", "print_utr": "on"}
 UTR_DEPTH = 21_000     # bases of the tiled sequence that the slow UTR test
 #                        decodes with both packages
+UTR_SAMPLED = dict(UTR_ARGS, **{k: SAMPLED[k] for k in
+                                ("sample", "alternatives-from-sampling")})
 
 
 def utr_run(which: str):
-    """(arguments, input path) of a UTR golden other than utr_tiled."""
+    """(arguments, input path) of a UTR golden from augustus_tpu."""
     hinted = dict(hinted_args("HS04636sm.E.gff"), species="repo_fixture_utr",
                   UTR="on")
-    return {"utr_hs04636": (UTR_ARGS, os.path.join(DATA, "HS04636.fa")),
+    hs04636 = os.path.join(DATA, "HS04636.fa")
+    return {"utr_hs04636": (UTR_ARGS, hs04636),
             "utr_hints": (hinted, os.path.join(DATA, "HS04636sm.fa")),
             "utr_rc": (UTR_ARGS, os.path.join(DATA, "HS04636rc.fa")),
             "utr_eval": (dict(UTR_ARGS, softmasking="0"),
-                         os.path.join(DATA, "utrtrain.gb"))}[which]
+                         os.path.join(DATA, "utrtrain.gb")),
+            "utr_sample": (UTR_SAMPLED, hs04636),
+            "utr_sample_hints": (dict(
+                hinted, **FILTERS, **{k: UTR_SAMPLED[k] for k in (
+                    "sample", "alternatives-from-sampling")}),
+                os.path.join(DATA, "HS04636sm.fa")),
+            "utr_mea": (dict(UTR_ARGS, mea="1",
+                             **{"/CompPred/logreg": "false"}), hs04636)}[which]
 
 
 def utr_reference(which: str) -> str:
     """augustus_tpu's text (engine="scan", JAX on the CPU) of a UTR golden
-    other than utr_tiled."""
+    of utr_run."""
     from augustus_tpu.predict import Model, evaluate_genbank, predict_file
     args, path = utr_run(which)
     if which == "utr_eval":
@@ -234,7 +264,8 @@ def reference_gff(which: str) -> str:
 
 def golden_gff(which: str) -> str:
     """The GFF text of one golden, computed anew."""
-    if which.startswith("utr_") and which != "utr_tiled":
+    if which.startswith("utr_") and which not in ("utr_tiled",
+                                                   "utr_sample_depth"):
         return utr_reference(which)
     if which in ("hs04636", "hints"):
         from augustus_tpu.predict import Model, predict_file
@@ -258,6 +289,9 @@ def golden_gff(which: str) -> str:
     if which == "sample_depth":
         return predict_records(Model.load(dict(SAMPLED)), [depth_record()],
                                device="cpu")
+    if which == "utr_sample_depth":
+        return predict_records(Model.load(dict(UTR_SAMPLED)),
+                               [depth_record()], device="cpu")
     if which.startswith("mea"):
         args, fasta = mea_run(which)
         if fasta is None:
