@@ -980,6 +980,144 @@ def k2_shares(st: ScanStatic, irow, j: int):
     return out
 
 
+# K5's combine shapes (csrc/scan_lse.cu), in float32 numpy, for the CPU
+# tests of their order: a pair (m, s) stands for m + log(s); the empty pair
+# is (-inf, 0), and m is -inf or live (> GATE).
+BATCH = 4                # band entries a lane loads at once (k2_common.cuh)
+MERGE_G = 4              # lanes per segment in merge_parked
+RED_G = 4                # lanes per lane / chain state in phase C
+COMB_G = 8               # lanes per conv state in phase B
+_NINF = np.float32(-np.inf)
+
+
+def _exp(x):
+    return np.exp(np.float32(x), dtype=np.float32)
+
+
+def _tree_sum(x):
+    """The kernel's tree_sum: pairwise, neighbours first."""
+    x = [np.float32(v) for v in x]
+    w = 1
+    while w < len(x):
+        for i in range(0, len(x) - w, 2 * w):
+            x[i] = np.float32(x[i] + x[i + w])
+        w *= 2
+    return x[0]
+
+
+def _group_sum(parts):
+    """The xor shuffles of adds over a group of lanes (offsets 1, 2, ...):
+    lane 0's bits, which every lane of the group gets."""
+    s = [np.float32(v) for v in parts]
+    o = 1
+    while o < len(s):
+        s = [np.float32(s[i] + s[i ^ o]) for i in range(len(s))]
+        o *= 2
+    return s[0]
+
+
+def lse_value_ref(m, s):
+    return np.float32(m + np.log(np.float32(s), dtype=np.float32)) \
+        if m > GATE else NEG
+
+
+def lse_batch_ref(m, s, x):
+    """A lane's pair (m, s) after one batch of BATCH scores x (NEG past
+    the run): the batch's maximum, s rescaled at most once, the batch's
+    terms in tree_sum."""
+    x = np.asarray(x, np.float32)
+    bm = x.max()
+    if not bm > GATE:
+        return m, s
+    nm = max(m, bm)
+    r = _exp(m - nm) if m < nm else np.float32(1.0)
+    e = [_exp(v - nm) if v > GATE else np.float32(0.0) for v in x]
+    return nm, np.float32(np.float32(s * r) + _tree_sum(e))
+
+
+def run_pair_ref(scores):
+    """A lane's run: its scores in batches of BATCH, from the empty pair."""
+    m, s = _NINF, np.float32(0.0)
+    scores = np.asarray(scores, np.float32)
+    for b in range(0, len(scores), BATCH):
+        x = np.full(BATCH, NEG, np.float32)
+        x[: len(scores) - b] = scores[b: b + BATCH]
+        m, s = lse_batch_ref(m, s, x)
+    return m, s
+
+
+def merge_parked_ref(pm, ps):
+    """A segment's 32 parked pairs (lane l's at l) merged by a group of
+    MERGE_G lanes, lane c pairs 8 c .. 8 c + 7: the exact maximum, one
+    term per pair, each lane's tree_sum, the group's xor tree."""
+    pm = np.asarray(pm, np.float32)
+    ps = np.asarray(ps, np.float32)
+    M = pm.max()
+    k = 32 // MERGE_G
+    parts = [_tree_sum([ps[i] * _exp(pm[i] - M) if pm[i] > GATE
+                        else np.float32(0.0) for i in range(c * k, c * k + k)])
+             for c in range(MERGE_G)]
+    return M, _group_sum(parts)
+
+
+def share_piece_ref(scores, lane0=0):
+    """The pair of one warp's piece of a segment: entry e of the piece on
+    lane (lane0 + e) % 32 (lane0: the piece's first entry less the chunk's
+    first), each lane's entries as one run, then merge_parked."""
+    scores = np.asarray(scores, np.float32)
+    pairs = [run_pair_ref(scores[(l - lane0) % 32::32]) for l in range(32)]
+    return merge_parked_ref([p[0] for p in pairs], [p[1] for p in pairs])
+
+
+def seg_value_ref(pm, ps):
+    """A cut segment's value from its pieces in ascending share order: the
+    maximum, then each piece's term added in order, then M + log(S)."""
+    M = np.max(np.asarray(pm, np.float32))
+    if not M > GATE:
+        return NEG
+    s = np.float32(0.0)
+    for i, (m, v) in enumerate(zip(pm, ps)):
+        t = np.float32(np.float32(v) * _exp(np.float32(m) - M))
+        s = t if i == 0 else np.float32(s + t)
+    return np.float32(M + np.log(s, dtype=np.float32))
+
+
+def fold_variants_ref(vals):
+    """A conv state's value from its variants' values (in variant order) on
+    COMB_G lanes: lane k variants k, k + 8, ..., the group's maximum, each
+    lane's terms in order, the group's xor tree of adds."""
+    vals = np.asarray(vals, np.float32)
+    M = vals.max(initial=_NINF)
+    if not M > GATE:
+        return NEG
+    parts = []
+    for k in range(COMB_G):
+        s = np.float32(0.0)
+        for v in vals[k::COMB_G]:
+            s = np.float32(s + (_exp(v - M) if v > GATE else np.float32(0)))
+        parts.append(s)
+    return lse_value_ref(M, _group_sum(parts))
+
+
+def reduce_c_ref(cands):
+    """Phase C's logsumexp over one item's candidates (S of them, padded
+    with -inf to a multiple of 16): RED_G lanes a contiguous quarter each,
+    the group's maximum, each lane's live terms added in state order, the
+    group's xor tree of adds."""
+    c = np.asarray(cands, np.float32)
+    c = np.concatenate([c, np.full(-len(c) % 16, _NINF, np.float32)])
+    M = c.max()
+    ch = len(c) // RED_G
+    parts = []
+    for k in range(RED_G):
+        s = np.float32(0.0)
+        for v in c[k * ch: (k + 1) * ch]:
+            if v > GATE:
+                s = np.float32(s + _exp(v - M))
+        parts.append(s)
+    return lse_value_ref(M, _group_sum(parts))
+
+
 def check_limits(st: ScanStatic) -> None:
     """Raise NotImplementedError, on every device, for a piece beyond what
     csrc/scan.cu holds: more than MAX_STATES states or lanes (the lane args
@@ -1202,14 +1340,17 @@ _LSE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13 + \
     [ctypes.c_int, ctypes.c_void_p]
 
 
-def scan_table(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0):
+def scan_table(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
+               defines=()):
     """The forward rows (n, S) float32 of one piece (row j at base j, row 0
     v0), on the tables' device.
 
     CPU tensors run the plain version `scan_table_reference`; CUDA tensors
-    launch csrc/scan_lse.cu (and raise if it does not build or launch).  It
-    takes what K2 takes (`_check`: the same limits and descriptor).
-    `scan_table.launches` counts kernel launches."""
+    launch csrc/scan_lse.cu (and raise if it does not build or launch),
+    built with the preprocessor `defines` of a measurement variant when they
+    are given (K5_SIMPLE: the earlier design, serial merges; K5_SPLIT: the
+    clock64 split).  It takes what K2 takes (`_check`: the same limits and
+    descriptor).  `scan_table.launches` counts kernel launches."""
     import torch
     dev, (desc_h, fdesc_h) = _check(st, t, v0)
     if dev.type == "cpu":
@@ -1217,7 +1358,7 @@ def scan_table(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from ._build import load
-    fn = load("scan_lse").scan_table_launch
+    fn = load("scan_lse", defines).scan_table_launch
     fn.argtypes = _LSE_ARGTYPES
     fn.restype = ctypes.c_int
     n, S, NL = st.n, st.S, st.NL

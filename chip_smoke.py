@@ -9,9 +9,10 @@ line each:
 
   device  card name and power limit (nvidia-smi)
   build   nvcc of csrc/viterbi.cu, prefix.cu, trace.cu, forward.cu,
-          scan.cu and scan_lse.cu, and of the measurement builds of forward.cu (K3_TWO_PASS:
-          the earlier design; K3_SPLIT: clock64 stamps) and scan.cu
-          (K2_SIMPLE: the earlier design; K2_SPLIT: clock64 stamps), all
+          scan.cu and scan_lse.cu, and of the measurement builds of
+          forward.cu (K3_TWO_PASS: the earlier design; K3_SPLIT: clock64
+          stamps), scan.cu (K2_SIMPLE, K2_SPLIT) and scan_lse.cu
+          (K5_SIMPLE, K5_SPLIT), all
           started together (set-up time; nvcc's -Xptxas=-v report of registers,
           shared memory and spills goes to stderr)
   parity  the Viterbi kernel on the card against its plain PyTorch version
@@ -190,6 +191,16 @@ line each:
           split of a position for both (the K2_SPLIT builds): cycles of each
           phase and barrier wait by warp role, which role reaches each
           barrier last, band entries and segments per warp
+  k5_compare  on the same tables of the same three pieces, K5 against its
+          earlier design (the K5_SIMPLE build of csrc/scan_lse.cu): the same
+          finite support and |df| <= 4e-3 + 3e-6 * |f| (the new design sums
+          in another order), the largest |df| and its share of the
+          tolerance; both timed in turns (simple, new, new, simple);
+          registers, spills and shared memory of the four builds; the
+          clock64 split of a position for both (the K5_SPLIT builds): each
+          phase and barrier wait by warp role, the role and the warp that
+          reach each barrier last, phase A's runs and merges of parked
+          pairs and phase B's segment values and variant folds per warp
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.
 Then the seconds of each group of phases, the kernels line, the card line
@@ -227,12 +238,16 @@ SPLIT = ("K3_SPLIT",)       # forward.cu's cycle-stamping build
 TWO_PASS = ("K3_TWO_PASS",)  # forward.cu's earlier two-pass design
 K2_SPLIT = ("K2_SPLIT",)     # scan.cu's cycle-stamping build
 K2_SIMPLE = ("K2_SIMPLE",)   # scan.cu's earlier design, a warp per state
-# the libraries: each kernel, and forward.cu's and scan.cu's measurement
-# builds
+K5_SPLIT = ("K5_SPLIT",)     # scan_lse.cu's cycle-stamping build
+K5_SIMPLE = ("K5_SIMPLE",)   # scan_lse.cu's earlier design, serial merges
+# the libraries: each kernel, and forward.cu's, scan.cu's and
+# scan_lse.cu's measurement builds
 KERNELS = ("viterbi", "prefix", "trace", "forward", "scan", "scan_lse",
            ("forward", TWO_PASS), ("forward", SPLIT),
            ("forward", SPLIT + TWO_PASS), ("scan", K2_SIMPLE),
-           ("scan", K2_SPLIT), ("scan", K2_SPLIT + K2_SIMPLE))
+           ("scan", K2_SPLIT), ("scan", K2_SPLIT + K2_SIMPLE),
+           ("scan_lse", K5_SIMPLE), ("scan_lse", K5_SPLIT),
+           ("scan_lse", K5_SPLIT + K5_SIMPLE))
 # forward_parity's largest |df| per piece as PERF.md recorded it for the
 # two-pass design before the redesign (H100 80GB HBM3, 700 W)
 RECORDED_MAX_DF = {"HS04636": 9.77e-4, "HS04636sm_hints": 9.77e-4,
@@ -243,7 +258,8 @@ SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
 SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
                   "keep_viterbi": "true"}
 SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence sampled
-K2_COMPARE_DEPTH = 100_000  # bases of full_utr's piece that k2_compare takes
+# bases of full_utr's piece that k2_compare and k5_compare take
+K2_COMPARE_DEPTH = 100_000
 MEA_ARGS = {"mea": "1"}
 NOLOGREG = {"/CompPred/logreg": "false"}
 # the GenBank sets of eval_genbank and their goldens
@@ -715,6 +731,26 @@ def forward_parity_finish(started, card):
     return rows
 
 
+def fetch_split(name, build, prefix, slots):
+    """The clock64 split of the last launch of csrc/<name>.cu built with
+    `build`: {slot: per-warp cycles (float64)}, read through its
+    <prefix>_split_warps / _slots / _fetch functions."""
+    import ctypes
+    import numpy as np
+    from augustus_tpu_torch.engine import _build
+    lib = _build.load(name, build)
+    nw = getattr(lib, f"{prefix}_split_warps")()
+    ns = getattr(lib, f"{prefix}_split_slots")()
+    if ns != len(slots):
+        raise AssertionError(f"{name}.cu has {ns} split slots")
+    buf = np.zeros((nw, ns), np.uint64)
+    err = getattr(lib, f"{prefix}_split_fetch")(
+        ctypes.c_void_p(buf.ctypes.data))
+    if err:
+        raise RuntimeError(f"{prefix}_split_fetch: CUDA error {err}")
+    return {k: buf[:, i].astype(np.float64) for i, k in enumerate(slots)}
+
+
 SPLIT_SLOTS = ("stage", "bar1", "work", "bar2", "lane", "entries",
                "max_entries", "over_kept", "gated", "last1", "last2", "gap2",
                "loop")
@@ -728,23 +764,14 @@ def k3_split(st, planes, defines=()):
     update on warps 0-1), the share of positions in which each role reached
     each barrier last and its lead at the second, and the clipped entries
     per gated position of each warp that takes one conv only."""
-    import ctypes
     import numpy as np
     import torch
-    from augustus_tpu_torch.engine import _build
     from augustus_tpu_torch.engine.forward import forward_table
     build = SPLIT + tuple(defines)
     forward_table(st, planes, build)
     torch.cuda.synchronize()
-    lib = _build.load("forward", build)
-    nw, ns = lib.forward_split_warps(), lib.forward_split_slots()
-    if ns != len(SPLIT_SLOTS):
-        raise AssertionError(f"forward.cu has {ns} split slots")
-    buf = np.zeros((nw, ns), np.uint64)
-    err = lib.forward_split_fetch(ctypes.c_void_p(buf.ctypes.data))
-    if err:
-        raise RuntimeError(f"forward_split_fetch: CUDA error {err}")
-    c = {k: buf[:, i].astype(np.float64) for i, k in enumerate(SPLIT_SLOTS)}
+    c = fetch_split("forward", build, "forward", SPLIT_SLOTS)
+    nw = len(c["loop"])
     pos = st.n - 1
     two_pass = TWO_PASS[0] in defines
     n_groups = -(-len(st.chain_states) // 32)
@@ -807,6 +834,37 @@ def res_usage(defines=(), name="forward",
     return m.group(1) if m else out
 
 
+def segment_role(st, w):
+    """What warp w does in phases 2 and 3 of the segment design that K2 and
+    K5 share (csrc/k2_common.cuh): phase 2 four conv / lessD states a warp
+    on warps 0-10 (FP_WARP), the fixed and pinned states on warp 11, the
+    next position's segments on warps 12-15 (SEG_WARP); phase 3 eight lanes
+    / chain states a warp."""
+    ncomb = len(st.convs) + len(st.lessd)
+    nred = st.NL + len(st.chain)
+    b = ("combine" if w < 11 and 4 * w < ncomb else
+         "fixed+pinned" if w == 11 else
+         "next segments" if w >= 12 else "idle")
+    r = "lanes+chain" if 8 * w < nred else "idle"
+    return f"2: {b}, 3: {r}"
+
+
+def barrier_roles(c, npos, roles):
+    """From a three-barrier split (K2's or K5's slots w1 .. bar3, last1 ..
+    last3): per role each warp's work and wait per position at each
+    barrier (mean and max over the role's warps), and the share of
+    positions in which each role arrived last."""
+    out = {r: {k: {"mean": float(c[k][ws].mean() / npos),
+                   "max": float(c[k][ws].max() / npos)}
+               for k in ("w1", "bar1", "w2", "bar2", "w3", "bar3")}
+           for r, ws in roles.items()}
+    for b in ("last1", "last2", "last3"):
+        out[f"{b}_share_by_role"] = {
+            r: float(c[b][ws].sum() / npos) for r, ws in roles.items()
+            if c[b][ws].sum()}
+    return out
+
+
 K2_SLOTS = ("w1", "bar1", "w2", "bar2", "w3", "bar3", "entries", "segs",
             "max_entries", "band", "loads", "red", "last1", "last2",
             "last3", "ph1", "ph2", "ph3", "npos")
@@ -826,23 +884,13 @@ def k2_split(st, t, v0, defines=()):
     release to its arrival and its wait until the release, the share of
     positions in which each role arrived last, and the band entries,
     segment pieces and cycles in band walks of each warp."""
-    import ctypes
-    import numpy as np
     import torch
-    from augustus_tpu_torch.engine import _build
     from augustus_tpu_torch.engine.scan import scan_forward
     build = K2_SPLIT + tuple(defines)
     scan_forward(st, t, v0, defines=build)
     torch.cuda.synchronize()
-    lib = _build.load("scan", build)
-    nw, ns = lib.k2_split_warps(), lib.k2_split_slots()
-    if ns != len(K2_SLOTS):
-        raise AssertionError(f"scan.cu has {ns} split slots")
-    buf = np.zeros((nw, ns), np.uint64)
-    err = lib.k2_split_fetch(ctypes.c_void_p(buf.ctypes.data))
-    if err:
-        raise RuntimeError(f"k2_split_fetch: CUDA error {err}")
-    c = {k: buf[:, i].astype(np.float64) for i, k in enumerate(K2_SLOTS)}
+    c = fetch_split("scan", build, "k2", K2_SLOTS)
+    nw = len(c["npos"])
     npos = max(c["npos"][0], 1.0)     # positions with all three phases
     pos = st.n - 1
     simple = K2_SIMPLE[0] in defines
@@ -855,19 +903,9 @@ def k2_split(st, t, v0, defines=()):
             return "+".join(sorted({kinds[i] for i in range(w, len(kinds),
                                                          nw)})) or "idle"
     else:
-        # csrc/scan.cu: phase 1 bands on every warp; phase 2 4 conv / lessD
-        # states a warp on warps 0-13, the fixed and pinned states on warp
-        # 14, the next segments on warp 15; phase 3 8 lanes / chain states
-        # a warp
-        ncomb = len(st.convs) + len(st.lessd)
-        nred = st.NL + len(st.chain)
-
+        # phase 1 bands on every warp; phases 2 and 3 as segment_role says
         def role(w):
-            b = ("combine" if w < 14 and 4 * w < ncomb else
-                 "fixed+pinned" if w == 14 else
-                 "next segments" if w == 15 else "idle")
-            r = "lanes+chain" if 8 * w < nred else "idle"
-            return f"2: {b}, 3: {r}"
+            return segment_role(st, w)
     roles = {}
     for w in range(nw):
         roles.setdefault(role(w), []).append(w)
@@ -879,14 +917,7 @@ def k2_split(st, t, v0, defines=()):
            "phase_cycles": {ph: float(c[k][0] / npos) for ph, k in
                             zip(phases, ("ph1", "ph2", "ph3"))},
            "roles": roles}
-    for r, ws in roles.items():
-        out[r] = {k: {"mean": float(c[k][ws].mean() / npos),
-                      "max": float(c[k][ws].max() / npos)}
-                  for k in ("w1", "bar1", "w2", "bar2", "w3", "bar3")}
-    for b in ("last1", "last2", "last3"):
-        out[f"{b}_share_by_role"] = {
-            r: float(c[b][ws].sum() / npos) for r, ws in roles.items()
-            if c[b][ws].sum()}
+    out.update(barrier_roles(c, npos, roles))
     for k in ("band", "loads", "red"):
         out[f"{k}_cycles_per_position_by_warp"] = [
             round(float(x / pos)) for x in c[k]]
@@ -898,50 +929,159 @@ def k2_split(st, t, v0, defines=()):
     return out
 
 
-def phase_k2_compare(device, pieces, card):
+def k2_compare_row(name, st, t, v0, usage, card):
     """scan.cu's design against its earlier one (the K2_SIMPLE build) on
     the same tables: values, backpointers and final column bit-equal; timed
     in turns (simple, new, new, simple); registers, spills and shared
-    memory of both builds; the clock64 split of both (the K2_SPLIT
-    builds)."""
+    memory of the four builds (`usage`); the clock64 split of both (the
+    K2_SPLIT builds)."""
     import numpy as np
     import torch
     from augustus_tpu_torch.engine.scan import scan_forward
+    new = scan_forward(st, t, v0, debug_vals=True)
+    old = scan_forward(st, t, v0, debug_vals=True, defines=K2_SIMPLE)
+    torch.cuda.synchronize()
+    if not (torch.equal(new[0], old[0]) and
+            torch.equal(new[1].view(torch.int32),
+                        old[1].view(torch.int32)) and
+            torch.equal(new[2].view(torch.int32),
+                        old[2].view(torch.int32))):
+        raise AssertionError(f"k2_compare {name}: the new design and "
+                             "K2_SIMPLE differ")
+    del new, old
+    turns = {K2_SIMPLE: [], (): []}
+    for d in (K2_SIMPLE, (), (), K2_SIMPLE):
+        turns[d].append(time_cuda(
+            lambda: scan_forward(st, t, v0, defines=d), 1))
+    simple, new_ms = (float(np.mean(turns[d])) for d in (K2_SIMPLE, ()))
+    row = {"phase": "k2_compare", "piece": name, "n": st.n, "S": st.S,
+           "NHW": st.NHW, "bit_equal_to_simple": True,
+           "simple_ms": turns[K2_SIMPLE], "new_ms": turns[()],
+           "simple_us_per_position": simple * 1e3 / st.n,
+           "new_us_per_position": new_ms * 1e3 / st.n,
+           "speedup": simple / new_ms, "res_usage": usage,
+           "split_simple": k2_split(st, t, v0, K2_SIMPLE),
+           "split_new": k2_split(st, t, v0), "card": card}
+    emit(row)
+    return row
+
+
+K5_SLOTS = ("w1", "bar1", "w2", "bar2", "w3", "bar3", "entries", "pieces",
+            "max_entries", "runs", "merge", "bseg", "bfold", "last1",
+            "last2", "last3", "ph1", "ph2", "ph3", "min1", "min2", "min3",
+            "npos")
+K5_PHASES = ("A: row staging, the band shares' runs and merges",
+             "B: conv and lessD states, fixed and pinned states (and the "
+             "previous row, new design), next segments",
+             "C: lanes and next chain states")
+
+
+def k5_split(st, t, v0, defines=()):
+    """One launch of scan_lse.cu's K5_SPLIT build (with `defines`): per
+    position, each phase from barrier release to barrier release; by warp
+    role (segment_role) each warp's work from the previous release to its
+    arrival and its wait until the release, and the share of positions in
+    which each role and each warp arrived last; per warp phase A's runs
+    and merges of the parked pairs, phase B's segment values and variant
+    folds (warps 0-10), band entries and segment pieces."""
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_table
+    build = K5_SPLIT + tuple(defines)
+    scan_table(st, t, v0, defines=build)
+    torch.cuda.synchronize()
+    c = fetch_split("scan_lse", build, "k5", K5_SLOTS)
+    nw = len(c["npos"])
+    npos = max(c["npos"][0], 1.0)     # positions with all three phases
+    pos = st.n - 1
+    roles = {}
+    for w in range(nw):
+        roles.setdefault(segment_role(st, w), []).append(w)
+    out = {"design": "simple" if K5_SIMPLE[0] in defines else "new",
+           "warps": nw, "positions": int(npos),
+           "cycles_per_position": float(
+               (c["ph1"][0] + c["ph2"][0] + c["ph3"][0]) / npos),
+           "phase_cycles": {ph: float(c[k][0] / npos) for ph, k in
+                            zip(K5_PHASES, ("ph1", "ph2", "ph3"))},
+           # the position with the least work in each phase: the chain
+           # that every position waits for
+           "min_phase_cycles": {ph: int(c[k][0]) for ph, k in
+                                zip(K5_PHASES, ("min1", "min2", "min3"))},
+           "roles": roles}
+    out.update(barrier_roles(c, npos, roles))
+    for b in ("last1", "last2", "last3"):
+        out[f"{b}_share_by_warp"] = [round(float(x / npos), 4)
+                                     for x in c[b]]
+    for k in ("runs", "merge", "bseg", "bfold"):
+        out[f"{k}_cycles_per_position_by_warp"] = [
+            round(float(x / pos)) for x in c[k]]
+    out["entries_per_position_by_warp"] = [
+        round(float(x / pos), 1) for x in c["entries"]]
+    out["max_entries_by_warp"] = [int(x) for x in c["max_entries"]]
+    out["pieces_per_position_by_warp"] = [
+        round(float(x / pos), 2) for x in c["pieces"]]
+    return out
+
+
+def k5_compare_row(name, st, t, v0, usage, card):
+    """scan_lse.cu's design against its earlier one (the K5_SIMPLE build)
+    on the same tables: the same finite support and |df| <= 4e-3 + 3e-6 * |f|
+    (the sums run in another order), the largest |df| and its share; both
+    timed in turns (simple, new, new, simple); registers, spills and shared
+    memory of the four builds (`usage`); the clock64 split of both (the
+    K5_SPLIT builds)."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_table
+    new = scan_table(st, t, v0)
+    old = scan_table(st, t, v0, defines=K5_SIMPLE)
+    torch.cuda.synchronize()
+    err, share = fwd_gate(st, old, new, f"k5_compare {name}")
+    same_bits = bool(torch.equal(new.view(torch.int32),
+                                 old.view(torch.int32)))
+    del new, old
+    turns = {K5_SIMPLE: [], (): []}
+    for d in (K5_SIMPLE, (), (), K5_SIMPLE):
+        turns[d].append(time_cuda(
+            lambda: scan_table(st, t, v0, defines=d), 1))
+    simple, new_ms = (float(np.mean(turns[d])) for d in (K5_SIMPLE, ()))
+    row = {"phase": "k5_compare", "piece": name, "n": st.n, "S": st.S,
+           "NHW": st.NHW, "support": "identical",
+           "tolerance": f"{FWD_ABS_TOL} + {FWD_REL_TOL} * |f|",
+           "max_abs_df_vs_simple": err, "max_tolerance_share": share,
+           "bit_equal_to_simple": same_bits,
+           "simple_ms": turns[K5_SIMPLE], "new_ms": turns[()],
+           "simple_us_per_position": simple * 1e3 / st.n,
+           "new_us_per_position": new_ms * 1e3 / st.n,
+           "speedup": simple / new_ms, "res_usage": usage,
+           "split_simple": k5_split(st, t, v0, K5_SIMPLE),
+           "split_new": k5_split(st, t, v0), "card": card}
+    emit(row)
+    return row
+
+
+def build_usage(name, kernel, simple, split):
+    """res_usage of a source's four builds: the design, its earlier one,
+    and the split builds of both."""
+    return {"new": res_usage((), name, kernel),
+            "simple": res_usage(simple, name, kernel),
+            "new_split": res_usage(split, name, kernel),
+            "simple_split": res_usage(split + simple, name, kernel)}
+
+
+def phase_band_compare(device, pieces, card):
+    """k2_compare and k5_compare on the same tables of each piece (name,
+    model, record, bases): K2 against its K2_SIMPLE build, then K5 against
+    its K5_SIMPLE build."""
+    import torch
     from augustus_tpu_torch.predict import piece_scan
-    usage = {"new": res_usage((), "scan", "scan_forward_kernel"),
-             "simple": res_usage(K2_SIMPLE, "scan", "scan_forward_kernel"),
-             "new_split": res_usage(K2_SPLIT, "scan", "scan_forward_kernel"),
-             "simple_split": res_usage(K2_SPLIT + K2_SIMPLE, "scan",
-                                       "scan_forward_kernel")}
+    usage2 = build_usage("scan", "scan_forward_kernel", K2_SIMPLE, K2_SPLIT)
+    usage5 = build_usage("scan_lse", "scan_table_kernel", K5_SIMPLE,
+                         K5_SPLIT)
     rows = []
     for name, model, rec, n in pieces:
         st, t, v0, _ = piece_scan(model, rec, n, device)
-        new = scan_forward(st, t, v0, debug_vals=True)
-        old = scan_forward(st, t, v0, debug_vals=True, defines=K2_SIMPLE)
-        torch.cuda.synchronize()
-        if not (torch.equal(new[0], old[0]) and
-                torch.equal(new[1].view(torch.int32),
-                            old[1].view(torch.int32)) and
-                torch.equal(new[2].view(torch.int32),
-                            old[2].view(torch.int32))):
-            raise AssertionError(f"k2_compare {name}: the new design and "
-                                 "K2_SIMPLE differ")
-        del new, old
-        turns = {K2_SIMPLE: [], (): []}
-        for d in (K2_SIMPLE, (), (), K2_SIMPLE):
-            turns[d].append(time_cuda(
-                lambda: scan_forward(st, t, v0, defines=d), 1))
-        simple, new_ms = (float(np.mean(turns[d])) for d in (K2_SIMPLE, ()))
-        row = {"phase": "k2_compare", "piece": name, "n": st.n, "S": st.S,
-               "NHW": st.NHW, "bit_equal_to_simple": True,
-               "simple_ms": turns[K2_SIMPLE], "new_ms": turns[()],
-               "simple_us_per_position": simple * 1e3 / st.n,
-               "new_us_per_position": new_ms * 1e3 / st.n,
-               "speedup": simple / new_ms, "res_usage": usage,
-               "split_simple": k2_split(st, t, v0, K2_SIMPLE),
-               "split_new": k2_split(st, t, v0), "card": card}
-        emit(row)
-        rows.append(row)
+        rows.append(k2_compare_row(name, st, t, v0, usage2, card))
+        rows.append(k5_compare_row(name, st, t, v0, usage5, card))
         del t
         torch.cuda.empty_cache()
     return rows
@@ -1843,11 +1983,11 @@ def main() -> int:
     lap("full_forward, k3_compare")
     phase_full_utr_forward(device, utr, rec, card)
     lap("full_utr_forward")
-    phase_k2_compare(device, [("HS04636_6kb", utr, hs04636, 6000),
-                              ("47_state_6kb", model, hs04636, 6000),
-                              ("full_utr_100kb", utr, rec,
-                               K2_COMPARE_DEPTH)], card)
-    lap("k2_compare")
+    phase_band_compare(device, [("HS04636_6kb", utr, hs04636, 6000),
+                                ("47_state_6kb", model, hs04636, 6000),
+                                ("full_utr_100kb", utr, rec,
+                                 K2_COMPARE_DEPTH)], card)
+    lap("k2_compare, k5_compare")
     emit({"phase": "seconds", "by_phase": laps,
           "total": time.perf_counter() - t_start})
 

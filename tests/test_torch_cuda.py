@@ -288,8 +288,9 @@ def test_utr_prediction_on_the_card_reproduces_the_golden(cuda):
 def test_scan_table_kernel_equals_plain_version(cuda, fasta, n, hints,
                                                 temperature):
     """K5 (csrc/scan_lse.cu) on UTR pieces of the 71-state fixture against
-    its plain version on host copies: the same finite support and |df| <=
-    4e-3 + 3e-6 * |f|; two launches bit-identical, one count each."""
+    its plain version on host copies and against its earlier design (the
+    K5_SIMPLE build): the same finite support and |df| <= 4e-3 + 3e-6 *
+    |f|; two launches bit-identical, one count each."""
     from augustus_tpu_torch.engine import scan as S
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.predict import Model, piece_scan
@@ -312,10 +313,14 @@ def test_scan_table_kernel_equals_plain_version(cuda, fasta, n, hints,
     torch.cuda.synchronize()
     assert S.scan_table.launches == before + 2
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    simple = S.scan_table(st, dev, v0.to(cuda), defines=("K5_SIMPLE",))
+    torch.cuda.synchronize()
+    assert S.scan_table.launches == before + 3
     ref, sfu = S.scan_table_reference(st, host, v0)
-    g, r = got.cpu().numpy(), ref.numpy()
-    live = r > -5.0e29
-    assert np.array_equal(live, g > -5.0e29)
-    assert live.sum() > 10_000 and sfu > 0
-    assert (np.abs(g[live] - r[live]) <=
-            4e-3 + 3e-6 * np.abs(r[live])).all()
+    g = got.cpu().numpy()
+    for r in (ref.numpy(), simple.cpu().numpy()):
+        live = r > -5.0e29
+        assert np.array_equal(live, g > -5.0e29)
+        assert live.sum() > 10_000 and sfu > 0
+        assert (np.abs(g[live] - r[live]) <=
+                4e-3 + 3e-6 * np.abs(r[live])).all()
