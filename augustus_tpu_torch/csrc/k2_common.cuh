@@ -91,7 +91,7 @@ enum { SG_REC, SG_VAR, SG_GATE, SG_SMIN, SG_SMAX, SG_BOFF, SG_VLO, SG_VHI,
 
 // the tables both kernels read
 struct Tables {
-  const float* fdesc;       // hint_lm[5], then the length vectors
+  const float* fdesc;       // hint_lm[6], then the length vectors
   const float* G_all;       // (NG, C, 3, GL)
   const float* cum_all;     // (NCU, C, CL)
   const float* log_trans;   // (C, S, S) [c][p][s]
@@ -106,8 +106,10 @@ struct Tables {
 };
 
 // augustus_tpu/engine/scan.py:_hint_quot at one begin b (entry w of a band
-// of len_hi), term for term in its operand order; out of line, since only
-// hinted bands call it
+// of len_hi), term for term in its operand order; exclass 4 is the nc
+// model's quotient (augustus_tpu/engine/gold_nc.py:_not_end_part) over the
+// nc hint tables (engine/device.py:_nc_hint_tables); out of line, since
+// only hinted bands call it
 __device__ __noinline__ float hint_quot(const int* h, const float* srow,
                                         const int* irow, const float* hw,
                                         int HL, int GPAD, const float* lm,
@@ -160,7 +162,7 @@ __device__ __noinline__ float hint_quot(const int* h, const float* srow,
     float cond = (bob == pk && kd == 1) ? 1.0f : 0.0f;
     quot = quot + wk * cond;
     sup_cds = fmaxf(sup_cds, cond);
-    if (exclass == 1) {
+    if (exclass == 1 || exclass == 4) {
       cond = (bob == pk && kd == 2) ? 1.0f : 0.0f;
       quot = quot + wk * cond;
       sup_ex = fmaxf(sup_ex, cond);
@@ -178,6 +180,19 @@ __device__ __noinline__ float hint_quot(const int* h, const float* srow,
       quot = quot + (0.5f * wk) * cond;
       sup_ex = fmaxf(sup_ex, cond);
     }
+  }
+  if (exclass == 4) {
+    // the nc model (gold_nc._not_end_part): no CDS or CDSpart terms, the
+    // exonpart local malus lm[5] from one hint inside on, none when it is 1
+    quot = quot + lm[2] * (1.0f - sup_ex);
+    const float lenv = (float)len_hi - (float)w;
+    const float d_ep = lenv - (srow[X[X_CNTE_EP]] - WR(W_CNTE_EP, c1));
+    quot = quot + (d_ep > 0.0f ? d_ep * lm[0] : 0.0f);
+    if (lm[5] == 0.0f) return quot;
+    const float zc = srow[X[X_ZC]] - WR(W_ZC, c1);
+    float lpm = zc > 0.0f ? zc * lm[5] : 0.0f;
+    lpm = fmaxf(lpm, -part_bonus);
+    return quot + (nep >= 0.5f ? lpm : 0.0f);
   }
   quot = (quot + lm[2] * (1.0f - sup_ex)) + lm[3] * (1.0f - sup_cds);
   const float lenv = (float)len_hi - (float)w;

@@ -287,6 +287,12 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
             uc.max3term + cn.ass_whole_size + cn.ass_upwindow_size)
         gpad = max(gpad, ((need + 96 + 127) // 128) * 128)
 
+    if any(mc == "ncmodel" for mc in sg.model_class):
+        # the nc exon bands reach back to the sequence start (a hinted
+        # exon's begin) or the longest nc exon, whichever is nearer
+        gpad = max(gpad, ((_nc_reach(eng) + 96 + 127) // 128) * 128)
+    nc_chain: List[tuple] = []
+
     tr = DPTracks(n=n, S=S, n_classes=C, n_lanes=0, gpad=gpad,
                   stairs=U.astype(eng.stairs, np.int32),
                   log_trans=np.stack([_f32h(lt) for lt in eng.log_trans]),
@@ -483,21 +489,46 @@ def build_tracks(eng: GoldEngine) -> DPTracks:
                 lane = new_lane(s, anc)
             tr.exon_conv.append(
                 _build_exon_conv(eng, s, t, lane, frame_mode, pool))
+        elif sg.model_class[s] == "ncmodel":
+            from .gold_nc import NC_CHAIN, NC_VAR
+            if t in NC_CHAIN:
+                tr.chain.append(ChainState(s, _nc_chain_emi(eng, s, t, anc)))
+                nc_chain.append((s, anc))
+            elif t in NC_VAR:
+                if hints_on:     # the state exists only through intron hints
+                    tr.exon_pinned.append(_build_nc_intronvar(
+                        eng, s, t, new_lane(s, anc)))
+            else:
+                tr.exon_conv.append(_build_nc_conv(
+                    eng, s, t, new_lane(s, anc), pool, gpad))
         else:
-            # ncRNA states are a later slice of the port
-            raise NotImplementedError(
-                f"state type {t.name}: ncRNA states are not ported yet "
-                "(--nc=off)")
+            raise ValueError(f"state {s}: unknown model class "
+                             f"{sg.model_class[s]}")
 
     NL = len(lane_rows)
     tr.n_lanes = NL
     tr.lane_trans = np.stack(lane_rows).astype(np.float32)
     tr.lane_target = np.array(lane_tgt, dtype=np.int32)
-    if hints_on and getattr(eng, "_device_sparse_hints", False):
-        tr.hint_tables = _hint_tables_cached(eng, gpad)
+    nc_hinted = hints_on and any(mc == "ncmodel" for mc in sg.model_class)
+    if hints_on and (getattr(eng, "_device_sparse_hints", False)
+                     or nc_hinted):
+        tr.hint_tables = {}
+        if getattr(eng, "_device_sparse_hints", False):
+            tr.hint_tables.update(_hint_tables_cached(eng, gpad))
+        if nc_hinted:
+            tr.hint_tables.update(_nc_hint_tables(eng, gpad))
         tr.hint_lm = {k: float(lm[k])
                       for k in ("exonpart", "CDSpart", "exon", "CDS")}
         tr.hint_lm["local_cp"] = float(eng.log_local_malus_cp)
+        if nc_hinted:
+            tr.hint_lm["local_ep"] = float(eng.log_local_malus_ep)
+    if hints_on:
+        # the nc intron chain pays the intron malus on entry: from every
+        # other state (gold_nc.nc_cands, anc != s) in its transition column
+        for s, anc in nc_chain:
+            for p in anc:
+                if p != s:
+                    tr.log_trans[:, p, s] += lm["intron"]
     _finalize_tracks(tr, eng, pool)
     return tr
 
@@ -1718,6 +1749,297 @@ def _build_utr_conv(eng, s, t, lane: int, pool: Pool, gpad: int):
 
 
 # ---------------------------------------------------------------------------
+# ncRNA states (gold_nc.nc_cands, reference src/ncmodel.cc)
+# ---------------------------------------------------------------------------
+
+def _nc_geometry(cn, t: ST):
+    """(fwd, off_b, bo, Ke, Kb, Kh, Kl) of an nc exon type: bob = b + off_b,
+    ebx = j + bo, the middle runs from b + Kb to j - Ke (gold_nc.
+    _not_end_part, get_end_positions), the predecessor ends lie in
+    [j - Kl, j - Kh] (gold_nc.nc_cands)."""
+    dws, aws = cn.dss_whole_size, cn.ass_whole_size
+    aup, astart, dend = cn.ass_upwindow_size, cn.ass_start, cn.dss_end
+    mel = cn.max_exon_len
+    a_in = aup + astart + ASS_MIDDLE       # ass window before the exon
+    d_in = dend + DSS_MIDDLE               # dss window after the exon
+    single = (1, mel)
+    init = (dws, mel + d_in)
+    internal = (d_in + a_in + 1, mel + d_in + a_in)
+    term = (aup + aws, mel + a_in)
+    return {
+        ST.ncsingle: (True, 0, 0, 0, 0) + single,
+        ST.ncinit: (True, 0, -d_in, dws, 0) + init,
+        ST.ncinternal: (True, a_in, -d_in, dws, aup + aws) + internal,
+        ST.ncterm: (True, a_in, 0, 0, aup + aws) + term,
+        ST.rncsingle: (False, 0, 0, 0, 0) + single,
+        ST.rncinternal: (False, d_in, -a_in, aws + aup, dws) + internal,
+        ST.rncterm: (False, 0, -a_in, aws + aup, 0) + term,
+        ST.rncinit: (False, d_in, 0, 0, dws) + init,
+    }[t]
+
+
+def _nc_reach(eng) -> int:
+    """The longest nc exon band back from its end position, in begins
+    (b >= 1, so at most the piece's length)."""
+    cn = eng.cn
+    reach = 0
+    for t in (ST.ncsingle, ST.ncinit, ST.ncinternal, ST.ncterm,
+              ST.rncsingle, ST.rncinit, ST.rncinternal, ST.rncterm):
+        _, off_b, bo, _, _, _, Kl = _nc_geometry(cn, t)
+        reach = max(reach, min(Kl, eng.n) + abs(bo) + abs(off_b) + 2)
+    return reach
+
+
+def _nc_chain_emi(eng, s: int, t: ST, anc) -> np.ndarray:
+    """ncintron / rncintron: per-base intron content plus the intronpart
+    bonus (gold_nc.nc_cands NC_CHAIN branch); the intron malus on entry is
+    in the transition column (build_tracks).  At j = 1 every predecessor
+    pays it (endOfPred == 0): the self-loop's share is added to the
+    emission there, exact while no other ancestor may start the piece."""
+    C = len(eng.inp.gc)
+    n = eng.n
+    fwd = t == ST.ncintron
+    hints_on = eng.hints is not None
+    emi = np.stack([np.asarray(eng.intron_f[c], np.float64).copy()
+                    for c in range(C)])
+    if hints_on:
+        emi += (eng.ipb_plus if fwd else eng.ipb_minus)[None, :]
+        li = eng.log_init
+        if li[s] > NEG_INF and n > 1:
+            if any(li[p] > NEG_INF for p in anc if p != s):
+                raise NotImplementedError(
+                    f"state {t.name}: the piece may start in it and in one "
+                    "of its other predecessors, so the intron malus at "
+                    "position 1 is not one term")
+            emi[:, 1] += eng.log_malus["intron"]
+    return _f32(emi)
+
+
+def _build_nc_intronvar(eng, s: int, t: ST, lane: int) -> ExonPinnedState:
+    """ncintronvar / rncintronvar: the variable-length nc intron that an
+    intron hint ending exactly at the splice site gives (gold_nc.
+    _nc_intronvar_cands), one far-back candidate per position.  Hints of
+    one end and one start add their bonuses in list order; the best
+    running sum is the candidate (its predecessor and value are the same
+    for every sum).  Hints of one end with two starts would need two
+    candidates, which K2's pinned record does not hold: refused."""
+    cn, n = eng.cn, eng.n
+    sp = eng.splice
+    C = len(eng.inp.gc)
+    fwd = t == ST.ncintronvar
+    strand = "+" if fwd else "-"
+    a_in = cn.ass_upwindow_size + cn.ass_start + ASS_MIDDLE
+    d_in = DSS_MIDDLE + cn.dss_end
+    min_len = a_in + d_in
+    eop = np.full(n, -1, dtype=np.int32)
+    score = np.full((C, n), NEG_INF)
+    hits: Dict[int, list] = {}
+    for f in eng.hints.by_type["intron"]:
+        if f.strand in (strand, "."):
+            hits.setdefault(f.end, []).append(f)
+    d = eng.inp.d
+    log_ld_d = float(eng.log_len_intron[d])
+    for ebi, fs in hits.items():
+        j = ebi - (a_in if fwd else d_in)
+        if not (0 <= ebi < n) or j < 1 or j >= n:
+            continue
+        if fwd and not T.is_possible_ass(sp.ass_ok, ebi):
+            continue
+        if not fwd and not T.is_possible_rdss(sp.rdss_ok, ebi):
+            continue
+        best: Dict[int, float] = {}
+        old_eop, quot = None, 0.0
+        for f in fs:
+            e = f.start - 1 + (d_in if fwd else a_in)
+            if e < 0 or (f.end - f.start + 1) < min_len:
+                continue
+            quot = quot + float(np.log(f.bonus)) if e == old_eop \
+                else float(np.log(f.bonus))
+            best[e] = max(best.get(e, NEG_INF), quot)
+            old_eop = e
+        if not best:
+            continue
+        if len(best) > 1:
+            raise NotImplementedError(
+                f"state {t.name} at position {j}: intron hints ending at "
+                f"{ebi} with {len(best)} different starts; the general "
+                "Viterbi kernel's pinned states take one candidate per "
+                "position")
+        (e, q), = best.items()
+        bio_len = (j - (e + 1) + 1) + (d_in if fwd else a_in)
+        for c in range(C):
+            mal = eng.inp.gc[c].mal
+            log_geo = float(np.log(1.0 - 1.0 / mal)) if mal > 0 else NEG_INF
+            cum = eng.cum_intron_f[c]
+            emi = (cum[j + 1] - cum[min(max(e + 1, 0), n)]) + \
+                (log_ld_d + (bio_len - d) * log_geo)
+            score[c, j] = emi + q
+        eop[j] = e
+    return ExonPinnedState(state=s, lane=lane, eop=eop, score=_f32(score))
+
+
+def _nc_narrow_lo(eng, fwd: bool, bo: int, Kl: int, hi, lo0):
+    """The first predecessor end of every position after the hinted-exon
+    narrowing (gold_nc.nc_cands, allowOnlyExonHintedNCExons): the least
+    start of the exon / exonpart hints that overlap [lo0, ebx], when it
+    lies after lo0, moved back to hi - 200 where it is nearer than that."""
+    n = eng.n
+    min_e = hi + 1
+    if eng.hints is not None:
+        strand = "+" if fwd else "-"
+        minstart = np.full(n, np.iinfo(np.int64).max, dtype=np.int64)
+        for f in eng.hints.ovlping(["exon", "exonpart"], -(1 << 40),
+                                   1 << 40, strand):
+            if f.end < 0:
+                continue
+            j0 = max(f.start - bo, 0)
+            j1 = min(f.end + Kl, n - 1)
+            if j0 <= j1:
+                np.minimum(minstart[j0: j1 + 1], f.start,
+                           out=minstart[j0: j1 + 1])
+        min_e = np.minimum(min_e, minstart)
+    lo = np.where(min_e > lo0, min_e, lo0)
+    return np.where((min_e > lo0) & (lo > hi - 200),
+                    np.maximum(hi - 200, 0), lo)
+
+
+def _build_nc_conv(eng, s: int, t: ST, lane: int, pool: Pool, gpad: int):
+    """One nc exon state as banded max-plus convolution variants (gold
+    oracle: gold_nc.nc_cands / _not_end_part).  With a_off = bo - off_b + 1,
+    len := j + a_off - b is the biological exon length ebx - bob + 1.  The
+    begin-side terms (tss/tts track or splice score at b, -cum at the
+    middle's start, and with hints the dss/ass adjustment at bob - 1 and
+    the intronpart bonus of the leading splice window) are functions of b
+    (G); the end part (tss/tts track or splice score, its hint
+    adjustments, +cum at the middle's end) of j (H); the length
+    distribution and the ncterm / rncterm -span*log 4 fallback of short
+    exons fold into the length vectors, split where the middle's span
+    changes sign.  The hinted-exon narrowing is the per-position
+    [start_min, start_max]; the hint quotient (extrinsicQuot, ncmodel.cc
+    :575-674) is exclass 4 of the sparse hint machinery."""
+    cn, n = eng.cn, eng.n
+    C = len(eng.inp.gc)
+    sp = eng.splice
+    hints_on = eng.hints is not None
+    fwd, off_b, bo, Ke, Kb, Kh, Kl = _nc_geometry(cn, t)
+    a_off = bo - off_b + 1
+    jj = np.arange(n)
+    be = np.arange(-gpad, n + END_PAD)       # extended begin domain
+    n_ext = be.shape[0]
+
+    def gather(arr, idx, size):
+        ok = (idx >= 0) & (idx < size)
+        return np.where(ok, np.asarray(arr)[np.clip(idx, 0, size - 1)],
+                        NEG_INF)
+
+    # ---- end part (H side, before the middle's cum) ----------------------
+    if t in (ST.ncsingle, ST.ncterm):
+        end_list = [eng.nc_tts_plus[:n]] * C
+    elif t in (ST.rncsingle, ST.rncinit):
+        end_list = [eng.nc_tss_minus[:n]] * C
+    elif t in (ST.ncinit, ST.ncinternal):
+        end_list = [gather(sp.dss_score, jj - cn.dss_whole_size + 1, n)] * C
+    else:   # rncterm, rncinternal
+        bep = jj - cn.ass_whole_size - cn.ass_upwindow_size + 1
+        end_list = [gather(sp.rass_score[c], bep, n) for c in range(C)]
+    end_part = np.stack([np.asarray(e, dtype=np.float64) for e in end_list])
+    ebx = jj + bo
+    if hints_on:
+        adj = 0.0
+        if t in (ST.ncinternal, ST.ncinit):
+            adj = eng.nc_dss_adj_p[np.minimum(ebx + 1, n)]
+        elif t in (ST.rncinternal, ST.rncterm):
+            adj = eng.nc_ass_adj_m[np.minimum(ebx + 1, n)]
+        if t in (ST.ncinit, ST.ncinternal, ST.rncterm):
+            ipbc = eng.ipb_plus_cum if fwd else eng.ipb_minus_cum
+            adj = adj + np.where(ebx < jj, ipbc[np.minimum(jj + 1, n)]
+                                 - ipbc[np.clip(ebx + 1, 0, n)], 0.0)
+        end_part = np.where(end_part > NEG_INF, end_part + adj, end_part)
+
+    # ---- begin part (G side, before the middle's cum) --------------------
+    bob = be + off_b
+    if t in (ST.ncsingle, ST.ncinit):
+        bp1 = gather(eng.nc_tss_plus, be, n + 1)
+        begin = np.broadcast_to(bp1, (C, n_ext))
+    elif t in (ST.rncsingle, ST.rncterm):
+        bp1 = gather(eng.nc_tts_minus, be, n + 1)
+        begin = np.broadcast_to(bp1, (C, n_ext))
+    elif t in (ST.ncinternal, ST.ncterm):
+        begin = np.stack([gather(sp.ass_score[c], be, n) for c in range(C)])
+        if t == ST.ncterm:
+            begin = np.where(bob[None, :] >= n, NEG_INF, begin)
+    else:   # rncinternal, rncinit
+        bp1 = gather(sp.rdss_score, be, n)
+        begin = np.broadcast_to(bp1, (C, n_ext))
+    begin = np.array(begin, dtype=np.float64)
+    if hints_on:
+        if t in (ST.rncinternal, ST.rncinit):
+            begin = begin + gather(eng.nc_dss_adj_m, bob - 1, n + 1)[None, :]
+        if t in (ST.ncinternal, ST.ncterm):
+            begin = begin + gather(eng.nc_ass_adj_p, bob - 1, n + 1)[None, :]
+        if t in (ST.ncinternal, ST.ncterm, ST.rncinternal, ST.rncinit):
+            ipbc = eng.ipb_plus_cum if fwd else eng.ipb_minus_cum
+            l_ = np.clip(be, 0, n)
+            r_ = np.clip(bob, 0, n)
+            begin = begin + np.where(l_ < r_, ipbc[r_] - ipbc[np.minimum(
+                l_, r_)], 0.0)[None, :]
+
+    # ---- lengths ---------------------------------------------------------
+    single = t in (ST.ncsingle, ST.rncsingle)
+    ld = eng.log_len_ncsingle if single else eng.log_len_ncinternal
+    len_min = a_off + Kh - 1
+    len_max = min(a_off + Kl - 1, n + a_off)
+    lens = np.arange(len_min, len_max + 1)
+    ok = (lens >= 0) & (lens <= ld.shape[0] - 1)
+    lv_all = np.where(ok, ld[np.clip(lens, 0, ld.shape[0] - 1)], NEG_INF)
+    Csp = a_off + Ke + Kb - 1                # span >= 0 from this length on
+    fallback = t in (ST.ncterm, ST.rncterm)
+
+    tag = str(int(t))
+    variants: List[ConvVariant] = []
+    cums = [eng.cum_intron_f[c] for c in range(C)]
+
+    def addv(vtag, g_arr, h_arr, lo_, hi_, lv):
+        if lo_ > hi_:
+            return
+        gid = pool.add(f"NG_{tag}_{vtag}", lambda: _f32(g_arr[:, None, :]),
+                       rb=("G", 1))
+        hid = pool.add(f"NH_{tag}_{vtag}", lambda: _f32(h_arr), rb=("H",))
+        variants.append(ConvVariant(
+            g_id=gid, h_id=hid, len_lo=lo_, len_hi=hi_,
+            lenvec=_f32(lv[lo_ - len_min: hi_ - len_min + 1])))
+
+    # B: the middle is empty (span < 0): no content, or the fallback
+    lvB = lv_all + ((Csp - lens) * LOG4 if fallback else 0.0)
+    addv("B", begin, end_part, len_min, min(Csp - 1, len_max), lvB)
+    # A: the middle's content cum[j - Ke + 1] - cum[b + Kb]
+    gA = np.stack([np.where(begin[c] > NEG_INF,
+                            begin[c] - cums[c][np.clip(be + Kb, 0, n)],
+                            NEG_INF) for c in range(C)])
+    hA = np.stack([np.where(end_part[c] > NEG_INF,
+                            end_part[c] + cums[c][np.clip(jj - Ke + 1, 0, n)],
+                            NEG_INF) for c in range(C)])
+    addv("A", gA, hA, max(Csp, len_min), len_max, lv_all)
+
+    # ---- per-position band: ends in [lo, hi], b = end + 1 ----------------
+    hi = jj - Kh
+    lo0 = np.maximum(jj - Kl, 0)
+    lo = _nc_narrow_lo(eng, fwd, bo, Kl, hi, lo0)
+    end_gate = (end_part > NEG_INF).any(axis=0) & (hi >= lo)
+    ecs = ExonConvState(
+        state=s, etype=int(t), bpl=0, a_off=a_off,
+        phase_const=0, phase_sign=1, frame_mode=0, win=0, lane=lane,
+        end_gate=end_gate, start_min=(lo + 1).astype(np.int32),
+        start_max=(hi + 1).astype(np.int32), variants=variants)
+    if hints_on:
+        ecs.hint_strand = "nc+" if fwd else "nc-"
+        ecs.hint_ipo = -off_b
+        ecs.hint_bo = bo
+        ecs.hint_exclass = 4
+    return ecs
+
+
+# ---------------------------------------------------------------------------
 # Sparse exon-hint machinery (exonpart/CDSpart/exon/CDS quotients)
 # ---------------------------------------------------------------------------
 #
@@ -1778,124 +2100,155 @@ def _hint_tables_cached(eng, gpad: int) -> Dict[str, HintTables]:
 def _build_hint_tables(eng, gpad: int) -> Dict[str, HintTables]:
     """Build per-strand HintTables from the prepared SeqHints."""
     h = eng.hints
-    n = eng.n
-    n_ext = gpad + n + END_PAD
     out = {}
     for strand in ("+", "-"):
         def sok(f):
             return f.strand in (strand, ".")
 
-        eps = [f for f in h.by_type["exonpart"] if sok(f)]
-        cps = [f for f in h.by_type["CDSpart"] if sok(f)]
         exs = [f for f in h.by_type["exon"] if sok(f)]
-        cds = [f for f in h.by_type["CDS"] if sok(f)]
-
-        def cum_end(feats, w=True):
-            a = np.zeros(n)
-            for f in feats:
-                if 0 <= f.end < n:
-                    a[f.end] += np.log(f.bonus) if w else 1.0
-            return np.cumsum(a)
-
-        def cross(feats, w=True):
-            """CR(p) = sum over start < p <= end."""
-            a = np.zeros(n + 1)
-            for f in feats:
-                lo, hi = f.start + 1, f.end + 1   # p in [start+1, end]
-                a[max(lo, 0): max(min(hi, n), 0)] += \
-                    np.log(f.bonus) if w else 1.0
-            return a[:n]
-
-        def cross2(feats, w=True):
-            """C2(x) = sum over start <= x < end."""
-            a = np.zeros(n + 1)
-            for f in feats:
-                a[max(f.start, 0): max(min(f.end, n), 0)] += \
-                    np.log(f.bonus) if w else 1.0
-            return a[:n]
-
-        wrows = {}
-        xrows = {}
-
-        def put_both(name, arr):
-            ext = np.zeros(n_ext, dtype=np.float32)
-            ext[gpad: gpad + n] = arr
-            ext[gpad + n:] = arr[-1] if n else 0.0
-            wrows[name] = ext
-            xrows[name] = np.asarray(arr, dtype=np.float64)
-
-        put_both("BE_ep", cum_end(eps))
-        put_both("BE_cp", cum_end(cps))
-        put_both("CntBE_ep", cum_end(eps, w=False))
-        put_both("CntBE_cp", cum_end(cps, w=False))
-        put_both("CR_ep", cross(eps))
-        put_both("CR_cp", cross(cps))
-        put_both("CntCR_ep", cross(eps, w=False))
-        put_both("CntCR_cp", cross(cps, w=False))
-        xrows["C2_ep"] = cross2(eps)
-        xrows["CntC2_ep"] = cross2(eps, w=False)
-        # any-strand end counts (numEPendingInExon ignores strand)
-        all_eps = h.by_type["exonpart"]
-        all_cps = h.by_type["CDSpart"]
-        put_both("CntE_ep", cum_end(all_eps, w=False))
-        put_both("CntE_cp", cum_end(all_cps, w=False))
+        # an exon hint is a point entry for internal exons (kind 2) and a
+        # step for initial ones (kind 3); CDS hints a point (kind 1)
+        exact = [(f, 1) for f in h.by_type["CDS"] if sok(f)] + \
+            [(f, k) for f in exs for k in (2, 3)]
         # zero-coverage cums for the local malus (gold cumcov_cp_*)
         zc = getattr(eng, "cumcov_cp_plus" if strand == "+"
                      else "cumcov_cp_minus")
-        put_both("ZC", zc.astype(np.float64))
-
-        # crossing tables: hints crossing x, for Cov + terminal exon matches
-        lists = [[] for _ in range(n)]
-        for flag, feats in ((1, eps), (2, cps), (4, exs)):
-            for f in feats:
-                for x in range(max(f.start, 0), min(f.end, n)):
-                    lists[x].append((f.start, float(np.log(f.bonus)), flag))
-        K = max((len(l) for l in lists), default=0)
-        cross_start = np.full((n, max(K, 1)), -(1 << 30), dtype=np.int32)
-        cross_w = np.zeros((n, max(K, 1)), dtype=np.float64)
-        cross_flag = np.zeros((n, max(K, 1)), dtype=np.int32)
-        for x, l in enumerate(lists):
-            for k, (st_, w_, fl_) in enumerate(l):
-                cross_start[x, k] = st_
-                cross_w[x, k] = w_
-                cross_flag[x, k] = fl_
-        if K == 0:
-            cross_start = cross_start[:, :0]
-            cross_w = cross_w[:, :0]
-            cross_flag = cross_flag[:, :0]
-        # TX sums per x
-        for nm, flag, w in (("TX_ep", 1, True), ("TX_cp", 2, True),
-                            ("TXc_ep", 1, False), ("TXc_cp", 2, False)):
-            a = np.zeros(n)
-            if cross_start.shape[1]:
-                sel = cross_flag == flag
-                a = np.sum(np.where(sel, cross_w if w else 1.0, 0.0), axis=1)
-            xrows[nm] = a
-
-        # exact tables keyed by x = hint end
-        lists2 = [[] for _ in range(n)]
-        for f in cds:
-            if 0 <= f.end < n:
-                lists2[f.end].append((f.start, float(np.log(f.bonus)), 1))
-        for f in exs:
-            if 0 <= f.end < n:
-                lists2[f.end].append((f.start, float(np.log(f.bonus)), 2))
-                lists2[f.end].append((f.start, float(np.log(f.bonus)), 3))
-        K2 = max((len(l) for l in lists2), default=0)
-        ex_pos = np.full((n, max(K2, 1)), -(1 << 30), dtype=np.int32)
-        ex_w = np.zeros((n, max(K2, 1)), dtype=np.float64)
-        ex_kind = np.zeros((n, max(K2, 1)), dtype=np.int32)
-        for x, l in enumerate(lists2):
-            for k, (p_, w_, kd_) in enumerate(l):
-                ex_pos[x, k] = p_
-                ex_w[x, k] = w_
-                ex_kind[x, k] = kd_
-        if K2 == 0:
-            ex_pos = ex_pos[:, :0]
-            ex_w = ex_w[:, :0]
-            ex_kind = ex_kind[:, :0]
-        out[strand] = HintTables(
-            wrows=wrows, xrows=xrows, cross_start=cross_start,
-            cross_w=cross_w, cross_flag=cross_flag,
-            ex_pos=ex_pos, ex_w=ex_w, ex_kind=ex_kind)
+        out[strand] = _hint_tables_of(
+            eng.n, gpad,
+            eps=[f for f in h.by_type["exonpart"] if sok(f)],
+            cps=[f for f in h.by_type["CDSpart"] if sok(f)], exs=exs,
+            exact=exact,
+            # any-strand end counts (numEPendingInExon ignores strand)
+            end_eps=h.by_type["exonpart"], end_cps=h.by_type["CDSpart"],
+            zc=zc)
     return out
+
+
+def _nc_hint_tables(eng, gpad: int) -> Dict[str, HintTables]:
+    """The nc model's HintTables, keys "nc+" and "nc-" (gold_nc.
+    _not_end_part's extrinsicQuot, the quotient class 4 of scan.py and
+    csrc/k2_common.cuh): exonpart hints of the strand or '.' for the part
+    bonus, the end counts and the crossings; exon hints of exactly the
+    strand as point matches (kind 2); no CDSpart or CDS rows; the
+    zero-coverage cums of the exonpart hints (nc_cumcov_ep_*) for the
+    local malus."""
+    h = eng.hints
+    out = {}
+    for strand in ("+", "-"):
+        eps = h.ovlping("exonpart", -(1 << 40), 1 << 40, strand)
+        zc = eng.nc_cumcov_ep_plus if strand == "+" \
+            else eng.nc_cumcov_ep_minus
+        out["nc" + strand] = _hint_tables_of(
+            eng.n, gpad, eps=eps, cps=[], exs=[],
+            exact=[(f, 2) for f in h.by_type["exon"] if f.strand == strand],
+            end_eps=eps, end_cps=[], zc=zc)
+    return out
+
+
+def _hint_tables_of(n: int, gpad: int, eps, cps, exs, exact, end_eps,
+                    end_cps, zc) -> HintTables:
+    """One HintTables: eps / cps the exonpart / CDSpart hints of the part
+    bonus, exs the exon hints of the crossing table's flag 4, exact the
+    (hint, kind) entries of the exact-match table at x = the hint's end,
+    end_eps / end_cps the hints of the end counts, zc the zero-coverage
+    cumsum of the local malus."""
+    n_ext = gpad + n + END_PAD
+
+    def cum_end(feats, w=True):
+        a = np.zeros(n)
+        for f in feats:
+            if 0 <= f.end < n:
+                a[f.end] += np.log(f.bonus) if w else 1.0
+        return np.cumsum(a)
+
+    def cross(feats, w=True):
+        """CR(p) = sum over start < p <= end."""
+        a = np.zeros(n + 1)
+        for f in feats:
+            lo, hi = f.start + 1, f.end + 1   # p in [start+1, end]
+            a[max(lo, 0): max(min(hi, n), 0)] += \
+                np.log(f.bonus) if w else 1.0
+        return a[:n]
+
+    def cross2(feats, w=True):
+        """C2(x) = sum over start <= x < end."""
+        a = np.zeros(n + 1)
+        for f in feats:
+            a[max(f.start, 0): max(min(f.end, n), 0)] += \
+                np.log(f.bonus) if w else 1.0
+        return a[:n]
+
+    wrows = {}
+    xrows = {}
+
+    def put_both(name, arr):
+        ext = np.zeros(n_ext, dtype=np.float32)
+        ext[gpad: gpad + n] = arr
+        ext[gpad + n:] = arr[-1] if n else 0.0
+        wrows[name] = ext
+        xrows[name] = np.asarray(arr, dtype=np.float64)
+
+    put_both("BE_ep", cum_end(eps))
+    put_both("BE_cp", cum_end(cps))
+    put_both("CntBE_ep", cum_end(eps, w=False))
+    put_both("CntBE_cp", cum_end(cps, w=False))
+    put_both("CR_ep", cross(eps))
+    put_both("CR_cp", cross(cps))
+    put_both("CntCR_ep", cross(eps, w=False))
+    put_both("CntCR_cp", cross(cps, w=False))
+    xrows["C2_ep"] = cross2(eps)
+    xrows["CntC2_ep"] = cross2(eps, w=False)
+    put_both("CntE_ep", cum_end(end_eps, w=False))
+    put_both("CntE_cp", cum_end(end_cps, w=False))
+    put_both("ZC", zc.astype(np.float64))
+
+    # crossing tables: hints crossing x, for Cov + terminal exon matches
+    lists = [[] for _ in range(n)]
+    for flag, feats in ((1, eps), (2, cps), (4, exs)):
+        for f in feats:
+            for x in range(max(f.start, 0), min(f.end, n)):
+                lists[x].append((f.start, float(np.log(f.bonus)), flag))
+    K = max((len(l) for l in lists), default=0)
+    cross_start = np.full((n, max(K, 1)), -(1 << 30), dtype=np.int32)
+    cross_w = np.zeros((n, max(K, 1)), dtype=np.float64)
+    cross_flag = np.zeros((n, max(K, 1)), dtype=np.int32)
+    for x, l in enumerate(lists):
+        for k, (st_, w_, fl_) in enumerate(l):
+            cross_start[x, k] = st_
+            cross_w[x, k] = w_
+            cross_flag[x, k] = fl_
+    if K == 0:
+        cross_start = cross_start[:, :0]
+        cross_w = cross_w[:, :0]
+        cross_flag = cross_flag[:, :0]
+    # TX sums per x
+    for nm, flag, w in (("TX_ep", 1, True), ("TX_cp", 2, True),
+                        ("TXc_ep", 1, False), ("TXc_cp", 2, False)):
+        a = np.zeros(n)
+        if cross_start.shape[1]:
+            sel = cross_flag == flag
+            a = np.sum(np.where(sel, cross_w if w else 1.0, 0.0), axis=1)
+        xrows[nm] = a
+
+    # exact tables keyed by x = hint end
+    lists2 = [[] for _ in range(n)]
+    for f, kind in exact:
+        if 0 <= f.end < n:
+            lists2[f.end].append((f.start, float(np.log(f.bonus)), kind))
+    K2 = max((len(l) for l in lists2), default=0)
+    ex_pos = np.full((n, max(K2, 1)), -(1 << 30), dtype=np.int32)
+    ex_w = np.zeros((n, max(K2, 1)), dtype=np.float64)
+    ex_kind = np.zeros((n, max(K2, 1)), dtype=np.int32)
+    for x, l in enumerate(lists2):
+        for k, (p_, w_, kd_) in enumerate(l):
+            ex_pos[x, k] = p_
+            ex_w[x, k] = w_
+            ex_kind[x, k] = kd_
+    if K2 == 0:
+        ex_pos = ex_pos[:, :0]
+        ex_w = ex_w[:, :0]
+        ex_kind = ex_kind[:, :0]
+    return HintTables(
+        wrows=wrows, xrows=xrows, cross_start=cross_start,
+        cross_w=cross_w, cross_flag=cross_flag,
+        ex_pos=ex_pos, ex_w=ex_w, ex_kind=ex_kind)

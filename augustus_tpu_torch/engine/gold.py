@@ -222,6 +222,9 @@ class GoldEngine:
         if self.utr is not None and self.utr_states:
             from . import gold_utr
             gold_utr.prepare_utr(self, self.codes)
+        if any(mc == "ncmodel" for mc in self.sg.model_class):
+            from . import gold_nc
+            gold_nc.prepare_nc(self, self.codes)
 
     # ------------------------------------------------------------------
     def _extra_cum_rows(self, zero) -> dict:
@@ -669,6 +672,8 @@ class GoldEngine:
                 self._kind.append("exon")
             elif mc == "utrmodel":
                 self._kind.append("utr")
+            elif mc == "ncmodel":
+                self._kind.append("nc")
             else:
                 self._kind.append("other")
 
@@ -689,6 +694,9 @@ class GoldEngine:
         if kind == "utr":
             from . import gold_utr
             return gold_utr.utr_cands(self, j, c, s, t, table)
+        if kind == "nc":
+            from . import gold_nc
+            return gold_nc.nc_cands(self, j, c, s, t, table)
         return None
 
     # ------------------------------------------------------------------

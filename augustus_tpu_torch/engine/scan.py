@@ -147,7 +147,7 @@ class ScanStatic:
     cls_col: int              # int col of the GC class
     NHW: int = 0              # hint window rows in hw_all
     hint_lm: Optional[tuple] = None   # (lm_ep, lm_cp, lm_exon, lm_CDS,
-    #                                    lm_local_cp)
+    #                                    lm_local_cp[, lm_local_ep: nc])
 
 
 def split_tracks(tr: DPTracks):
@@ -410,6 +410,8 @@ def split_tracks(tr: DPTracks):
         hint_lm = (tr.hint_lm["exonpart"], tr.hint_lm["CDSpart"],
                    tr.hint_lm["exon"], tr.hint_lm["CDS"],
                    tr.hint_lm["local_cp"])
+        if "local_ep" in tr.hint_lm:      # the nc model's local malus
+            hint_lm += (tr.hint_lm["local_ep"],)
     static = ScanStatic(
         n=n, S=tr.S, NL=tr.n_lanes, C=C, PAD=PAD, GPAD=GPAD,
         NSC=len(scal_cols), NIC=len(int_cols),
@@ -466,7 +468,9 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
     tensors, hw: hw_all."""
     import torch
     f32 = torch.float32
-    lm_ep, lm_cp, lm_ex, lm_cds, lm_loc = lm
+    lm_ep, lm_cp, lm_ex, lm_cds, lm_loc = lm[:5]
+    nc = hs.exclass == 4
+    lm_loc_ep = lm[5] if nc else None
     ipo = hs.ipo
     bob = b - ipo
     c1 = st.GPAD + bob - 1                 # hw_all column of bob - 1
@@ -509,7 +513,7 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
         cond = ((bob == pk) & (kd == 1)).to(f32)
         quot = quot + wk * cond
         sup_cds = torch.maximum(sup_cds, cond)
-        if hs.exclass == 1:
+        if hs.exclass in (1, 4):
             cond = ((bob == pk) & (kd == 2)).to(f32)
             quot = quot + wk * cond
             sup_ex = torch.maximum(sup_ex, cond)
@@ -523,13 +527,24 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
             cond = ((bob == sk) & (fl == 4)).to(f32)
             quot = quot + (0.5 * wk) * cond
             sup_ex = torch.maximum(sup_ex, cond)
-    quot = (quot + lm_ex * (1.0 - sup_ex)) + lm_cds * (1.0 - sup_cds)
+    quot = quot + lm_ex * (1.0 - sup_ex)
+    if not nc:
+        quot = quot + lm_cds * (1.0 - sup_cds)
     lenv = torch.tensor(np.float32(len_hi), device=b.device) - widx.to(f32)
     d_ep = lenv - (srow[hs.x_cnte_ep] - WR(hs.w_cnte_ep, c1))
-    d_cp = lenv - (srow[hs.x_cnte_cp] - WR(hs.w_cnte_cp, c1))
     quot = quot + torch.where(d_ep > 0, d_ep * lm_ep, zero)
-    quot = quot + torch.where(d_cp > 0, d_cp * lm_cp, zero)
+    if not nc:
+        d_cp = lenv - (srow[hs.x_cnte_cp] - WR(hs.w_cnte_cp, c1))
+        quot = quot + torch.where(d_cp > 0, d_cp * lm_cp, zero)
     zc = srow[hs.x_zc] - WR(hs.w_zc, c1)
+    if nc:
+        # the nc model's local malus: exonpart's, from one hint inside on
+        # (gold_nc._not_end_part; none when that malus is 1)
+        if float(lm_loc_ep) == 0.0:
+            return quot
+        lpm = torch.where(zc > 0, zc * lm_loc_ep, zero)
+        lpm = torch.maximum(lpm, -part_bonus)
+        return quot + torch.where(nep >= 0.5, lpm, zero)
     lpm = torch.where(zc > 0, zc * lm_loc, zero)
     lpm = torch.maximum(lpm, -part_bonus)
     return quot + torch.where(nep >= 4.5, lpm, zero)
@@ -887,6 +902,7 @@ MAXP = 8                 # segments of a chunk of a warp's share
 # vb_hi, width, G row, length vector offset, r0, frame mode, lane, lanes
 # column of entry 0 less j, hint record, H column, len_hi - a_off + bpl + 1
 SG_SIZE = 18
+N_LM = 6                 # hint maluses at the head of the float table
 INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
 
 
@@ -1140,9 +1156,10 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
     length vector (reversed, as split_tracks stores them)."""
     n = st.n
     ints: List[int] = [0] * D_HEADER
+    lm = tuple(st.hint_lm or ())
     floats: List[np.ndarray] = [np.asarray(
-        st.hint_lm if st.hint_lm is not None else (0.0,) * 5, np.float32)]
-    nfl = [5]
+        lm + (0.0,) * (N_LM - len(lm)), np.float32)]
+    nfl = [N_LM]
 
     def fl(a) -> int:
         a = np.asarray(a.cpu() if hasattr(a, "cpu") else a,

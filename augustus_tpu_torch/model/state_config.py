@@ -170,6 +170,10 @@ def is_3utr(t: ST) -> bool:
     return (ST.utr3single <= t <= ST.utr3term) or (ST.rutr3single <= t <= ST.rutr3term)
 
 
+def is_nc(t: ST) -> bool:
+    return ST.ncsingle <= t <= ST.rncterm
+
+
 def is_utr_intron(t: ST) -> bool:
     return t in (ST.utr5intron, ST.utr5intronvar, ST.utr3intron, ST.utr3intronvar,
                  ST.rutr5intron, ST.rutr5intronvar, ST.rutr3intron, ST.rutr3intronvar)

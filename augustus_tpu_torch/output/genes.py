@@ -18,7 +18,7 @@ from .. import genetics
 from ..constants import Constants, ASS_MIDDLE, DSS_MIDDLE
 from ..model.state_config import (ST, STATE_READING_FRAMES, is_on_f_strand,
                                   is_coding_exon, is_initial_exon,
-                                  is_internal_exon, is_r_internal_exon,
+                                  is_internal_exon, is_nc, is_r_internal_exon,
                                   is_r_terminal_exon)
 
 TRUNC_LEFT = 1
@@ -378,6 +378,9 @@ def project_onto_genes(path: List[PathState], cn: Constants) -> List[Gene]:
         if i >= n:
             break
         cur = path[i]
+        if is_nc(cur.type):
+            i = _project_nc(path, i, cn, genes)
+            continue
         g = pending or Gene()
         pending = None
         g.strand = "+" if is_on_f_strand(cur.type) else "-"
@@ -505,6 +508,44 @@ def project_onto_genes(path: List[PathState], cn: Constants) -> List[Gene]:
             g.transstart = -1
         genes.append(g)
     return genes
+
+
+# the nc exon types that open and close a noncoding transcript, by strand
+# (left to right along the sequence)
+_NC_OPEN = {"+": (ST.ncsingle, ST.ncinit), "-": (ST.rncsingle, ST.rncterm)}
+_NC_CLOSE = {"+": (ST.ncsingle, ST.ncterm), "-": (ST.rncsingle, ST.rncinit)}
+
+
+def _project_nc(path: List[PathState], i: int, cn: Constants,
+                genes: List[Gene]) -> int:
+    """The noncoding transcript of the run of nc states at path[i] (an nc
+    exon), appended to genes; returns the index after the run.  Its exons
+    are the biological nc exons, its introns the gaps between them; a
+    transcript entered at an open type has its 5' end (+) or 3' end (-)
+    complete, one left at a close type the other end (reference
+    StatePath::projectOntoGeneSequence, noncoding branch, gene.cc:394)."""
+    n = len(path)
+    g = Gene(coding=False)
+    g.strand = "+" if is_on_f_strand(path[i].type) else "-"
+    left = path[i].type in _NC_OPEN[g.strand]
+    last = path[i]
+    while i < n and is_nc(path[i].type):
+        st = path[i]
+        if is_exon_state(st.type):
+            g.exons.append(get_biological_state(st, cn))
+            last = st
+        i += 1
+    right = last.type in _NC_CLOSE[g.strand]
+    if g.strand == "+":
+        g.complete5utr, g.complete3utr = left, right
+    else:
+        g.complete3utr, g.complete5utr = left, right
+    g.introns = [PathState(a.end + 1, b.begin - 1, ST.intron_type
+                           if g.strand == "+" else ST.rintron_type)
+                 for a, b in zip(g.exons, g.exons[1:])]
+    g.transstart, g.transend = g.exons[0].begin, g.exons[-1].end
+    genes.append(g)
+    return i
 
 
 def coding_sequence(g: Gene, codes: np.ndarray, offset: int = 0) -> np.ndarray:
@@ -787,6 +828,9 @@ def print_gene_gff(g: Gene, o: OutputOptions, out: List[str],
               f'transcript_id "{tid}"; gene_id "{g.geneid}";')
     sn, src = g.seqname, source
     strand = g.strand
+    if not g.coding:
+        _print_nc_gff(g, o, out, parent, source)
+        return
     exons = g.exons
     first_right_utr = g.utr3exons if strand == "+" else g.utr5exons
     first_left_utr = g.utr5exons if strand == "+" else g.utr3exons
@@ -911,6 +955,32 @@ def print_gene_gff(g: Gene, o: OutputOptions, out: List[str],
                            f"\t.\t-\t.\t{parent}")
 
 
+def _print_nc_gff(g: Gene, o: OutputOptions, out: List[str], parent: str,
+                  src: str) -> None:
+    """reference Transcript::printGFF (gene.cc:1285) for a noncoding
+    transcript: the tss and tts lines where its ends are complete, its exons
+    and, with --introns=on, its introns."""
+    sn, strand = g.seqname, g.strand
+    lo, hi = g.transstart + 1, g.transend + 1
+    if strand == "+" and g.complete5utr and o.print_tss:
+        out.append(f"{sn}\t{src}\ttss\t{lo}\t{lo}\t.\t+\t.\t{parent}")
+    if strand == "-" and g.complete3utr and o.print_tts:
+        out.append(f"{sn}\t{src}\ttts\t{lo}\t{lo}\t.\t-\t.\t{parent}")
+    for e in g.exons:
+        score = fmt3(e.apostprob) if e.has_score else "."
+        out.append(f"{sn}\t{src}\texon\t{e.begin + 1}\t{e.end + 1}\t{score}"
+                   f"\t{strand}\t.\t{parent}")
+    if o.print_introns:
+        for it in g.introns:
+            score = fmt3(it.apostprob) if it.has_score else "."
+            out.append(f"{sn}\t{src}\tintron\t{it.begin + 1}\t{it.end + 1}"
+                       f"\t{score}\t{strand}\t.\t{parent}")
+    if strand == "+" and g.complete3utr and o.print_tts:
+        out.append(f"{sn}\t{src}\ttts\t{hi}\t{hi}\t.\t+\t.\t{parent}")
+    if strand == "-" and g.complete5utr and o.print_tss:
+        out.append(f"{sn}\t{src}\ttss\t{hi}\t{hi}\t.\t-\t.\t{parent}")
+
+
 def print_sequences(g: Gene, codes: np.ndarray, o: OutputOptions,
                     gcode: genetics.GeneticCode, out: List[str],
                     seq_offset: int = 0) -> None:
@@ -956,10 +1026,13 @@ def print_gene_list(agl: List[AltGene], codes: np.ndarray, o: OutputOptions,
             score = fmt3(tx.apostprob) if tx.has_probs else "."
             tid = f"{ag.id}.{tx.id}"
             idattr = (f"ID={tid};Parent={ag.id}" if o.gff3 else tid)
-            out.append(f"{ag.seqname}\tAUGUSTUS\ttranscript\t"
+            kind = "transcript" if tx.coding else "noncoding_transcript"
+            out.append(f"{ag.seqname}\tAUGUSTUS\t{kind}\t"
                        f"{tx.gene_begin() + 1}\t{tx.gene_end() + 1}\t{score}"
                        f"\t{tx.strand}\t.\t{idattr}")
             print_gene_gff(tx, o, out)
+            if not tx.coding:
+                continue
             print_sequences(tx, codes, o, gcode, out, seq_offset)
             if with_evidence:
                 from . import evidence as ev

@@ -43,8 +43,12 @@ evaluate_genbank predicts on the records of an annotated GenBank file
 (io/genbank.py), each a sequence of its own, and prints the annotation, the
 prediction and the accuracy tables (output/evaluation.py).
 
-Outside the port so far, and raising NotImplementedError: ncRNA
-architectures.
+With --nc=on (the 83-state architecture, UTRs on) a piece takes the host
+route and K2 as a UTR piece does; a noncoding transcript prints as
+`noncoding_transcript` with its tss, exon and tts lines.
+
+Outside the port so far, and raising NotImplementedError: sampling and
+MEA with --nc=on.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ import torch
 from . import genetics, stats
 from .crand import GlibcRand
 from .constants import Constants
-from .properties import Properties, init_properties, parse_bool
+from .properties import Properties, init_properties
 from .model.state_config import (ST, StateGraph, initial_exon_type,
                                   internal_exon_type, parse_state_config,
                                   r_internal_exon_type, r_terminal_exon_type)
@@ -110,16 +114,18 @@ class Model:
 
     @classmethod
     def load(cls, args: dict, config_path: Optional[str] = None) -> "Model":
-        if parse_bool(str(args.get("nc", "off"))):
-            raise NotImplementedError("not ported yet: ncRNA models "
-                                      "(--nc=off)")
         props = init_properties(args, config_path)
         cn = Constants.from_properties(props)
         sg = parse_state_config(props)
-        if any(mc not in ("igenicmodel", "exonmodel", "intronmodel",
-                          "utrmodel") for mc in sg.model_class):
+        if any(mc == "ncmodel" for mc in sg.model_class) and (
+                props.get_int("sample", 0) >= 10
+                or props.get_bool("mea", False)):
             raise NotImplementedError(
-                "not ported yet: ncRNA state architectures (--nc=off)")
+                "not ported: sampling or MEA with ncRNA models (--nc=on "
+                "with --sample / --mea): augustus_tpu projects no "
+                "noncoding transcript (its output/genes.py:"
+                "project_onto_genes does not advance past an nc exon), so "
+                "there is no reference text to hold the draws to")
         igp = pbl.read_igenic_pbl(props.species_file("_igenic_probs.pbl"),
                                   cn.decomp_num_steps)
         exp = pbl.read_exon_pbl(props.species_file("_exon_probs.pbl"),

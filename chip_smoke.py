@@ -142,7 +142,10 @@ line each:
           hints (the hint quotient) and 6 kb of HS04636rc.fa (reverse-strand
           UTRs); and 6 kb of HS04636.fa with the 47-state repo_fixture,
           where K2's values, backpointers and final column must also equal
-          K1's (csrc/viterbi.cu) on the same piece: values, every
+          K1's (csrc/viterbi.cu) on the same piece; and the ncRNA pieces of
+          gff_nc (--nc=on, 83 states: all of HS04636.fa with
+          tests/data/nc_hints.gff, all of HS08198.fa with the hint fixture
+          HS08198.nc.gff, the nc hint quotient, exclass 4): values, every
           backpointer and the final column bit-equal (tolerance 0); the
           kernel's time and time per position, the widest band, the bound
           from scan_work's bytes and operations
@@ -153,6 +156,15 @@ line each:
           repo_fixture_utr_HS04636.gff, repo_fixture_utr_HS04636sm_hints.gff
           and repo_fixture_utr_eval_utrtrain.out; every piece on the host
           route through K2
+  gff_nc  --nc=on (repo_fixture_utr with the 83-state architecture of
+          data/make_nc_fixture.py, --print_utr=on): HS04636.fa with
+          tests/data/nc_hints.gff (source M, extrinsic.M.RM.E.W.cfg) cold
+          (the command line, in the cold group) and warm, HS08198.fa
+          without hints and HS08198.fa with the hint fixture HS08198.nc.gff
+          (extrinsic.M.RM.E.W.nc.cfg) warm, each held to its golden
+          (repo_fixture_utr_nc_*.gff); every piece on the host route
+          through K2; wall s, stages, K2 ms, launches and the count of
+          noncoding transcripts (at least one with hints)
   full_utr  the full cell's sequence with --UTR=on --print_utr=on (host
           route, K2, the host walk), byte-equal to
           repo_fixture_utr_tiled.gff: stage times, K2 ms, peak device
@@ -267,6 +279,15 @@ EVAL_SETS = {"genes_test1.gb": "repo_fixture_eval_test1.out",
              "genes_crf3.gb": "repo_fixture_eval_crf3.out"}
 UTR_PRINT = {"print_utr": "on"}
 UTR_EVAL = ("utrtrain.gb", "repo_fixture_utr_eval_utrtrain.out")
+# the --nc=on inputs of gff_nc: (hints file, extrinsic config, FASTA, golden)
+NC_RUNS = {
+    "gff_nc": (os.path.join(DATA, "nc_hints.gff"), "extrinsic.M.RM.E.W.cfg",
+               "HS04636.fa", "repo_fixture_utr_nc_HS04636_hints.gff"),
+    "gff_nc_plain": (None, None, "HS08198.fa",
+                     "repo_fixture_utr_nc_HS08198.gff"),
+    "gff_nc_fixture": (os.path.join(HINTS, "HS08198.nc.gff"),
+                       "extrinsic.M.RM.E.W.nc.cfg", "HS08198.fa",
+                       "repo_fixture_utr_nc_HS08198_fixture.gff")}
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -296,6 +317,15 @@ def model_args(species: str, hints=None) -> dict:
             "UTR": utr, "softmasking": "1",
             "hintsfile": os.path.join(HINTS, hints),
             "extrinsicCfgFile": "extrinsic.M.RM.E.W.cfg"}
+
+
+def nc_args(key: str) -> dict:
+    """The --nc=on arguments of one of NC_RUNS' inputs."""
+    hints, cfg, _, _ = NC_RUNS[key]
+    args = dict(model_args("repo_fixture_utr"), nc="on", **UTR_PRINT)
+    if hints is not None:
+        args.update(hintsfile=hints, extrinsicCfgFile=cfg)
+    return args
 
 
 def write_exon_free(src: str, dst: str) -> int:
@@ -1250,6 +1280,7 @@ def phase_cold(card):
     cmds["gff_utr_sample"] = cli_args(dict(utr, **SAMPLE_ARGS)) + [hs04636]
     cmds["gff_utr_mea"] = cli_args(dict(utr, **MEA_ARGS, **NOLOGREG)) + [
         hs04636]
+    cmds["gff_nc"] = cli_args(nc_args("gff_nc")) + [hs04636]
 
     def run(cmd):
         t0 = time.perf_counter()
@@ -1514,6 +1545,41 @@ def phase_gff_utr(cold, card):
           "via": "evaluate_genbank", "equal_to_golden": True,
           "wall_s": wall, "launches": launches_since(before),
           "counts": counts, "stages_s": tm, "card": card})
+
+
+def phase_gff_nc(cold, card):
+    """--nc=on runs (NC_RUNS), the first cold (the command line) and warm,
+    the others warm, each held to its golden; every piece on the host route
+    through K2; the hinted runs print a noncoding transcript."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model
+    for key, (hints, _, fasta, golden_name) in NC_RUNS.items():
+        golden = golden_body(golden_name)
+        if key in cold:
+            out, cold_s = cold[key]
+            if strip_comments(out) != golden:
+                raise AssertionError(f"{key} cold run (command line): GFF "
+                                     f"differs from {golden_name}")
+            emit({"phase": "gff_nc", "input": fasta, "run": "cold",
+                  "via": "command line", "equal_to_golden": True,
+                  "seconds": cold_s, "card": card})
+        model = Model.load(nc_args(key))
+        rec = read_fasta(os.path.join(DATA, fasta))[0]
+        before = launch_counts()
+        gff, tm, counts, wall, peak = run_predict(model, rec, "host_prep")
+        if strip_comments(gff) != golden:
+            raise AssertionError(f"{key} warm run: GFF differs from "
+                                 f"{golden_name}")
+        nc = gff.count("\tnoncoding_transcript\t")
+        if hints is not None and nc < 1:
+            raise AssertionError(f"{key}: no noncoding transcript")
+        emit({"phase": "gff_nc", "input": fasta, "hints": hints and
+              os.path.basename(hints), "run": "warm",
+              "equal_to_golden": True, "genes": gff.count("\tgene\t"),
+              "noncoding_transcripts": nc, "wall_s": wall,
+              "k2_ms": tm.get("kernel", 0) * 1e3,
+              "launches": launches_since(before), "counts": counts,
+              "stages_s": tm, "peak_mem_bytes": peak, "card": card})
 
 
 def phase_full_utr(rec, card):
@@ -1884,7 +1950,10 @@ def main() -> int:
         ("HS04636sm_hints", Model.load(model_args(
             "repo_fixture_utr", "HS04636sm.E.gff")), hs04636sm, None),
         ("HS04636rc_6kb", utr, hs04636rc, 6000),
-        ("47_state_6kb", model, hs04636, 6000)], card)
+        ("47_state_6kb", model, hs04636, 6000),
+        ("nc_HS04636_hints", Model.load(nc_args("gff_nc")), hs04636, None),
+        ("nc_HS08198_fixture", Model.load(nc_args("gff_nc_fixture")),
+         read_fasta(os.path.join(DATA, "HS08198.fa"))[0], None)], card)
     lap("scan_parity")
     # K3 on the main path's sampled pieces (the first gives the kernels
     # line's row), then a GC-class switch and heated tables; its plain
@@ -1930,6 +1999,8 @@ def main() -> int:
     phase_eval_genbank(model, cold, card)
     phase_gff_utr(cold, card)
     lap("gff .. gff_utr")
+    phase_gff_nc(cold, card)
+    lap("gff_nc")
     phase_gff_utr_sample(cold, card)
     phase_gff_utr_mea(cold, card)
     lap("gff_utr_sample, gff_utr_mea")

@@ -324,3 +324,39 @@ def test_scan_table_kernel_equals_plain_version(cuda, fasta, n, hints,
         assert live.sum() > 10_000 and sfu > 0
         assert (np.abs(g[live] - r[live]) <=
                 4e-3 + 3e-6 * np.abs(r[live])).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["nc_hints", "nc_fixture"])
+def test_nc_scan_kernel_equals_plain_version(cuda, which):
+    """K2 on the ncRNA pieces (--nc=on, 83 states, the nc hint quotient,
+    exclass 4) against its plain version on host copies: values,
+    backpointers and final column bit-equal; the prediction through it
+    prints the golden."""
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan, predict_file
+    from torch_nc_check import nc_run
+    args, fasta = nc_run(which)
+    model = Model.load(args)
+    st, t, v0, _ = piece_scan(model, read_fasta(fasta)[0], None, cuda)
+    assert st.S == 83 and st.NHW > 0
+    bp, vf, vals = S.scan_forward(st, t, v0, debug_vals=True)
+    rbp, rvf, rvals = S.scan_forward_reference(
+        st, {k: v.cpu() for k, v in t.items()}, v0.cpu(), True)
+    assert np.array_equal(vals.cpu().numpy().view(np.int32),
+                          rvals.numpy().view(np.int32))
+    assert np.array_equal(bp.cpu().numpy(), rbp.numpy())
+    assert torch.equal(vf.cpu(), rvf)
+    before = S.scan_forward.launches
+    got = predict_file(model, fasta)
+    assert S.scan_forward.launches == before + 1
+    golden = {"nc_hints": "repo_fixture_utr_nc_HS04636_hints.gff",
+              "nc_fixture": "repo_fixture_utr_nc_HS08198_fixture.gff"}[which]
+    with open(os.path.join(ROOT, "augustus_tpu_torch", "data", "golden",
+                           golden)) as fh:
+        want = fh.read()
+
+    def body(t):
+        return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
+    assert body(got) == body(want) and "\tnoncoding_transcript\t" in got

@@ -89,7 +89,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 @pytest.mark.parametrize("args", [
     {"nc": "on", "UTR": "on", "sample": "100",
      "alternatives-from-sampling": "1"},
-    {"nc": "1"}, {"nc": "true"},
+    {"nc": "1", "sample": "10"}, {"nc": "true", "mea": "on"},
     {"nc": "on", "mea": "1", "sample": "100",
      "alternatives-from-sampling": "1"},
     {"nc": "on", "UTR": "on", "mea": "1"}])

@@ -4,7 +4,8 @@
         [sample] [sample_hints] [sample_depth] [mea] [mea_hints] \
         [mea_nologreg] [mea_depth] [eval_test1] [eval_crf3] [tiled_sm] \
         [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled] \
-        [utr_sample] [utr_sample_hints] [utr_mea] [utr_sample_depth]
+        [utr_sample] [utr_sample_hints] [utr_mea] [utr_sample_depth] \
+        [nc_hints] [nc_plain] [nc_fixture]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -98,6 +99,25 @@ augustus_tpu_torch/data/make_utr_fixture.py) with `--UTR=on`:
   utr_sample_depth  sample_depth's letters sampled as utr_sample, through
            the port's CPU path -> repo_fixture_utr_tiled21k_sample100.gff
            (kept equal to `augustus_tpu` by a test marked slow)
+The ncRNA goldens use `repo_fixture_utr` with `--nc=on` (83 states, the
+architecture written by augustus_tpu_torch/data/make_nc_fixture.py) and
+--print_utr=on (tests/torch_nc_check.py:nc_run):
+  nc_plain  tests/data/HS08198.fa without hints through `augustus_tpu`
+           predict_file(engine="auto"), its host gold engine
+           -> repo_fixture_utr_nc_HS08198.gff
+  nc_hints  tests/data/HS04636.fa with tests/data/nc_hints.gff and
+           extrinsic.M.RM.E.W.cfg, the port's CPU path
+           -> repo_fixture_utr_nc_HS04636_hints.gff
+  nc_fixture  tests/data/HS08198.fa with the hint fixture HS08198.nc.gff
+           and extrinsic.M.RM.E.W.nc.cfg, the port's CPU path
+           -> repo_fixture_utr_nc_HS08198_fixture.gff
+  augustus_tpu prints no text for the last two: its
+  output/genes.py:project_onto_genes does not advance past an nc exon, so
+  a path with a noncoding transcript never leaves it.
+  tests/test_torch_nc_decode.py and test_torch_nc_hints.py hold the port's
+  decode of all three to augustus_tpu's GoldEngine (segments, values,
+  backpointers) and the printed nc transcript of nc_hints to the AUGUSTUS
+  3.5.0 text of tests/data/golden_human_nc_hints_HS04636.gff.
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
@@ -141,7 +161,10 @@ GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "utr_sample": "repo_fixture_utr_HS04636_sample100.gff",
            "utr_sample_hints": "repo_fixture_utr_HS04636sm_hints_sample100.gff",
            "utr_mea": "repo_fixture_utr_HS04636_mea_nologreg.gff",
-           "utr_sample_depth": "repo_fixture_utr_tiled21k_sample100.gff"}
+           "utr_sample_depth": "repo_fixture_utr_tiled21k_sample100.gff",
+           "nc_plain": "repo_fixture_utr_nc_HS08198.gff",
+           "nc_hints": "repo_fixture_utr_nc_HS04636_hints.gff",
+           "nc_fixture": "repo_fixture_utr_nc_HS08198_fixture.gff"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 SAMPLED = dict(ARGS, sample="100")
@@ -264,6 +287,16 @@ def reference_gff(which: str) -> str:
 
 def golden_gff(which: str) -> str:
     """The GFF text of one golden, computed anew."""
+    if which.startswith("nc_"):
+        from torch_nc_check import nc_run
+        args, fasta = nc_run(which)
+        if which == "nc_plain":
+            from augustus_tpu.predict import Model, predict_file
+            return predict_file(Model.load(args), fasta, engine="auto")
+        import torch
+        from augustus_tpu_torch.predict import Model, predict_file
+        torch.set_num_threads(1)
+        return predict_file(Model.load(args), fasta, device="cpu")
     if which.startswith("utr_") and which not in ("utr_tiled",
                                                    "utr_sample_depth"):
         return utr_reference(which)
@@ -334,4 +367,5 @@ def main(names) -> int:
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     sys.exit(main(sys.argv[1:]))
