@@ -485,8 +485,11 @@ __device__ __forceinline__ void group_first_max(float& v, int& i) {
 }
 
 
-__global__ void __launch_bounds__(K2_THREADS, 1)
-scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
+// The whole pass of one piece, by one block: the body of the single and the
+// batched kernel.
+__device__ __forceinline__ void scan_body(const Args& a,
+                                          const int* __restrict__ desc_g,
+                                          int desc_len) {
   extern __shared__ int smem[];
   const int* desc = smem;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -943,6 +946,53 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
   SPLIT(SPLIT_STORE)
 }
 
+__global__ void __launch_bounds__(K2_THREADS, 1)
+scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
+  scan_body(a, desc_g, desc_len);
+}
+
+// A batch record: the arguments of scan_forward_launch from desc to v_final,
+// each as one int64 (pointers and ints alike), in that order
+// (engine/scan.py:_launch_fields).
+constexpr int NFIELDS = 18;
+
+struct BatchRec {
+  Args a;
+  const int* desc;
+  int desc_len;
+};
+
+// One block per piece of a batch: block b copies record b into shared
+// memory and runs the same body as a single launch, so each piece's bp and
+// v_final are those of its own launch.
+__global__ void __launch_bounds__(K2_THREADS, 1)
+scan_forward_batch_kernel(const long long* __restrict__ recs) {
+  __shared__ BatchRec rec;
+  if (threadIdx.x == 0) {
+    const long long* f = recs + (size_t)blockIdx.x * NFIELDS;
+    rec.desc = (const int*)f[0];
+    rec.desc_len = (int)f[1];
+    rec.a.fdesc = (const float*)f[2];
+    rec.a.G_all = (const float*)f[3];
+    rec.a.cum_all = (const float*)f[4];
+    rec.a.log_trans = (const float*)f[5];
+    rec.a.lane_trans = (const float*)f[6];
+    rec.a.stab = (const float*)f[7];
+    rec.a.itab = (const int*)f[8];
+    rec.a.bvalid = (const int8_t*)f[9];
+    rec.a.bstop = (const int8_t*)f[10];
+    rec.a.hw = (const float*)f[11];
+    rec.a.v0 = (const float*)f[12];
+    rec.a.lanes = (float*)f[13];
+    rec.a.largs = (int8_t*)f[14];
+    rec.a.bp = (int*)f[15];
+    rec.a.vals = (float*)f[16];
+    rec.a.v_final = (float*)f[17];
+  }
+  __syncthreads();
+  scan_body(rec.a, rec.desc, rec.desc_len);
+}
+
 constexpr bool SIMPLE = false;
 
 #endif  // K2_SIMPLE
@@ -985,6 +1035,25 @@ extern "C" int scan_forward_launch(
       a, (const int*)desc, desc_len);
   return (int)cudaGetLastError();
 }
+
+#ifndef K2_SIMPLE
+// recs: (P, NFIELDS) int64 on the card, one record per piece (each checked
+// by the caller as scan_forward_launch checks its arguments); smem_bytes:
+// the most dynamic shared memory of any piece of the batch.  One block per
+// piece; returns cudaGetLastError() (0 when the launch was taken).  The
+// earlier design (K2_SIMPLE) has no batched launch.
+extern "C" int scan_forward_batch_launch(const void* recs, int P,
+                                         int smem_bytes, void* stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_forward_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  scan_forward_batch_kernel<<<P, K2_THREADS, smem_bytes,
+                              (cudaStream_t)stream>>>((const long long*)recs);
+  return (int)cudaGetLastError();
+}
+#endif
 
 #ifdef K2_SPLIT
 // the shape of the split, (warps, slots)

@@ -16,7 +16,8 @@
 // rates (engine/viterbi.py:kernel_work).
 //
 // Design (one CTA of 768 threads per chunk, a loop over positions; 80
-// registers a thread, no spills to speak of):
+// registers a thread, no spills to speak of; a batch of chunks runs one CTA
+// per chunk in one launch, viterbi_forward_batch_launch):
 // - Band clipping.  An exon convolution's variant reads only the begins b in
 //   [smin, smax]: w in [max(0, smin - b0), min(wd - 1, smax - b0)].  The
 //   clipped entries of all variants of a conv form one list, walked by the
@@ -198,8 +199,9 @@ __device__ __forceinline__ void conv_walk(
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-viterbi_forward_kernel(Args a) {
+// The whole forward pass of one chunk, by one block: the body of both
+// kernels below.
+__device__ __forceinline__ void forward_body(const Args& a) {
   extern __shared__ __align__(16) int sm[];
   int* desc = sm;
   const int tid = threadIdx.x;
@@ -619,6 +621,63 @@ viterbi_forward_kernel(Args a) {
   if (tid < 64) a.v_final[tid] = vbuf[((a.n - 1) & 1) * 64 + tid];
 }
 
+__global__ void __launch_bounds__(NTHREADS, 1)
+viterbi_forward_kernel(Args a) {
+  forward_body(a);
+}
+
+// A batch record: the arguments of viterbi_forward_launch from sp_state to
+// nxi, each as one int64 (pointers and ints alike), in that order
+// (engine/viterbi.py:_launch_fields).
+constexpr int NFIELDS = 31;
+
+__device__ __forceinline__ Args args_of(const long long* f) {
+  Args a;
+  a.sp_state = (const float*)f[0];
+  a.sp_geo = (const float*)f[1];
+  a.sp_convH = (const float*)f[2];
+  a.ip_conv = (const int*)f[3];
+  a.ip_misc = (const int*)f[4];
+  a.gcum = (const float*)f[5];
+  a.msk = (const int*)f[6];
+  a.ltcT = (const float*)f[7];
+  a.lane_tr = (const float*)f[8];
+  a.lv_pack = (const float*)f[9];
+  a.v0 = (const float*)f[10];
+  a.l0 = (const float*)f[11];
+  a.a0 = (const int*)f[12];
+  a.desc = (const int*)f[13];
+  a.desc_len = (int)f[14];
+  a.hist_v = (float*)f[15];
+  a.hist_a = (int*)f[16];
+  a.bp_out = (int*)f[17];
+  a.val_out = (float*)f[18];
+  a.v_final = (float*)f[19];
+  a.n = (int)f[20];
+  a.NGR = (int)f[21];
+  a.NMS = (int)f[22];
+  a.NHW = (int)f[23];
+  a.gw = (int)f[24];
+  a.hs = (int)f[25];
+  a.xh = (const float*)f[26];
+  a.xi = (const int*)f[27];
+  a.hw = (const float*)f[28];
+  a.nxh = (int)f[29];
+  a.nxi = (int)f[30];
+  return a;
+}
+
+// One block per chunk of a batch: block b copies record b into shared
+// memory and runs the same body as a single launch, so each chunk's bp and
+// v_final are those of its own launch.
+__global__ void __launch_bounds__(NTHREADS, 1)
+viterbi_forward_batch_kernel(const long long* __restrict__ recs) {
+  __shared__ Args rec;
+  if (threadIdx.x == 0) rec = args_of(recs + (size_t)blockIdx.x * NFIELDS);
+  __syncthreads();
+  forward_body(rec);
+}
+
 }  // namespace
 
 extern "C" int viterbi_forward_launch(
@@ -668,5 +727,23 @@ extern "C" int viterbi_forward_launch(
   a.nxh = nxh;
   a.nxi = nxi;
   viterbi_forward_kernel<<<1, NTHREADS, smem_bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// recs: (P, NFIELDS) int64 on the card, one record per chunk (each checked
+// by the caller as viterbi_forward_launch checks its arguments);
+// smem_bytes: the most dynamic shared memory of any chunk of the batch.
+// One block per chunk; returns cudaGetLastError() (0 when the launch was
+// taken).
+extern "C" int viterbi_forward_batch_launch(const void* recs, int P,
+                                            int smem_bytes, void* stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      viterbi_forward_batch_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  viterbi_forward_batch_kernel<<<P, NTHREADS, smem_bytes,
+                                 (cudaStream_t)stream>>>(
+      (const long long*)recs);
   return (int)cudaGetLastError();
 }

@@ -71,18 +71,30 @@ def prepare_on_device(gold: GoldEngine, codes: np.ndarray, softmask,
             return tracks, pack_tracks(tracks)
 
 
+def device_engine(gold: GoldEngine, codes: np.ndarray, softmask, gff_hints,
+                  device):
+    """The device route's ViterbiEngine of one chunk, its tables on
+    `device` and not yet run, or None when the chunk lies outside the route
+    (see prepare_on_device for the side effects on `gold`).  A caller that
+    decodes many chunks prepares them all first and launches later
+    (parallel/mesh.py)."""
+    from .viterbi import ViterbiEngine
+    got = prepare_on_device(gold, codes, softmask, gff_hints, device)
+    if got is None:
+        return None
+    tracks, packed = got
+    return ViterbiEngine(tracks, device, packed)
+
+
 def try_device_decode(gold: GoldEngine, codes: np.ndarray, softmask,
                       gff_hints, device):
     """Decode one chunk on the device route: the condensed PathState list,
     or None when the chunk lies outside the route (see prepare_on_device
     for the side effects on `gold`)."""
     from .. import stats
-    from .viterbi import ViterbiEngine
-    got = prepare_on_device(gold, codes, softmask, gff_hints, device)
-    if got is None:
+    eng = device_engine(gold, codes, softmask, gff_hints, device)
+    if eng is None:
         return None
-    tracks, packed = got
-    eng = ViterbiEngine(tracks, device, packed)
     eng.run()
-    with stats.stage("traceback", device):
-        return eng.traceback_events(gold.n)
+    with stats.stage("traceback", eng.device):
+        return eng.traceback_path(gold.n)

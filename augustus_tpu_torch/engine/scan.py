@@ -1293,26 +1293,14 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16 + \
     [ctypes.c_int, ctypes.c_void_p]
 
 
-def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
-                 debug_vals: bool = False, defines=()):
-    """(bp (n, S) int32, v_final (S,) float32, vals (n, S) float32 | None)
-    of one piece (row j at base j; row 0 of bp 0, of vals v0).
-
-    CPU tensors run the plain version; CUDA tensors launch csrc/scan.cu
-    (and raise if it does not build or launch), built with the preprocessor
-    `defines` of a measurement variant when they are given (K2_SIMPLE: the
-    earlier design, a warp per state; K2_SPLIT: the clock64 split).
-    `scan_forward.launches` counts kernel launches."""
+def _launch_fields(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
+                   debug_vals: bool, descs, dev):
+    """What one piece's launch of csrc/scan.cu takes: (the arguments of
+    scan_forward_launch from desc to v_final, as ints (pointers and sizes;
+    0 for a null pointer), its dynamic shared memory in bytes, the outputs
+    (bp, v_final, vals), the tensors that must outlive the launch)."""
     import torch
-    dev, (desc_h, fdesc_h) = _check(st, t, v0)
-    if dev.type == "cpu":
-        return scan_forward_reference(st, t, v0, debug_vals)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ._build import load
-    fn = load("scan", defines).scan_forward_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    desc_h, fdesc_h = descs
     n, S, NL = st.n, st.S, st.NL
     desc = torch.from_numpy(desc_h).to(dev)
     fdesc = torch.from_numpy(fdesc_h).to(dev)
@@ -1333,24 +1321,105 @@ def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
     v0 = v0.to(torch.float32).contiguous()
 
     def ptr(x):
-        return x.data_ptr() if x is not None and x.numel() else None
+        return x.data_ptr() if x is not None and x.numel() else 0
+    fields = [ptr(desc), int(desc.shape[0]), ptr(fdesc), ptr(t["G_all"]),
+              ptr(t["cum_all"]), ptr(t["log_trans"]), ptr(t["lane_trans"]),
+              ptr(t["scalar_table"]), ptr(t["int_table"]), ptr(bv), ptr(bs),
+              ptr(t["hw_all"]), ptr(v0), ptr(lanes), ptr(largs), ptr(bp),
+              ptr(vals), ptr(v_final)]
+    smem = smem_layout(st, int(desc.shape[0]))["bytes"]
+    return fields, smem, (bp, v_final, vals), (desc, fdesc, lanes, largs,
+                                               empty8, v0)
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(desc.data_ptr(), int(desc.shape[0]), fdesc.data_ptr(),
-             ptr(t["G_all"]), ptr(t["cum_all"]), t["log_trans"].data_ptr(),
-             t["lane_trans"].data_ptr(), t["scalar_table"].data_ptr(),
-             t["int_table"].data_ptr(), ptr(bv), ptr(bs), ptr(t["hw_all"]),
-             v0.data_ptr(), lanes.data_ptr(), largs.data_ptr(),
-             bp.data_ptr(), ptr(vals), v_final.data_ptr(),
-             smem_layout(st, int(desc.shape[0]))["bytes"], stream)
+
+def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
+                 debug_vals: bool = False, defines=()):
+    """(bp (n, S) int32, v_final (S,) float32, vals (n, S) float32 | None)
+    of one piece (row j at base j; row 0 of bp 0, of vals v0).
+
+    CPU tensors run the plain version; CUDA tensors launch csrc/scan.cu
+    (and raise if it does not build or launch), built with the preprocessor
+    `defines` of a measurement variant when they are given (K2_SIMPLE: the
+    earlier design, a warp per state; K2_SPLIT: the clock64 split).
+    `scan_forward.launches` counts kernel launches (scan_forward_batch's
+    included)."""
+    import torch
+    dev, descs = _check(st, t, v0)
+    if dev.type == "cpu":
+        return scan_forward_reference(st, t, v0, debug_vals)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ._build import load
+    fn = load("scan", defines).scan_forward_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    fields, smem, out, keep = _launch_fields(st, t, v0, debug_vals, descs,
+                                             dev)
+    err = fn(*fields, smem, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_forward kernel launch failed: CUDA error "
                            f"{err}")
+    del keep                  # freed in stream order after the launch
     scan_forward.launches += 1
-    return bp, v_final, vals
+    return out
 
 
 scan_forward.launches = 0
+scan_forward.batched_launches = 0
+scan_forward.largest_grid = 0
+
+# the static shared memory of a batched launch's block (its copy of the
+# piece's arguments, csrc/scan.cu BatchRec, 144 bytes), beside the dynamic
+BATCH_RECORD_BYTES = 256
+
+
+def scan_forward_batch(pieces, debug_vals: bool = False) -> list:
+    """scan_forward of every (st, t, v0) of `pieces`, all on one device:
+    [(bp, v_final, vals)] in their order, each piece's bit-equal to its own
+    launch.
+
+    CPU tensors run the plain version piece after piece.  On the card one
+    launch of csrc/scan.cu runs every piece, one block each, with the
+    largest dynamic shared memory of the batch; each block copies its
+    piece's record from a device array and runs the single launch's body.
+    `scan_forward.batched_launches` counts these launches and
+    `scan_forward.largest_grid` records the most pieces one took."""
+    import torch
+    if not pieces:
+        return []
+    checked = [_check(st, t, v0) for st, t, v0 in pieces]
+    devs = {dev for dev, _ in checked}
+    if len(devs) != 1:
+        raise ValueError(f"pieces on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return [scan_forward_reference(st, t, v0, debug_vals)
+                for st, t, v0 in pieces]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ._build import load
+    fn = load("scan").scan_forward_batch_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    launches = [_launch_fields(st, t, v0, debug_vals, descs, dev)
+                for (st, t, v0), (_, descs) in zip(pieces, checked)]
+    smem = max(x[1] for x in launches)
+    if smem + BATCH_RECORD_BYTES > SMEM_BYTES:
+        raise NotImplementedError(
+            f"{smem} bytes of shared memory and a batch record (the "
+            f"kernel's block may take {SMEM_BYTES})")
+    recs = torch.tensor([x[0] for x in launches], dtype=torch.int64).to(dev)
+    err = fn(recs.data_ptr(), len(pieces), smem,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scan_forward batch launch failed: CUDA error "
+                           f"{err}")
+    del recs                  # freed in stream order after the launch
+    scan_forward.launches += 1
+    scan_forward.batched_launches += 1
+    scan_forward.largest_grid = max(scan_forward.largest_grid, len(pieces))
+    return [x[2] for x in launches]
 
 
 _LSE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13 + \
@@ -1604,7 +1673,7 @@ def needs_general_scan(tracks: DPTracks) -> bool:
 
 class ScanEngine:
     """Split one piece's tracks, run K2 on `device`, and walk the
-    backpointers on the host (the port's counterpart of
+    backpointers where they lie (the port's counterpart of
     augustus_tpu/engine/scan.py:ScanEngine, without the bucket padding: the
     reference freezes its carry past n_true, so padding changes nothing)."""
 
@@ -1616,13 +1685,20 @@ class ScanEngine:
         check_limits(self.static)
         self.n, self.S = self.static.n, self.static.S
 
-    def run(self, debug_vals: bool = False) -> None:
+    def inputs(self):
+        """K2's tables and start column v0 on the engine's device (stage
+        `expand`)."""
         import torch
         from .. import stats
         with stats.stage("expand", self.device):
             t = scan_tensors(self.arrays, self.device)
             v0 = torch.from_numpy(np.asarray(
                 self.tracks.log_init, np.float32)).to(self.device)
+        return t, v0
+
+    def run(self, debug_vals: bool = False) -> None:
+        from .. import stats
+        t, v0 = self.inputs()
         with stats.stage("kernel", self.device):
             self.bp, vfin, self.vals = scan_forward(self.static, t, v0,
                                                     debug_vals)
@@ -1646,8 +1722,8 @@ class ScanEngine:
         return raw_segments(packed, fb, self.tracks.gold.sg.state_types)
 
     def traceback_path(self, dnalen: int):
-        """Condensed PathState list; equals og.condense_path(traceback())."""
-        from .traceback import condensed_path
-        packed, fb = self.trace_packed()
-        return condensed_path(packed, fb, dnalen,
+        """Condensed PathState list by the event walk K4 over the (n, S)
+        plane where the kernel left it; equals og.condense_path(traceback())."""
+        from .traceback import path_by_events
+        return path_by_events(self.bp, self._walk_start(), self.n, dnalen,
                               self.tracks.gold.sg.state_types)

@@ -808,24 +808,12 @@ def _hint_widths(static: PKStatic, planes: Dict[str, torch.Tensor]):
     return planes["xh_plane"].shape[1], planes["xi_plane"].shape[1]
 
 
-def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
-                    debug_vals: bool = False):
-    """(bp (n,64) int32, v_final (64,) float32, vals (n,64) float32 | None).
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    raise if it does not build or launch).  `viterbi_forward.launches`
-    counts kernel launches, `viterbi_forward.hinted_launches` those of
-    chunks with sparse hints, which run the K1.f quotient."""
-    dev = _check(static, planes)
-    if dev.type == "cpu":
-        return viterbi_forward_reference(static, planes, debug_vals)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ._build import load
-    lib = load("viterbi")
-    fn = lib.viterbi_forward_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+def _launch_fields(static: PKStatic, planes: Dict[str, torch.Tensor],
+                   debug_vals: bool, dev: torch.device):
+    """What one chunk's launch takes: (the arguments of
+    viterbi_forward_launch from sp_state to nxi, as ints (pointers and
+    sizes; 0 for a null pointer), its dynamic shared memory in bytes, the
+    outputs (bp, v_final, vals), the tensors that must outlive the launch)."""
     n = static.n
     nxh, nxi = _hint_widths(static, planes)
     desc_h = _descriptor(static, planes["sel_pack"].cpu().numpy(), nxh, nxi)
@@ -841,34 +829,115 @@ def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
         if debug_vals else None
     v_final = torch.empty(64, dtype=torch.float32, device=dev)
     gw = planes["gcum"].shape[-1]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     p = planes
     hinted = bool(static.NHW)
-    xh = p["xh_plane"] if hinted else None
-    xi = p["xi_plane"] if hinted else None
-    err = fn(p["sp_state"].data_ptr(), p["sp_geo"].data_ptr(),
-             p["sp_convH"].data_ptr(), p["ip_conv"].data_ptr(),
-             p["ip_misc"].data_ptr(), p["gcum"].data_ptr(),
-             p["msk"].data_ptr(), ltcT.data_ptr(), lane_tr.data_ptr(),
-             p["lv_pack"].data_ptr(), p["v0"].data_ptr(),
-             p["l0"].data_ptr(), p["a0"].data_ptr(), desc.data_ptr(),
-             int(desc.shape[0]), hist_v.data_ptr(), hist_a.data_ptr(),
-             bp.data_ptr(), vals.data_ptr() if vals is not None else None,
-             v_final.data_ptr(), n, static.NGR, static.NMS, static.NHW, gw,
-             hs, xh.data_ptr() if hinted else None,
-             xi.data_ptr() if hinted else None,
-             p["hw_rows"].data_ptr() if hinted else None, nxh, nxi, smem,
-             stream)
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else 0
+    fields = [ptr(p["sp_state"]), ptr(p["sp_geo"]), ptr(p["sp_convH"]),
+              ptr(p["ip_conv"]), ptr(p["ip_misc"]), ptr(p["gcum"]),
+              ptr(p["msk"]), ptr(ltcT), ptr(lane_tr), ptr(p["lv_pack"]),
+              ptr(p["v0"]), ptr(p["l0"]), ptr(p["a0"]), ptr(desc),
+              int(desc.shape[0]), ptr(hist_v), ptr(hist_a), ptr(bp),
+              ptr(vals), ptr(v_final), n, static.NGR, static.NMS,
+              static.NHW, gw, hs, ptr(p.get("xh_plane") if hinted else None),
+              ptr(p.get("xi_plane") if hinted else None),
+              ptr(p.get("hw_rows") if hinted else None), nxh, nxi]
+    keep = (desc, ltcT, lane_tr, hist_v, hist_a)
+    return fields, smem, (bp, v_final, vals), keep
+
+
+def viterbi_forward(static: PKStatic, planes: Dict[str, torch.Tensor],
+                    debug_vals: bool = False):
+    """(bp (n,64) int32, v_final (64,) float32, vals (n,64) float32 | None).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (and
+    raise if it does not build or launch).  `viterbi_forward.launches`
+    counts kernel launches (viterbi_forward_batch's included),
+    `viterbi_forward.hinted_launches` those of chunks with sparse hints,
+    which run the K1.f quotient."""
+    dev = _check(static, planes)
+    if dev.type == "cpu":
+        return viterbi_forward_reference(static, planes, debug_vals)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ._build import load
+    fn = load("viterbi").viterbi_forward_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    fields, smem, out, keep = _launch_fields(static, planes, debug_vals, dev)
+    err = fn(*fields, smem,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"viterbi_forward kernel launch failed: CUDA "
                            f"error {err}")
+    del keep                  # freed in stream order after the launch
     viterbi_forward.launches += 1
-    viterbi_forward.hinted_launches += hinted
-    return bp, v_final, vals
+    viterbi_forward.hinted_launches += bool(static.NHW)
+    return out
 
 
 viterbi_forward.launches = 0
 viterbi_forward.hinted_launches = 0
+viterbi_forward.batched_launches = 0
+viterbi_forward.largest_grid = 0
+
+# the static shared memory of a batched launch's block (its copy of the
+# chunk's arguments, csrc/viterbi.cu Args, 216 bytes), beside the dynamic
+BATCH_RECORD_BYTES = 256
+
+
+def viterbi_forward_batch(chunks, debug_vals: bool = False) -> list:
+    """viterbi_forward of every (static, planes) of `chunks`, all on one
+    device and all hinted (NHW > 0, the K1.f quotient) or none: [(bp,
+    v_final, vals)] in their order, each chunk's bit-equal to its own
+    launch.
+
+    CPU tensors run the plain version chunk after chunk.  On the card one
+    launch of csrc/viterbi.cu runs every chunk, one block each (a block per
+    SM: the kernel takes most of an SM's shared memory), with the largest
+    dynamic shared memory of the batch; each block copies its chunk's
+    record from a device array and runs the single launch's body.
+    `viterbi_forward.batched_launches` counts these launches and
+    `viterbi_forward.largest_grid` records the most chunks one took."""
+    if not chunks:
+        return []
+    devs = {_check(st, planes) for st, planes in chunks}
+    if len(devs) != 1:
+        raise ValueError(f"chunks on several devices: {devs}")
+    dev = devs.pop()
+    if len({bool(st.NHW) for st, _ in chunks}) != 1:
+        raise ValueError("a batch is all hinted chunks or none")
+    if dev.type == "cpu":
+        return [viterbi_forward_reference(st, planes, debug_vals)
+                for st, planes in chunks]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from ._build import load
+    fn = load("viterbi").viterbi_forward_batch_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    launches = [_launch_fields(st, planes, debug_vals, dev)
+                for st, planes in chunks]
+    smem = max(x[1] for x in launches)
+    if smem + BATCH_RECORD_BYTES > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{smem} bytes of shared memory and a batch record (a block "
+            f"may have {SMEM_LIMIT})")
+    recs = torch.tensor([x[0] for x in launches], dtype=torch.int64).to(dev)
+    err = fn(recs.data_ptr(), len(chunks), smem,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"viterbi_forward batch launch failed: CUDA "
+                           f"error {err}")
+    del recs                  # freed in stream order after the launch
+    viterbi_forward.launches += 1
+    viterbi_forward.hinted_launches += bool(chunks[0][0].NHW)
+    viterbi_forward.batched_launches += 1
+    viterbi_forward.largest_grid = max(viterbi_forward.largest_grid,
+                                       len(chunks))
+    return [x[2] for x in launches]
 
 
 def planes_for(static: PKStatic, arrays: Dict[str, np.ndarray],
@@ -894,10 +963,15 @@ class ViterbiEngine:
             else pack_tracks(tracks)
         self.n, self.S = self.static.n, self.static.S
 
-    def run(self, debug_vals: bool = False) -> None:
+    def inputs(self) -> Dict[str, torch.Tensor]:
+        """The kernel's planes on the engine's device (stage `expand`)."""
         from .. import stats
         with stats.stage("expand", self.device):
-            planes = planes_for(self.static, self.arrays, self.device)
+            return planes_for(self.static, self.arrays, self.device)
+
+    def run(self, debug_vals: bool = False) -> None:
+        from .. import stats
+        planes = self.inputs()
         with stats.stage("kernel", self.device):
             self.bp, vfin, self.vals = viterbi_forward(self.static, planes,
                                                        debug_vals)
@@ -923,15 +997,8 @@ class ViterbiEngine:
         return raw_segments(packed, fb, self.tracks.gold.sg.state_types)
 
     def traceback_path(self, dnalen: int):
-        from .traceback import condensed_path
-        packed, fb = self.trace_packed()
-        return condensed_path(packed, fb, dnalen,
-                              self.tracks.gold.sg.state_types)
-
-    def traceback_events(self, dnalen: int):
         """The condensed path by the event walk K4 over the plane where the
-        kernel left it."""
-        from .traceback import condensed_path_events, event_walk
-        ev, fb, cnt = event_walk(self.bp, self._walk_start(), self.n)
-        return condensed_path_events(ev, cnt, fb, dnalen,
-                                     self.tracks.gold.sg.state_types)
+        kernel left it (on the card only the events come back)."""
+        from .traceback import path_by_events
+        return path_by_events(self.bp, self._walk_start(), self.n, dnalen,
+                              self.tracks.gold.sg.state_types)

@@ -12,7 +12,7 @@ decoded on one of two routes, chosen as augustus_tpu chooses them:
   on `device`;
 * the host route otherwise: host track preparation (engine/gold, device,
   scan, pack), the Viterbi kernel on `device` (engine/viterbi.py) and the
-  host traceback.
+  event walk on `device`.
 
 With --UTR=on (the 71-state architecture, model/pbl.read_utr_pbl and
 engine/gold_utr.py) every piece takes the host route and the general
@@ -22,7 +22,10 @@ its scan engine; the output gains tss/tts lines and, with --print_utr=on,
 from K5, K2's logsumexp twin over the same split tables.
 
 `stats` counts the route of every piece.  Softmasked or hinted runs print
-the evidence block of every transcript.  Pieces decode in order.
+the evidence block of every transcript.  A sequence cut into more than one
+piece is decoded in flight (parallel/mesh.py: one block of a batched
+kernel launch per piece) unless --pieceParallel=false, --sample or --mea;
+otherwise its pieces decode in order.
 
 With --sample=N (N >= 10) a piece takes the host route, as augustus_tpu
 routes it, and also fills the forward table on `device`
@@ -171,28 +174,29 @@ def _strand_option(props) -> str:
     return "both"
 
 
-def _decode(gold: GoldEngine, codes, softmask, gff_hints,
+def _engine(gold: GoldEngine, codes, softmask, gff_hints,
             device: torch.device, route: str = "auto",
             need_forward: bool = False):
-    """One Viterbi decode on the piece's route (augustus_tpu/predict.py:
-    113-157; route "host" forces the host route); returns the condensed
-    PathState list.  A piece of the UTR architecture takes the host route
-    and the general Viterbi kernel K2 (engine/scan.py), as augustus_tpu
-    sends it to its scan engine; the others the 64-state kernel K1.
-    need_forward (sampling): the host route, and gold.f filled with the
-    forward table of the same tables (K3 over K1's packing, or K5 over
-    K2's split tables; augustus_tpu/predict.py:140-155)."""
+    """The Viterbi engine of the piece's route (augustus_tpu/predict.py:
+    113-157; route "host" forces the host route), its tables prepared and
+    not yet run, and, with need_forward, the forward engine of the same
+    tables: (engine, forward engine or None).  A piece of the UTR or nc
+    architecture takes the host route and the general Viterbi kernel K2
+    (engine/scan.py), as augustus_tpu sends it to its scan engine; the
+    others the 64-state kernel K1.  need_forward (sampling): the host
+    route, and K3 over K1's packing or K5 over K2's split tables
+    (augustus_tpu/predict.py:140-155)."""
     from .engine.device import build_tracks
-    from .engine.device_prep import try_device_decode
+    from .engine.device_prep import device_engine
     from .engine.forward import ForwardEngine
     from .engine.scan import (ScanEngine, ScanForwardEngine,
                               needs_general_scan)
     from .engine.viterbi import ViterbiEngine
     if _auto_route(route) and not need_forward:
-        path = try_device_decode(gold, codes, softmask, gff_hints, device)
-        if path is not None:
+        eng = device_engine(gold, codes, softmask, gff_hints, device)
+        if eng is not None:
             stats.count("device_prep")
-            return path
+            return eng, None
     else:
         with stats.stage("prep"):
             gold.collect_hints(codes, softmask, gff_hints)
@@ -201,26 +205,31 @@ def _decode(gold: GoldEngine, codes, softmask, gff_hints,
         gold.prepare_collected()
     with stats.stage("build_tracks"):
         tracks = build_tracks(gold)
-    if needs_general_scan(tracks):
-        with stats.stage("pack"):
+    with stats.stage("pack"):
+        if needs_general_scan(tracks):
             eng = ScanEngine(tracks, device)
             fwd = ScanForwardEngine(tracks, (eng.static, eng.arrays),
                                     device) if need_forward else None
-        eng.run()
-        if fwd is not None:
-            gold.f = fwd.run()
-            gold._classify_states()
-        with stats.stage("traceback"):
-            return eng.traceback_path(codes.shape[0])
-    with stats.stage("pack"):
-        eng = ViterbiEngine(tracks, device)
-        fwd = ForwardEngine(tracks, device, (eng.static, eng.arrays)) \
-            if need_forward else None
+        else:
+            eng = ViterbiEngine(tracks, device)
+            fwd = ForwardEngine(tracks, device, (eng.static, eng.arrays)) \
+                if need_forward else None
+    return eng, fwd
+
+
+def _decode(gold: GoldEngine, codes, softmask, gff_hints,
+            device: torch.device, route: str = "auto",
+            need_forward: bool = False):
+    """One Viterbi decode on the piece's route (`_engine`): the condensed
+    PathState list by the event walk over the plane where the kernel left
+    it; with need_forward, gold.f filled with the forward table."""
+    eng, fwd = _engine(gold, codes, softmask, gff_hints, device, route,
+                       need_forward)
     eng.run()
     if fwd is not None:
         gold.f = fwd.run()
         gold._classify_states()
-    with stats.stage("traceback"):
+    with stats.stage("traceback", eng.device):
         return eng.traceback_path(codes.shape[0])
 
 
@@ -325,17 +334,26 @@ def _sample_transcripts(model: Model, gold: GoldEngine, genes, n: int,
 
 def _find_genes(model: Model, codes: np.ndarray, softmask, gff_hints,
                 device: torch.device, init_synch: bool = False,
-                term_synch: bool = False):
+                term_synch: bool = False, precomputed=None):
     """Viterbi decode, sampling when asked, gene projection and filtering
     on one sequence piece (reference NAMGene::findGenes, namgene.cc:763);
-    returns (agl, with_evidence) in piece-local coordinates."""
+    returns (agl, with_evidence) in piece-local coordinates.
+
+    precomputed: the piece's (path, gold) from parallel.mesh.decode_pieces,
+    which skips the local decode (augustus_tpu/predict.py:193-223); never
+    with sampling, which needs the forward table."""
     cn = model.cn
     props = model.props
     sampling = Sampling.from_properties(props)
     need_forward = sampling.iters > 1
-    gold = _new_gold(model, init_synch, term_synch)
-    path = _decode(gold, codes, softmask, gff_hints, device, model.route,
-                   need_forward)
+    if precomputed is not None:
+        if need_forward:
+            raise ValueError("a decoded piece cannot be sampled")
+        path, gold = precomputed
+    else:
+        gold = _new_gold(model, init_synch, term_synch)
+        path = _decode(gold, codes, softmask, gff_hints, device, model.route,
+                       need_forward)
     with stats.stage("project"):
         genes = og.project_onto_genes(path, cn)
         _mark(genes, viterbi=True, throwaway=False)
@@ -565,6 +583,40 @@ def _next_cut_end_point(model, codes, softmask, gff_hints, begin: int,
     return cut
 
 
+def cut_pieces(model: Model, codes, softmask, gff_hints, maxstep: int,
+               device) -> list:
+    """The pieces of a sequence of at most maxstep bases, cut at predicted
+    intergenic points (reference NAMGene::doViterbiPiecewise, namgene.cc:
+    524): [(begin, end, init_synch, term_synch)].  Each cut-point search
+    decodes an exam window, one after another: each depends on the cut
+    before it."""
+    n = codes.shape[0]
+    # the cut-point mini-viterbi inherits the boundary distributions set
+    # for the PREVIOUS piece (reference quirk, namgene.cc:576-604)
+    prev_init_synch = prev_term_synch = False
+    pieces = []
+    begin = 0
+    while begin < n:
+        end = _next_cut_end_point(model, codes, softmask, gff_hints, begin,
+                                  maxstep, device, prev_init_synch,
+                                  prev_term_synch)
+        init_synch = begin > 0
+        term_synch = end < n - 1
+        pieces.append((begin, end, init_synch, term_synch))
+        prev_init_synch, prev_term_synch = init_synch, term_synch
+        begin = end + 1
+    return pieces
+
+
+def piece_inputs(codes, softmask, gff_hints, pieces) -> List[dict]:
+    """parallel.mesh.decode_pieces' inputs for the pieces (cut_pieces) of
+    a sequence: each piece's codes, softmask, hints and synch flags."""
+    return [{"codes": codes[b: e + 1], "softmask": softmask[b: e + 1],
+             "gff_hints": _piece_hints(gff_hints, b, e),
+             "init_synch": isyn, "term_synch": tsyn}
+            for b, e, isyn, tsyn in pieces]
+
+
 def predict_sequence(model: Model, rec: FastaRecord, seq_number: int = 1,
                      geneid_start: int = 1, device=None,
                      with_header: bool = True) -> tuple:
@@ -611,26 +663,26 @@ def predict_sequence(model: Model, rec: FastaRecord, seq_number: int = 1,
     gid = geneid_start
     total = 0
     o = og.OutputOptions.from_properties(props)
-    # the cut-point mini-viterbi inherits the boundary distributions set
-    # for the PREVIOUS piece (reference quirk, namgene.cc:576-604)
-    prev_init_synch = prev_term_synch = False
-    pieces = []
-    begin = 0
-    while begin < n:
-        end = _next_cut_end_point(model, codes, softmask, gff_hints, begin,
-                                  maxstep, device, prev_init_synch,
-                                  prev_term_synch)
-        init_synch = begin > 0
-        term_synch = end < n - 1
-        pieces.append((begin, end, init_synch, term_synch))
-        prev_init_synch, prev_term_synch = init_synch, term_synch
-        begin = end + 1
+    pieces = cut_pieces(model, codes, softmask, gff_hints, maxstep, device)
 
-    for (begin, end, init_synch, term_synch) in pieces:
+    # the pieces are independent decodes once the cut points are fixed:
+    # decode them in flight, one block of a batched launch each
+    # (augustus_tpu/predict.py:625-645, its mesh's "data" axis; one card's
+    # SMs here), unless sampling needs each piece's forward table
+    precomputed = [None] * len(pieces)
+    if (len(pieces) > 1 and props.get_bool("pieceParallel", True)
+            and not props.get_bool("mea", False)
+            and props.get_int("sample", 0) <= 1):
+        from .parallel.mesh import decode_pieces
+        precomputed = decode_pieces(
+            model, piece_inputs(codes, softmask, gff_hints, pieces), device)
+
+    for (begin, end, init_synch, term_synch), pre in zip(pieces,
+                                                         precomputed):
         agl, with_evidence = _find_genes(
             model, codes[begin: end + 1], softmask[begin: end + 1],
             _piece_hints(gff_hints, begin, end), device, init_synch,
-            term_synch)
+            term_synch, pre)
         for ag in agl:
             ag.shift_coordinates(begin + offset)
             ag.id = f"g{gid}"

@@ -213,8 +213,39 @@ line each:
           phase and barrier wait by warp role, the role and the warp that
           reach each barrier last, phase A's runs and merges of parked
           pairs and phase B's segment values and variant folds per warp
+  pieces_parity  the batched launches, one block per piece
+          (viterbi_forward_batch, scan_forward_batch), against single
+          launches and the plain versions: K1 over the four unhinted parity
+          chunks (2.4-9.5 kb; the parity phase has three more chunks for
+          this), K1.f over the four hinted ones, K2 over the seven
+          scan_parity pieces (47, 71 and 83 states): every piece's values,
+          backpointers and final column bit-equal; the event walk K4 over
+          all their planes (64, 47, 71 and 83 wide) in one batched walk,
+          unbounded and with a bound of WALK_BOUND events (relaunches),
+          equal to each single walk on the card and to the plain version;
+          batched against single launches back to back
+  full_pieces  the full cell's letters with --maxDNAPieceSize=100000
+          (13 pieces of 62-86 kb, device route): warm, decoded in
+          flight (parallel/mesh.py: one block per piece in each batched
+          launch of K1 and of K4) and with --pieceParallel=false, the two
+          GFF texts byte-equal to each other and to
+          repo_fixture_tiled_pieces100k.gff; both walls, peak memory, the
+          blocks of each launch, the resident bytes per base; K1 on the
+          pieces' tables, one batched launch against the single launches
+          and against the longest piece alone (the launches alone)
+  distributed  two processes on the one card in a gloo group
+          (parallel/distributed.py, tests/torch_distributed_worker.py),
+          each decoding its block of full_pieces' first DIST_PIECES pieces,
+          equal to decode_pieces in this process
+  utr_pieces  the first UTR_PIECES_LEN bases of the full cell's letters
+          with --UTR=on --print_utr=on --maxDNAPieceSize=20000 (nine
+          pieces through K2, host route), checked as full_pieces against
+          repo_fixture_utr_tiled100k_pieces20k.gff
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.
+The rows of viterbi_forward, scan_forward and event_walk in the kernels
+line add their batched launches on the main path and the most blocks one
+of them took (largest_grid).
 Then the seconds of each group of phases, the kernels line, the card line
 and the final status line.  The golden comparisons leave out comment
 lines.
@@ -272,6 +303,12 @@ SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
 SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence sampled
 # bases of full_utr's piece that k2_compare and k5_compare take
 K2_COMPARE_DEPTH = 100_000
+WALK_BOUND = 7            # events a launch of pieces_parity's bounded walks
+# full_pieces / utr_pieces: the piece sizes and utr_pieces' letters
+FULL_PIECE = "100000"
+UTR_PIECE = "20000"
+UTR_PIECES_LEN = 100_000
+DIST_PIECES = 4           # full_pieces' first pieces that distributed takes
 MEA_ARGS = {"mea": "1"}
 NOLOGREG = {"/CompPred/logreg": "false"}
 # the GenBank sets of eval_genbank and their goldens
@@ -423,7 +460,7 @@ def phase_parity(device, chunks):
     from augustus_tpu_torch.engine.viterbi import kernel_work, viterbi_forward
     from augustus_tpu_torch.io.fasta import read_fasta
     from augustus_tpu_torch.predict import Model, piece_planes
-    rows, pieces = [], []
+    rows, pieces, kept = [], [], []
     for species, fasta, n, hints in chunks:
         rec = read_fasta(os.path.join(DATA, fasta))[0]
         st, planes, gold = piece_planes(
@@ -482,7 +519,9 @@ def phase_parity(device, chunks):
                             else "operations")}
         emit(row)
         rows.append(row)
-    return rows
+        kept.append((f"{species} {fasta} {n}{' hinted' if hints else ''}",
+                     st, planes, (bp_k, vf_k, v_k), (bp_p, vf_p, v_p)))
+    return rows, kept
 
 
 def compare_tables(host, dev):
@@ -623,7 +662,7 @@ def phase_kernels_new(device, model, rec, card):
     state0 = int(np.argmax(last))
     brk = tb.walk_breaks(bp, n).contiguous()
     ev, res = tb.launch_event_walk(bp, brk, state0, n)
-    fb, fs, cnt = (int(v) for v in res.cpu())
+    fb, fs, cnt, bad = (int(v) for v in res.cpu())
     bp_h = bp.cpu()
     brk_h = tb.walk_breaks(bp_h, n)
     if not torch.equal(brk_h, brk.cpu()):
@@ -631,7 +670,7 @@ def phase_kernels_new(device, model, rec, card):
     t0 = time.perf_counter()
     ev_p, fb_p, fs_p, cnt_p = tb.event_walk_reference(bp_h, brk_h, state0, n)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if (fb, fs, cnt) != (fb_p, fs_p, cnt_p) or \
+    if (fb, fs, cnt, bad) != (fb_p, fs_p, cnt_p, 0) or \
             not torch.equal(ev.cpu(), ev_p):
         raise AssertionError("event_walk differs from its plain version")
     if cnt >= tb.M_EVENTS or cnt < 100:
@@ -1318,6 +1357,27 @@ def launches_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launch_counts().items()}
 
 
+def _counted():
+    """The wrappers whose counters the kernels line reads."""
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine import xputil as U
+    from augustus_tpu_torch.engine.forward import forward_table
+    from augustus_tpu_torch.engine.scan import scan_forward, scan_table
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    return (viterbi_forward, U.prefix_sum_f64, tb.event_walk, forward_table,
+            scan_forward, scan_table)
+
+
+def launch_counters() -> list:
+    """Every launch counter, to put back after measurement launches."""
+    return [dict(vars(f)) for f in _counted()]
+
+
+def restore_launch_counters(saved: list) -> None:
+    for f, attrs in zip(_counted(), saved):
+        vars(f).update(attrs)
+
+
 def mea_row(phase, run, gff, tm, counts, wall, launches, card):
     return {"phase": phase, "run": run, "equal_to_golden": True,
             "genes": gff.count("\tgene\t"),
@@ -1422,7 +1482,7 @@ def phase_scan_parity(device, pieces, card):
     from augustus_tpu_torch.engine.scan import scan_forward, scan_work
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
     from augustus_tpu_torch.predict import piece_planes, piece_scan
-    rows, done = [], []
+    rows, done, kept = [], [], []
     for name, model, rec, n in pieces:
         st, t, v0, gold = piece_scan(model, rec, n, device)
         got = scan_forward(st, t, v0, debug_vals=True)
@@ -1484,7 +1544,8 @@ def phase_scan_parity(device, pieces, card):
                          else "operations"), "card": card})
         emit(row)
         rows.append(row)
-    return rows
+        kept.append((name, st, (t, v0), (bp_k, vf_k, v_k), (bp_p, vf_p, v_p)))
+    return rows, kept
 
 
 def phase_gff_utr(cold, card):
@@ -1859,12 +1920,357 @@ def predict_phase(phase, model, path, golden_name, route, need_evidence):
               "stages_s": tm})
 
 
+def _same_bits(a, b) -> bool:
+    """Two outputs of a kernel equal bit for bit (float32 as int32)."""
+    import torch
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def launch_only(kernel, items):
+    """(batch, singles): functions that launch the Viterbi kernel
+    (`viterbi_forward` for K1 and K1.f, `scan_forward` for K2) over the
+    pieces `items` ((static, planes) / (st, tables, v0)), one batched
+    launch or one launch per piece back to back, with every argument,
+    descriptor and buffer made once beforehand: the kernels' time without
+    the wrappers' host work."""
+    import ctypes
+    import torch
+    from augustus_tpu_torch.engine import _build
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.engine import viterbi as V
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "scan_forward":
+        lib = _build.load("scan")
+        one, argtypes = lib.scan_forward_launch, S._ARGTYPES
+        prepared = [S._launch_fields(st, t, v0, False, S._check(st, t, v0)[1],
+                                     dev) for st, t, v0 in items]
+        many = lib.scan_forward_batch_launch
+        extra = S.BATCH_RECORD_BYTES
+    else:
+        lib = _build.load("viterbi")
+        one, argtypes = lib.viterbi_forward_launch, V._ARGTYPES
+        prepared = [V._launch_fields(st, planes, False, dev)
+                    for st, planes in items]
+        many = lib.viterbi_forward_batch_launch
+        extra = V.BATCH_RECORD_BYTES
+    one.argtypes, one.restype = argtypes, ctypes.c_int
+    many.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
+    many.restype = ctypes.c_int
+    recs = torch.tensor([p[0] for p in prepared], dtype=torch.int64,
+                        device=dev)
+    smem = max(p[1] for p in prepared)
+    assert smem + extra <= 232_448
+
+    def batch(prepared=prepared, recs=recs):
+        if many(recs.data_ptr(), len(prepared), smem, stream):
+            raise RuntimeError(f"{kernel}: batched launch failed")
+
+    def singles(prepared=prepared):
+        for fields, sm, _, _ in prepared:
+            if one(*fields, sm, stream):
+                raise RuntimeError(f"{kernel}: launch failed")
+    return batch, singles
+
+
+def phase_pieces_parity(device, k1_pieces, k2_pieces, card):
+    """The batched launches (one block per piece) against single launches
+    and the plain versions, on the parity phases' pieces: K1 over the
+    unhinted parity chunks, K1.f over the hinted ones, K2 over the
+    scan_parity pieces (47, 71 and 83 states), each piece's values,
+    backpointers and final column bit-equal; then K4 over the planes of
+    all of them (widths 64, 47, 71, 83) in one batched walk, unbounded and
+    with a bound of WALK_BOUND events (relaunches), every walk's events,
+    final base and count equal to its single walk on the card and to the
+    plain version.  Times: the batched launch against the single launches
+    back to back."""
+    import numpy as np
+    import torch
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine.scan import scan_forward, \
+        scan_forward_batch
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward, \
+        viterbi_forward_batch
+    groups = (("viterbi_forward", [p for p in k1_pieces if not p[1].NHW]),
+              ("viterbi_forward:hint_quot",
+               [p for p in k1_pieces if p[1].NHW]),
+              ("scan_forward", k2_pieces))
+    rows = []
+    for kernel, pieces in groups:
+        if len(pieces) < 4:
+            raise AssertionError(f"pieces_parity {kernel}: {len(pieces)} "
+                                 "pieces")
+        if kernel == "scan_forward":
+            items = [(st, t, v0) for _, st, (t, v0), _, _ in pieces]
+
+            def batch(dv=False, items=items):
+                return scan_forward_batch(items, debug_vals=dv)
+
+            def singles(items=items):
+                return [scan_forward(*it) for it in items]
+        else:
+            items = [(st, planes) for _, st, planes, _, _ in pieces]
+
+            def batch(dv=False, items=items):
+                return viterbi_forward_batch(items, debug_vals=dv)
+
+            def singles(items=items):
+                return [viterbi_forward(*it) for it in items]
+        got = batch(True)
+        torch.cuda.synchronize()
+        for (name, st, _, kern, plain), out in zip(pieces, got):
+            S = st.S
+            cut = (slice(None), slice(0, S))
+            equal_single = all(_same_bits(a[cut] if a.dim() == 2 else a[:S],
+                                          b[cut] if b.dim() == 2 else b[:S])
+                               for a, b in zip(out, kern))
+            # the single launch is held to the plain version by its parity
+            # phase (live backpointers for K1); here the batch directly
+            vals, pvals = out[2][1:, :S].cpu(), plain[2][1:, :S].cpu()
+            live = pvals > -5.0e29
+            equal_plain = (_same_bits(vals, pvals) and
+                           _same_bits(out[1][:S], plain[1][:S]) and
+                           bool(((out[0][1:, :S].cpu() ==
+                                  plain[0][1:, :S].cpu()) | ~live).all()))
+            if not (equal_single and equal_plain):
+                raise AssertionError(
+                    f"pieces_parity {kernel} {name}: the batched launch "
+                    f"differs from the single launch ({equal_single}) or "
+                    f"the plain version ({equal_plain})")
+        batch_ms = time_cuda(batch, 3)
+        singles_ms = time_cuda(singles, 3)
+        k_batch, k_singles = launch_only(kernel, items)
+        k_batch_ms = time_cuda(k_batch, 3)
+        k_singles_ms = time_cuda(k_singles, 3)
+        row = {"phase": "pieces_parity", "kernel": kernel,
+               "pieces": [name for name, *_ in pieces],
+               "n": [st.n for _, st, *_ in pieces],
+               "states": [st.S for _, st, *_ in pieces],
+               "blocks": len(pieces), "parity": "bit-exact, to single "
+               "launches and plain versions",
+               "wrapper_batch_ms": batch_ms,
+               "wrapper_single_launches_ms": singles_ms,
+               "kernel_batch_ms": k_batch_ms,
+               "kernel_single_launches_ms": k_singles_ms,
+               "kernel_batch_over_singles": k_batch_ms / k_singles_ms,
+               "timing": "CUDA events; wrapper_*: the Python wrappers "
+               "(descriptors, buffers, host checks) and the kernels; "
+               "kernel_*: the launches alone", "card": card}
+        emit(row)
+        rows.append(row)
+
+    walks = [(kern[0], torch.argmax(kern[1][: st.S]).reshape(1), st.n)
+             for _, st, _, kern, _ in list(k1_pieces) + list(k2_pieces)]
+    widths = sorted({bp.shape[1] for bp, _, _ in walks})
+    if not {64, 71, 83} <= set(widths):
+        raise AssertionError(f"pieces_parity: plane widths {widths}")
+    events, relaunches = [], 0
+    for M in (tb.M_EVENTS, WALK_BOUND):
+        before = tb.event_walk.batched_launches
+        got = tb.event_walk_batch(walks, M)
+        if M == WALK_BOUND:
+            relaunches = tb.event_walk.batched_launches - before
+        for (bp, s, n), (ev, fb, cnt) in zip(walks, got):
+            for want in (tb.event_walk(bp, int(s), n, M),
+                         tb.event_walk(bp.cpu(), int(s), n, M)):
+                if (fb, cnt) != want[1:] or not np.array_equal(ev, want[0]):
+                    raise AssertionError(
+                        f"pieces_parity: the batched walk of a "
+                        f"{bp.shape[1]}-wide plane differs (bound {M})")
+            if M == tb.M_EVENTS:
+                events.append(cnt)
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    # one walk of each width alone, the kernel's time (CUDA events): the
+    # plane of that width with the most events
+    by_width = {}
+    for (bp, s, n), cnt in zip(walks, events):
+        w = bp.shape[1]
+        if cnt > by_width.get(w, (None, -1))[1]:
+            by_width[w] = ((bp, int(s), n), cnt)
+    width_ms = {}
+    for w, ((bp, s, n), cnt) in sorted(by_width.items()):
+        brk = tb.walk_breaks(bp, n).contiguous()
+        ms = time_cuda(lambda: tb.launch_event_walk(bp, brk, s, n), 3)
+        width_ms[str(w)] = {"events": cnt, "kernel_ms": ms,
+                            "us_per_event": ms * 1e3 / max(cnt, 1)}
+    row = {"phase": "pieces_parity", "kernel": "event_walk",
+           "planes": len(walks), "widths": widths, "events": events,
+           "single_walk_by_width": width_ms,
+           "bound": WALK_BOUND, "batched_launches_at_bound": relaunches,
+           "parity": "exact, to single walks and the plain version",
+           "batch_ms": host_ms(lambda: tb.event_walk_batch(walks)),
+           "single_walks_ms": host_ms(
+               lambda: [tb.event_walk(bp, int(s), n) for bp, s, n in walks]),
+           "timing": "host clock around the walks and their copies back",
+           "card": card}
+    emit(row)
+    rows.append(row)
+    return rows
+
+
+def pieces_of(model, rec, n=None):
+    """The cut points of rec's first n bases (all with None) under the
+    model's --maxDNAPieceSize, and decode_pieces' inputs for them."""
+    import torch
+    from augustus_tpu_torch import genetics
+    from augustus_tpu_torch.predict import cut_pieces, piece_inputs
+    seq = rec.sequence[:n]
+    codes = genetics.encode(seq.lower())
+    softmask = genetics.softmask_runs(seq)
+    pieces = cut_pieces(model, codes, softmask, None,
+                        model.props.get_int("maxDNAPieceSize", 2000000),
+                        torch.device("cuda"))
+    return pieces, piece_inputs(codes, softmask, None, pieces)
+
+
+def phase_pieces_cell(phase, args, rec, golden_name, route, card):
+    """A sequence cut into pieces, predicted warm in flight (the default
+    --pieceParallel=true: one block per piece in each batched launch) and
+    one piece after another (--pieceParallel=false), the two GFF texts
+    byte-equal to each other and to the golden; then the Viterbi kernel on
+    the pieces' own tables, one batched launch against the single launches
+    back to back (CUDA events; outside the main path's launch counts).
+    Returns the pieces."""
+    import torch
+    from augustus_tpu_torch.parallel import mesh
+    from augustus_tpu_torch.predict import Model, _engine, _new_gold
+    golden = golden_body(golden_name)
+    texts, walls = [], {}
+    model = Model.load(dict(args))
+    seq_model = Model.load(dict(args, pieceParallel="false"))
+    for label, m in (("batched", model), ("sequential", seq_model)):
+        mesh.decode_pieces.last = None
+        gff, tm, counts, wall, peak = run_predict(m, rec, route)
+        record = mesh.decode_pieces.last
+        if (record is None) != (label == "sequential"):
+            raise AssertionError(f"{phase} {label}: decode_pieces ran: "
+                                 f"{record is not None}")
+        if strip_comments(gff) != golden:
+            raise AssertionError(f"{phase} {label}: the GFF differs from "
+                                 f"{golden_name}")
+        texts.append(gff)
+        walls[label] = wall
+        emit({"phase": phase, "run": label, "length": len(rec.sequence),
+              "genes": gff.count("\tgene\t"), "equal_to_golden": True,
+              "wall_s": wall, "mb_per_s": len(rec.sequence) / 1e6 / wall,
+              "kernel_ms": tm.get("kernel", 0) * 1e3,
+              "traceback_ms": tm.get("traceback", 0) * 1e3,
+              "peak_mem_bytes": peak, "batches": record and record["batches"],
+              "ctas_per_launch": record and record["ctas"],
+              "bytes_per_base": record and record["bytes_per_base"],
+              "stages_s": tm, "counts": counts, "card": card})
+    if strip_comments(texts[0]) != strip_comments(texts[1]):
+        raise AssertionError(f"{phase}: batched and sequential GFF differ")
+    counts = launch_counters()
+    pieces, inputs = pieces_of(model, rec)
+    engines = [_engine(_new_gold(model, pi["init_synch"], pi["term_synch"]),
+                       pi["codes"], pi["softmask"], None,
+                       torch.device("cuda"), model.route)[0]
+               for pi in inputs]
+    if route == "device_prep":
+        kernel = "viterbi_forward"
+        items = [(e.static, e.inputs()) for e in engines]
+    else:
+        kernel = "scan_forward"
+        items = [(e.static,) + e.inputs() for e in engines]
+    batch, singles = launch_only(kernel, items)
+    batch_ms = time_cuda(batch, 1)
+    singles_ms = time_cuda(singles, 1)
+    longest = max(range(len(pieces)),
+                  key=lambda i: pieces[i][1] - pieces[i][0])
+    longest_ms = time_cuda(launch_only(kernel, [items[longest]])[1], 1)
+    restore_launch_counters(counts)
+    emit({"phase": phase, "kernel": kernel, "pieces": len(pieces),
+          "piece_lengths": [e - b + 1 for b, e, _, _ in pieces],
+          "blocks_per_launch": len(pieces), "kernel_batch_ms": batch_ms,
+          "kernel_single_launches_ms": singles_ms,
+          "kernel_longest_piece_alone_ms": longest_ms,
+          "kernel_batch_over_singles": batch_ms / singles_ms,
+          "kernel_batch_over_longest": batch_ms / longest_ms,
+          "wall_batched_s": walls["batched"],
+          "wall_sequential_s": walls["sequential"],
+          "timing": "CUDA events around the launches alone (arguments "
+          "and buffers made beforehand)", "gff_equal": True, "card": card})
+    return pieces
+
+
+def phase_distributed(args, length, pieces, card):
+    """Two processes on the one card, joined in a gloo group, each decoding
+    its block of the pieces (parallel/distributed.py), against
+    decode_pieces in this process: every piece's path and hint state
+    equal."""
+    import socket
+    from augustus_tpu_torch.parallel import mesh
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_distributed_worker import spec_inputs, summary
+    spec = {"args": args, "fasta": "tiled", "length": length,
+            "pieces": pieces}
+    work = os.path.join(ROOT, "build", "distributed")
+    os.makedirs(work, exist_ok=True)
+    spec_path = os.path.join(work, "spec.json")
+    out = os.path.join(work, "out.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        addr = f"localhost:{sk.getsockname()[1]}"
+    worker = os.path.join(ROOT, "tests", "torch_distributed_worker.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, addr, "2", str(r),
+                               out, "cuda", spec_path],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if [p.returncode for p in procs] != [0, 0]:
+        raise AssertionError("distributed: a rank failed\n" +
+                             "\n".join(logs))
+    with open(out) as fh:
+        got = json.load(fh)
+    model, inputs = spec_inputs(spec)
+    want = summary(mesh.decode_pieces(model, inputs, "cuda"))
+    if got != want:
+        raise AssertionError("distributed: the two ranks' paths differ from "
+                             "one process's")
+    emit({"phase": "distributed", "ranks": 2, "backend": "gloo",
+          "pieces": len(pieces), "equal": True,
+          "segments": sum(len(w["path"]) for w in want),
+          "wall_s": wall, "card": card})
+
+
 def kernel_row(name, source, replaces, launches, r, parity):
+    """A row of the kernels line; the batched launches and the largest
+    grid of one of them where the kernel has a batched launch."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "parity": parity,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("batched_launches", "largest_grid")
+               if k in r}}
 
 
 def main() -> int:
@@ -1878,7 +2284,7 @@ def main() -> int:
     from augustus_tpu_torch.engine.forward import forward_table
     from augustus_tpu_torch.engine.scan import scan_forward, scan_table
     from augustus_tpu_torch.engine.viterbi import viterbi_forward
-    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.io.fasta import FastaRecord, read_fasta
     from augustus_tpu_torch.io.tiled import tiled_hinted, tiled_record
     from augustus_tpu_torch.predict import Model
 
@@ -1910,12 +2316,16 @@ def main() -> int:
 
     # the chunks of length None (the whole sequence) are the gff and
     # gff_hints phases' inputs
-    parity = phase_parity(device, [
+    # the last three give pieces_parity four pieces of each kind
+    parity, k1_pieces = phase_parity(device, [
         ("repo_fixture", "HS04636.fa", 6000, None),
         ("repo_fixture_gc2", "HS04636.fa", 6000, None),
         ("repo_fixture", "HS04636.fa", None, None),
         ("repo_fixture", "HS04636sm.fa", None, "HS04636sm.E.gff"),
-        ("repo_fixture", "HS04636rc.fa", 6000, "HS04636rc.E.gff")])
+        ("repo_fixture", "HS04636rc.fa", 6000, "HS04636rc.E.gff"),
+        ("repo_fixture", "HS04636rc.fa", 3000, None),
+        ("repo_fixture", "HS04636sm.fa", 4000, "HS04636sm.E.gff"),
+        ("repo_fixture", "HS04636rc.fa", None, "HS04636rc.E.gff")])
     lap("parity")
 
     model = Model.load(model_args("repo_fixture"))
@@ -1945,7 +2355,7 @@ def main() -> int:
         ("47_state_6kb", model_sampled(), hs04636, 6000)])
     # the UTR runs' pieces (the first gives the kernels line's row), then
     # K2 against K1 on the 47-state architecture
-    scan_rows = phase_scan_parity(device, [
+    scan_rows, k2_pieces = phase_scan_parity(device, [
         ("HS04636_6kb", utr, hs04636, 6000), ("HS04636", utr, hs04636, None),
         ("HS04636sm_hints", Model.load(model_args(
             "repo_fixture_utr", "HS04636sm.E.gff")), hs04636sm, None),
@@ -1974,6 +2384,9 @@ def main() -> int:
         ("full", model, rec, None)], card)
     prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
     lap("prep_parity, kernels_new")
+    phase_pieces_parity(device, k1_pieces, k2_pieces, card)
+    del k1_pieces, k2_pieces
+    lap("pieces_parity")
     utr_fwd_rows = utr_forward_finish(device, utr_fwd, card)
     fwd_parity = forward_parity_finish(fwd, card)
     lap("utr_forward_parity, forward_parity")
@@ -1982,6 +2395,8 @@ def main() -> int:
     lap("cold")
 
     # ---- main path: GFF parity, then full size; counts from here on ----
+    for counter in (viterbi_forward, tb.event_walk, scan_forward):
+        counter.batched_launches = counter.largest_grid = 0
     viterbi_forward.launches = 0
     viterbi_forward.hinted_launches = 0
     U.prefix_sum_f64.launches = 0
@@ -2038,8 +2453,21 @@ def main() -> int:
         "repo_fixture_tiled_hints.gff"), card,
         dict(counts, hints=len(hint_lines)), "host_prep", labels=("warm",))
     lap("full, full_sm, full_hints")
+    full_args = dict(model_args("repo_fixture"), maxDNAPieceSize=FULL_PIECE)
+    pieces = phase_pieces_cell("full_pieces", full_args, rec,
+                               "repo_fixture_tiled_pieces100k.gff",
+                               "device_prep", card)
+    lap("full_pieces")
+    phase_distributed(full_args, None, pieces[:DIST_PIECES], card)
+    lap("distributed")
     phase_full_utr(rec, card)
     lap("full_utr")
+    phase_pieces_cell("utr_pieces", dict(
+        model_args("repo_fixture_utr"), **UTR_PRINT,
+        maxDNAPieceSize=UTR_PIECE), FastaRecord(
+            rec.name, rec.sequence[:UTR_PIECES_LEN]),
+        "repo_fixture_utr_tiled100k_pieces20k.gff", "host_prep", card)
+    lap("utr_pieces")
     phase_sample_depth(model_sampled(), rec, card)
     phase_mea_depth(model_sampled(**MEA_ARGS), rec, card)
     lap("sample_depth, mea_depth")
@@ -2049,6 +2477,13 @@ def main() -> int:
     launches = launch_counts()
     if min(launches.values()) < 1:
         raise AssertionError(f"the main path's kernel launches: {launches}")
+    batched = {c: {"batched_launches": f.batched_launches,
+                   "largest_grid": f.largest_grid}
+               for c, f in (("viterbi_forward", viterbi_forward),
+                            ("event_walk", tb.event_walk),
+                            ("scan_forward", scan_forward))}
+    if min(b["batched_launches"] for b in batched.values()) < 1:
+        raise AssertionError(f"the main path's batched launches: {batched}")
     phase_full_forward(device, [("full", model, rec),
                                 ("full_hints", hmodel, hrec)], card)
     lap("full_forward, k3_compare")
@@ -2067,7 +2502,8 @@ def main() -> int:
             "ms": p["kernel_ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": None}
-    hrow = dict(vrow, max_abs_err=max(r["max_abs_err"] for r in parity[3:]),
+    hrow = dict(vrow, max_abs_err=max(r["max_abs_err"] for r in parity
+                                      if r["hints"]),
                 ms=ph["kernel_ms"], plain_ms=ph["plain_ms"],
                 bound_ms=ph["bound_ms"], bound_by=ph["bound_by"])
     sp = scan_rows[0]
@@ -2085,6 +2521,9 @@ def main() -> int:
             "ms": up["kernel_ms"], "plain_ms": up["plain_ms"],
             "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
             "library_ms": None}
+    vrow.update(batched["viterbi_forward"])
+    srow.update(batched["scan_forward"])
+    trace_row = dict(trace_row, **batched["event_walk"])
     emit({"kernels": [
         kernel_row("viterbi_forward", "augustus_tpu_torch/csrc/viterbi.cu",
                    "augustus_tpu/engine/pallas_scan.py:128",

@@ -123,7 +123,7 @@ def test_event_walk_kernel_equals_plain_version(cuda):
     bh = bp.cpu()
     rev, rfb, rst, rcnt = tb.event_walk_reference(bh, tb.walk_breaks(bh, n),
                                                   state0, n)
-    assert res.cpu().tolist() == [rfb, rst, rcnt] and rcnt > 3
+    assert res.cpu().tolist() == [rfb, rst, rcnt, 0] and rcnt > 3
     assert torch.equal(ev.cpu(), rev)
 
 
@@ -360,3 +360,116 @@ def test_nc_scan_kernel_equals_plain_version(cuda, which):
     def body(t):
         return "".join(l for l in t.splitlines(True) if not l.startswith("#"))
     assert body(got) == body(want) and "\tnoncoding_transcript\t" in got
+
+
+def _utr_scan(fasta, n, hints, device, species="repo_fixture_utr"):
+    """K2's inputs (st, tables, v0) of the first n bases of fasta."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan
+    utr = "on" if species.endswith("_utr") else "off"
+    args = {"species": species, "AUGUSTUS_CONFIG_PATH": CONFIG,
+            "UTR": utr, "softmasking": "0"}
+    if hints:
+        args.update(softmasking="1", extrinsicCfgFile="extrinsic.M.RM.E.W.cfg",
+                    hintsfile=os.path.join(ROOT, "augustus_tpu_torch", "data",
+                                           "hints", hints))
+    rec = read_fasta(os.path.join(ROOT, "tests", "data", fasta))[0]
+    st, t, v0, _ = piece_scan(Model.load(args), rec, n, device)
+    return st, t, v0
+
+
+def _bit_equal(a, b):
+    return a is None and b is None or torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hinted", [False, True])
+def test_batched_viterbi_bit_equal_to_single_launches(cuda, hinted):
+    """One launch of csrc/viterbi.cu over four chunks of mixed lengths (one
+    block each; hinted: all with sparse hints, K1.f): every chunk's values,
+    backpointers and final column bit-equal to its own launch."""
+    from augustus_tpu_torch.engine import viterbi as V
+    if hinted:
+        chunks = [_planes("repo_fixture", n, cuda, hinted=True)
+                  for n in (None, 6000, 4000, 7500)]
+        assert all(st.NHW > 0 for st, _ in chunks)
+    else:
+        chunks = [_planes("repo_fixture", 2500, cuda),
+                  _planes("repo_fixture_gc2", 6000, cuda),
+                  _planes("repo_fixture", None, cuda),
+                  _planes("repo_fixture", 4000, cuda)]
+    single = [V.viterbi_forward(st, p, debug_vals=True) for st, p in chunks]
+    before = (V.viterbi_forward.batched_launches,
+              V.viterbi_forward.hinted_launches)
+    batch = V.viterbi_forward_batch(chunks, debug_vals=True)
+    torch.cuda.synchronize()
+    assert V.viterbi_forward.batched_launches == before[0] + 1
+    assert V.viterbi_forward.hinted_launches == before[1] + hinted
+    assert V.viterbi_forward.largest_grid >= 4
+    for (st, _), one, got in zip(chunks, single, batch):
+        for a, b in zip(one, got):
+            assert _bit_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batched_scan_bit_equal_to_single_launches(cuda):
+    """One launch of csrc/scan.cu over five pieces of 47, 71 and 83 states
+    and mixed lengths, hinted and not: every piece's values, backpointers and
+    final column bit-equal to its own launch."""
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan
+    from torch_nc_check import nc_run
+    args, fasta = nc_run("nc_hints")
+    nc = piece_scan(Model.load(args), read_fasta(fasta)[0], 5000, cuda)[:3]
+    pieces = [_utr_scan("HS04636.fa", 6000, None, cuda),
+              _utr_scan("HS04636.fa", None, None, cuda),
+              _utr_scan("HS04636sm.fa", None, "HS04636sm.E.gff", cuda),
+              _utr_scan("HS04636.fa", 3000, None, cuda, "repo_fixture"), nc]
+    assert sorted({st.S for st, _, _ in pieces}) == [47, 71, 83]
+    single = [S.scan_forward(st, t, v0, debug_vals=True)
+              for st, t, v0 in pieces]
+    before = S.scan_forward.batched_launches
+    batch = S.scan_forward_batch(pieces, debug_vals=True)
+    torch.cuda.synchronize()
+    assert S.scan_forward.batched_launches == before + 1
+    for one, got in zip(single, batch):
+        for a, b in zip(one, got):
+            assert _bit_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batched_event_walk_exact_at_every_width(cuda):
+    """csrc/trace.cu over the planes of K1 (64 wide) and of K2 (71 and 83
+    wide) in one batched launch, with a bound that makes some walks
+    relaunch: every walk's events, final base and count equal to its single
+    walk on the card and to the plain version on the CPU."""
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.engine import traceback as tb
+    from augustus_tpu_torch.engine.viterbi import viterbi_forward
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan
+    from torch_nc_check import nc_run
+    st, planes = _planes("repo_fixture", None, cuda)
+    bp, vf, _ = viterbi_forward(st, planes)
+    planes_k = [(bp, vf[: st.S], st.n)]
+    args, fasta = nc_run("nc_hints")
+    for sst, t, v0 in [_utr_scan("HS04636.fa", None, None, cuda),
+                       piece_scan(Model.load(args), read_fasta(fasta)[0],
+                                  None, cuda)[:3]]:
+        planes_k.append(S.scan_forward(sst, t, v0)[:2] + (sst.n,))
+    assert [bp.shape[1] for bp, _, _ in planes_k] == [64, 71, 83]
+    walks = [(bp, torch.argmax(vf).reshape(1), n) for bp, vf, n in planes_k]
+    for M in (tb.M_EVENTS, 9):
+        before = tb.event_walk.batched_launches
+        got = tb.event_walk_batch(walks, M)
+        assert tb.event_walk.batched_launches > before
+        assert max(cnt for _, _, cnt in got) > 9
+        for (bp, s, n), (ev, fb, cnt) in zip(walks, got):
+            one = tb.event_walk(bp, int(s), n, M)
+            plain = tb.event_walk(bp.cpu(), int(s), n, M)
+            for want in (one, plain):
+                assert (fb, cnt) == want[1:] and np.array_equal(ev, want[0])
+

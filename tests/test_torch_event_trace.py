@@ -137,5 +137,14 @@ def test_event_walk_past_its_bound(decoded, M):
 
 
 def test_event_walk_checks_its_plane():
+    """A plane of any width walks (K2's are 47-83 wide); a start state
+    outside the plane, a plane that is not (n, W) int32 and a backpointer
+    that never moves the walk (off 0) are refused."""
     with pytest.raises(ValueError):
+        tb.event_walk(torch.zeros((10, 32), dtype=torch.int32), 32, 10)
+    with pytest.raises(ValueError):
+        tb.event_walk(torch.zeros((10, 32), dtype=torch.float32), 0, 10)
+    with pytest.raises(ValueError):
+        tb.event_walk(torch.zeros((9, 32), dtype=torch.int32), 0, 10)
+    with pytest.raises(RuntimeError):
         tb.event_walk(torch.zeros((10, 32), dtype=torch.int32), 0, 10)

@@ -53,7 +53,10 @@ def test_no_jax_in_sys_modules_after_import():
             "augustus_tpu_torch.hints.config",
             "augustus_tpu_torch.hints.features",
             "augustus_tpu_torch.hints.system",
-            "augustus_tpu_torch.output.evidence"} <= set(_port_modules())
+            "augustus_tpu_torch.output.evidence",
+            "augustus_tpu_torch.parallel",
+            "augustus_tpu_torch.parallel.mesh",
+            "augustus_tpu_torch.parallel.distributed"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(

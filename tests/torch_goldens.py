@@ -5,7 +5,8 @@
         [mea_nologreg] [mea_depth] [eval_test1] [eval_crf3] [tiled_sm] \
         [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled] \
         [utr_sample] [utr_sample_hints] [utr_mea] [utr_sample_depth] \
-        [nc_hints] [nc_plain] [nc_fixture]
+        [nc_hints] [nc_plain] [nc_fixture] [tiled_pieces] [utr_pieces] \
+        [utr_pieces_hints] [utr_pieces_segments]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -99,6 +100,30 @@ augustus_tpu_torch/data/make_utr_fixture.py) with `--UTR=on`:
   utr_sample_depth  sample_depth's letters sampled as utr_sample, through
            the port's CPU path -> repo_fixture_utr_tiled21k_sample100.gff
            (kept equal to `augustus_tpu` by a test marked slow)
+Two goldens of pieces decoded in flight (augustus_tpu_torch/parallel), the
+port's CPU path, predict_records(device="cpu"):
+  tiled_pieces  the tiled sequence as `tiled` with --maxDNAPieceSize=100000
+           (11 pieces; about 25 minutes on one thread)
+           -> repo_fixture_tiled_pieces100k.gff
+  utr_pieces  the first UTR_PIECES_LEN = 100,000 bases of the tiled
+           sequence as `utr_tiled` with --maxDNAPieceSize=20000 (5 pieces
+           through K2's plain version) -> repo_fixture_utr_tiled100k_pieces20k.gff
+and one of `augustus_tpu`, on the 8 virtual CPU devices of tier-1
+(tests/conftest.py), where its predict_sequence decodes the pieces with
+its mesh's decode_pieces:
+  utr_pieces_hints  bases 501-3,500 of HS04636sm.fa softmasked with
+           HS04636sm.E.gff, --UTR=on --print_utr=on, --maxDNAPieceSize=1500
+           (two pieces, a gene) -> repo_fixture_utr_HS04636sm_hints_pieces1500.gff
+           (tests/test_torch_parallel_gff_utr.py keeps the port's text, in
+           flight and piece after piece, equal to it; a test marked slow
+           recomputes it with `augustus_tpu`)
+  utr_pieces_segments  augustus_tpu's parallel.mesh.decode_pieces of the
+           first 6,000 bases of HS04636sm.fa with HS04636sm.E.gff in four
+           pieces of 1,500 (tests/torch_pieces.py), each path condensed, as
+           JSON -> repo_fixture_utr_HS04636sm_hints_pieces1500.json
+           (tests/test_torch_parallel_utr.py holds the port's decode_pieces
+           to it; its JAX scan takes about 2 minutes on a CPU, so a test
+           marked slow recomputes it)
 The ncRNA goldens use `repo_fixture_utr` with `--nc=on` (83 states, the
 architecture written by augustus_tpu_torch/data/make_nc_fixture.py) and
 --print_utr=on (tests/torch_nc_check.py:nc_run):
@@ -133,6 +158,9 @@ import sys
 import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
+# tier-1's virtual devices (tests/conftest.py)
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                           " --xla_force_host_platform_device_count=8")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
@@ -164,7 +192,13 @@ GOLDENS = {"hs04636": "repo_fixture_HS04636.gff",
            "utr_sample_depth": "repo_fixture_utr_tiled21k_sample100.gff",
            "nc_plain": "repo_fixture_utr_nc_HS08198.gff",
            "nc_hints": "repo_fixture_utr_nc_HS04636_hints.gff",
-           "nc_fixture": "repo_fixture_utr_nc_HS08198_fixture.gff"}
+           "nc_fixture": "repo_fixture_utr_nc_HS08198_fixture.gff",
+           "tiled_pieces": "repo_fixture_tiled_pieces100k.gff",
+           "utr_pieces": "repo_fixture_utr_tiled100k_pieces20k.gff",
+           "utr_pieces_hints":
+               "repo_fixture_utr_HS04636sm_hints_pieces1500.gff",
+           "utr_pieces_segments":
+               "repo_fixture_utr_HS04636sm_hints_pieces1500.json"}
 ARGS = {"species": "repo_fixture", "AUGUSTUS_CONFIG_PATH": CONFIG,
         "UTR": "off", "softmasking": "0"}
 SAMPLED = dict(ARGS, sample="100")
@@ -182,6 +216,13 @@ UTR_ARGS = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
             "UTR": "on", "softmasking": "0", "print_utr": "on"}
 UTR_DEPTH = 21_000     # bases of the tiled sequence that the slow UTR test
 #                        decodes with both packages
+# the pieces goldens: the piece size of each and utr_pieces' letters
+PIECES_ARGS = dict(ARGS, maxDNAPieceSize="100000")
+UTR_PIECES_ARGS = dict(UTR_ARGS, maxDNAPieceSize="20000")
+UTR_PIECES_LEN = 100_000
+# utr_pieces_hints: the window of HS04636sm.fa and its piece size
+UTR_PIECES_HINTS = {"predictionStart": "501", "predictionEnd": "3500",
+                    "maxDNAPieceSize": "1500"}
 UTR_SAMPLED = dict(UTR_ARGS, **{k: SAMPLED[k] for k in
                                 ("sample", "alternatives-from-sampling")})
 
@@ -194,6 +235,9 @@ def utr_run(which: str):
     return {"utr_hs04636": (UTR_ARGS, hs04636),
             "utr_hints": (hinted, os.path.join(DATA, "HS04636sm.fa")),
             "utr_rc": (UTR_ARGS, os.path.join(DATA, "HS04636rc.fa")),
+            "utr_pieces_hints": (dict(hinted, print_utr="on",
+                                      **UTR_PIECES_HINTS),
+                                 os.path.join(DATA, "HS04636sm.fa")),
             "utr_eval": (dict(UTR_ARGS, softmasking="0"),
                          os.path.join(DATA, "utrtrain.gb")),
             "utr_sample": (UTR_SAMPLED, hs04636),
@@ -233,6 +277,15 @@ def depth_record():
     from augustus_tpu_torch.io.tiled import tiled_record
     rec = tiled_record(DATA)
     return FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
+
+
+def utr_pieces_record():
+    """The first UTR_PIECES_LEN bases of io/tiled.py:tiled_record, under
+    its name (utr_pieces' letters)."""
+    from augustus_tpu_torch.io.fasta import FastaRecord
+    from augustus_tpu_torch.io.tiled import tiled_record
+    rec = tiled_record(DATA)
+    return FastaRecord(rec.name, rec.sequence[:UTR_PIECES_LEN])
 
 
 def hinted_args(hints_file: str) -> dict:
@@ -287,6 +340,14 @@ def reference_gff(which: str) -> str:
 
 def golden_gff(which: str) -> str:
     """The GFF text of one golden, computed anew."""
+    if which == "utr_pieces_segments":
+        import json
+        from augustus_tpu.predict import Model
+        from torch_pieces import piece_inputs, reference_paths
+        args, fasta = utr_run("utr_hints")
+        jmodel = Model.load(dict(args, print_utr="on"))
+        return json.dumps(reference_paths(jmodel, piece_inputs(
+            "augustus_tpu", jmodel, fasta, 1500, 6000))) + "\n"
     if which.startswith("nc_"):
         from torch_nc_check import nc_run
         args, fasta = nc_run(which)
@@ -297,8 +358,8 @@ def golden_gff(which: str) -> str:
         from augustus_tpu_torch.predict import Model, predict_file
         torch.set_num_threads(1)
         return predict_file(Model.load(args), fasta, device="cpu")
-    if which.startswith("utr_") and which not in ("utr_tiled",
-                                                   "utr_sample_depth"):
+    if which.startswith("utr_") and which not in (
+            "utr_tiled", "utr_sample_depth", "utr_pieces"):
         return utr_reference(which)
     if which in ("hs04636", "hints"):
         from augustus_tpu.predict import Model, predict_file
@@ -338,6 +399,10 @@ def golden_gff(which: str) -> str:
                                 device="cpu")
     if which == "tiled":
         args, rec = dict(ARGS), tiled_record(DATA)
+    elif which == "tiled_pieces":
+        args, rec = dict(PIECES_ARGS), tiled_record(DATA)
+    elif which == "utr_pieces":
+        args, rec = dict(UTR_PIECES_ARGS), utr_pieces_record()
     elif which == "utr_tiled":
         args, rec = dict(UTR_ARGS), tiled_record(DATA)
     elif which == "tiled_sm":
