@@ -1,10 +1,10 @@
 """Training-side gene annotation structures.
 
-Port of the part of `augustus_tpu/training/annotation.py` that the GenBank
-reader (io/genbank.py) builds: lightweight equivalents of the reference
-Gene/AnnoSequence (include/gene.hh); exons/introns are plain (begin, end)
-tuples in 0-based inclusive coordinates, always kept in left-to-right
-order.
+Port of `augustus_tpu/training/annotation.py`: lightweight equivalents of
+the reference Gene/AnnoSequence (include/gene.hh), which the GenBank reader
+(io/genbank.py) builds, and the split of a training set into single-gene
+sequences; exons/introns are plain (begin, end) tuples in 0-based inclusive
+coordinates, always kept in left-to-right order.
 """
 
 from __future__ import annotations
@@ -138,3 +138,70 @@ class AnnoSeq:
         if tot == 0:
             return (0.25, 0.25, 0.25, 0.25)
         return (a / tot, c / tot, g / tot, t / tot)
+
+
+def split_to_single_gene_seqs(annoseqs: List[AnnoSeq],
+                              padding: int = 10000) -> List[AnnoSeq]:
+    """Split multi-gene sequences into single-gene forward-strand pieces
+    (reference EHMMTraining::split2SingleGeneSeqs, src/etraining.cc:300)."""
+    import sys
+    out: List[AnnoSeq] = []
+    for mas in annoseqs:
+        if not mas.genes:
+            continue
+        piece_index = 0
+        piece_begin = 0
+        genes = mas.genes
+        multi_gene = len(genes) > 1
+        skipped = 0
+        gi = 0
+        while gi < len(genes):
+            g = genes[gi]
+            piece_index += 1
+            gene_end = g.gene_end()
+            gene_begin = g.gene_begin()
+            if gene_end < 0:
+                raise ValueError("Encountered gene without any exons: "
+                                 + g.geneid)
+            # find the next gene completely to the right of g
+            piece_end = -1
+            nxt = gi
+            skipped -= 1
+            while nxt < len(genes) and piece_end <= gene_end:
+                nxt += 1
+                skipped += 1
+                if nxt < len(genes):
+                    piece_end = (gene_end + genes[nxt].gene_begin()) // 2
+                else:
+                    piece_end = mas.length - 1
+
+            window_begin = piece_begin
+            if window_begin < gene_begin - padding:
+                window_begin = gene_begin - padding
+            window_end = piece_end
+            if window_end > gene_end + padding:
+                window_end = gene_end + padding
+
+            new_name = ("%s.p%d" % (mas.seqname, piece_index)
+                        if multi_gene else mas.seqname)
+            new_seq = mas.sequence[window_begin: window_end + 1]
+            ng = _clone_gene(g)
+            ng.seqname = new_name
+            ng.shift(-window_begin)
+            nas = AnnoSeq(seqname=new_name, sequence=new_seq, genes=[ng])
+            if g.strand == "-":
+                nas.sequence = reverse_complement_str(new_seq)
+                ng.reverse(len(new_seq) - 1)
+            out.append(nas)
+            piece_begin = piece_end + 1
+            gi = nxt
+        if skipped > 0:
+            print("Skipped %d gene(s) because their transcribed regions were "
+                  "overlapping in sequence %s" % (skipped, mas.seqname),
+                  file=sys.stderr)
+    return out
+
+
+def _clone_gene(g: TGene) -> TGene:
+    import copy
+    return copy.deepcopy(g)

@@ -114,7 +114,8 @@ line each:
           --mea=1 (gff_mea) through the command line, the GenBank sets
           tests/data/genes_test1.gb and genes_crf3.gb through the command
           line (eval_genbank), and the UTR runs of gff_utr, gff_utr_sample
-          and gff_utr_mea, each held to its phase's golden below
+          and gff_utr_mea, and the train phase's cold CRF training
+          (after its new_species), each held to its phase's golden below
   gff_mea HS04636.fa with --mea=1 (100 sampled paths without the
           posterior filters, then the transcripts of the maximum expected
           accuracy path, output/mea.py; host route, the Viterbi and forward
@@ -241,6 +242,20 @@ line each:
           with --UTR=on --print_utr=on --maxDNAPieceSize=20000 (nine
           pieces through K2, host route), checked as full_pieces against
           repo_fixture_utr_tiled100k_pieces20k.gff
+  train   training (training/, cli/etraining.py) in a configuration of its
+          own, build/train_config (the model files and the template species
+          generic of data/make_train_fixture.py): new_species, then
+          python -m augustus_tpu_torch.cli.etraining tests/data/genes_crf3.gb
+          --CRF=on (two rounds, each training gene predicted on the device
+          route: prefix.cu, K1, K4) cold in a process of its own (in the
+          cold group) and warm through run_training (host training s
+          against the CRF predictions' dev_prep, kernel and traceback s,
+          the launches of the rounds, genes seen and correct per round);
+          --UTR=on training on utrtrain.gb; the CRF-trained species predicting HS04636.fa
+          (device route) and evaluating genes_test1.gb, the UTR-trained one
+          predicting HS04636.fa (host route, K2): every .pbl, .pbl.HMM, GFF
+          and evaluation text equal to augustus_tpu's golden
+          (data/golden/train_*.gz); the phase's seconds and launches
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.
 The rows of viterbi_forward, scan_forward and event_walk in the kernels
@@ -325,6 +340,16 @@ NC_RUNS = {
     "gff_nc_fixture": (os.path.join(HINTS, "HS08198.nc.gff"),
                        "extrinsic.M.RM.E.W.nc.cfg", "HS08198.fa",
                        "repo_fixture_utr_nc_HS08198_fixture.gff")}
+# the train phase: a configuration of its own under build/ (the template
+# species `generic` and the model files), the golden files of each trained
+# species by suffix (augustus_tpu_torch/data/golden/train_<set><suffix>.gz)
+TRAIN_CONFIG = os.path.join(ROOT, "build", "train_config")
+TRAIN_MODELS = ("exon", "intron", "igenic")
+TRAIN_CRF = ("genes_crf3.gb", {"CRF": "on"},
+             [f"_{m}_probs.pbl" for m in TRAIN_MODELS]
+             + [f"_{m}_probs.pbl.HMM" for m in ("exon", "intron")])
+TRAIN_UTR = ("utrtrain.gb", {"UTR": "on", "/EHMMTraining/statecount": "4"},
+             [f"_{m}_probs.pbl" for m in TRAIN_MODELS + ("utr",)])
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -1320,6 +1345,7 @@ def phase_cold(card):
     cmds["gff_utr_mea"] = cli_args(dict(utr, **MEA_ARGS, **NOLOGREG)) + [
         hs04636]
     cmds["gff_nc"] = cli_args(nc_args("gff_nc")) + [hs04636]
+    cmds["train"] = train_cold_cmd()
 
     def run(cmd):
         t0 = time.perf_counter()
@@ -2261,6 +2287,162 @@ def phase_distributed(args, length, pieces, card):
           "wall_s": wall, "card": card})
 
 
+def train_golden(name: str) -> str:
+    import gzip
+    with gzip.open(os.path.join(GOLDEN_DIR, name + ".gz"), "rt") as fh:
+        return fh.read()
+
+
+def check_trained(species: str, which: str, suffixes, what: str) -> None:
+    """Every file of a trained species equal to augustus_tpu's golden."""
+    d = os.path.join(TRAIN_CONFIG, "species", species)
+    for suffix in suffixes:
+        with open(os.path.join(d, species + suffix)) as fh:
+            if fh.read() != train_golden(f"train_{which}{suffix}"):
+                raise AssertionError(f"train {what}: {species}{suffix} "
+                                     "differs from the golden")
+
+
+def crf_rounds(log: str) -> list:
+    """The genes that each CRF round saw and predicted correctly, from the
+    trainer's log ('correct so far c/n' after each chunk)."""
+    out, prev = [], (0, 0)
+    for part in log.split("*** CRF training round ")[1:]:
+        found = re.findall(r"correct so far (\d+)/(\d+)", part)
+        c, n = map(int, found[-1])
+        out.append({"seen": n - prev[1], "correct": c - prev[0]})
+        prev = (c, n)
+    return out
+
+
+def train_cold_cmd() -> list:
+    """The train phase's first steps: a fresh configuration (the fixture's
+    model files and the template species `generic`) and new_species of its
+    three species in it; returns the command line of the cold CRF training
+    (etraining of genes_crf3.gb with --CRF=on), which the cold group runs."""
+    import shutil
+    from augustus_tpu_torch.training.new_species import create_species
+    cfg = TRAIN_CONFIG
+    shutil.rmtree(cfg, ignore_errors=True)
+    shutil.copytree(os.path.join(CONFIG, "model"),
+                    os.path.join(cfg, "model"))
+    shutil.copytree(os.path.join(CONFIG, "species", "generic"),
+                    os.path.join(cfg, "species", "generic"))
+    for species in ("crf3_cold", "crf3", "utr"):
+        create_species(species, cfg, silent=True)
+    gb, extra, _ = TRAIN_CRF
+    return [sys.executable, "-m", "augustus_tpu_torch.cli.etraining",
+            os.path.join(DATA, gb), "--species=crf3_cold",
+            f"--AUGUSTUS_CONFIG_PATH={cfg}"] + [
+        f"--{k}={v}" for k, v in extra.items()]
+
+
+def phase_train(cold, card):
+    """Training (training/, cli/etraining.py) on the card, each file and
+    text held to augustus_tpu's golden: etraining of genes_crf3.gb with
+    --CRF=on (two rounds, each training gene predicted on the card:
+    prefix.cu, K1, K4) cold through the command line (the cold group, after
+    new_species), then warm through run_training with the launches of its
+    rounds; --UTR=on training on utrtrain.gb; the CRF-trained species
+    predicting HS04636.fa and evaluating genes_test1.gb, the UTR-trained
+    one predicting HS04636.fa through K2."""
+    import contextlib
+    import io
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, evaluate_genbank
+    from augustus_tpu_torch.training.etraining import run_training
+    t_phase = time.perf_counter()
+    phase_before = launch_counts()
+    cfg = TRAIN_CONFIG
+    gb, extra, suffixes = TRAIN_CRF
+    out, cold_s = cold["train"]
+    check_trained("crf3_cold", "crf3", suffixes, "cold (command line)")
+    emit({"phase": "train", "run": "crf3 cold", "via": "command line",
+          "equal_to_golden": True, "seconds": cold_s,
+          "rounds": crf_rounds(out), "card": card})
+
+    args = {"species": "crf3", "AUGUSTUS_CONFIG_PATH": cfg,
+            "queryfile": os.path.join(DATA, gb), **extra}
+    log = io.StringIO()
+    before = launch_counts()
+    with contextlib.redirect_stdout(log):
+        _, tm, counts, wall, _ = measured(
+            lambda: run_training(args, device="cuda"))
+    crf_launches = launches_since(before)
+    check_trained("crf3", "crf3", suffixes, "warm (run_training)")
+    for k in ("viterbi_forward", "prefix_sum_f64", "event_walk"):
+        if crf_launches[k] < 1:
+            raise AssertionError(f"train: the CRF rounds launched no "
+                                 f"{k}: {crf_launches}")
+    if set(routes_of(counts)) != {"device_prep"}:
+        raise AssertionError(f"train: CRF predictions took the routes "
+                             f"{routes_of(counts)}")
+    rounds = crf_rounds(log.getvalue())
+    emit({"phase": "train", "run": "crf3 warm", "via": "run_training",
+          "equal_to_golden": True, "wall_s": wall,
+          "host_training_s": tm.get("train", 0.0),
+          "crf_s": tm.get("crf", 0.0),
+          "crf_dev_prep_s": tm.get("dev_prep", 0.0),
+          "crf_kernel_s": tm.get("kernel", 0.0),
+          "crf_traceback_s": tm.get("traceback", 0.0),
+          "genes_predicted": sum(x["seen"] for x in rounds),
+          "rounds": rounds, "launches": crf_launches, "counts": counts,
+          "stages_s": tm, "card": card})
+
+    gb, extra, suffixes = TRAIN_UTR
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_training({"species": "utr", "AUGUSTUS_CONFIG_PATH": cfg,
+                      "queryfile": os.path.join(DATA, gb), **extra},
+                     device="cuda")
+    check_trained("utr", "utr", suffixes, "--UTR=on")
+    emit({"phase": "train", "run": "utr", "via": "run_training",
+          "equal_to_golden": True, "seconds": time.perf_counter() - t0,
+          "card": card})
+
+    hs04636 = read_fasta(os.path.join(DATA, "HS04636.fa"))[0]
+    for species, route, extra in (
+            ("crf3", "device_prep", {}),
+            ("utr", "host_prep", {"UTR": "on", **UTR_PRINT})):
+        model = Model.load(dict(model_args(species), AUGUSTUS_CONFIG_PATH=cfg,
+                                **extra))
+        before = launch_counts()
+        gff, tm, counts, wall, _ = run_predict(model, hs04636, route)
+        if strip_comments(gff) != strip_comments(
+                train_golden(f"train_{species}_HS04636.gff")):
+            raise AssertionError(f"train: {species} species' GFF of "
+                                 "HS04636.fa differs from the golden")
+        launches = launches_since(before)
+        if species == "utr" and launches["scan_forward"] < 1:
+            raise AssertionError(f"train: the UTR species' prediction "
+                                 f"launched no scan_forward: {launches}")
+        emit({"phase": "train", "run": f"{species} HS04636.fa",
+              "route": route, "equal_to_golden": True,
+              "genes": gff.count("\tgene\t"), "wall_s": wall,
+              "launches": launches, "stages_s": tm, "card": card})
+        if species == "crf3":
+            before = launch_counts()
+            path = os.path.join(DATA, "genes_test1.gb")
+            text, tm, counts, wall, _ = measured(
+                lambda: evaluate_genbank(model, path, device="cuda"))
+            if eval_filter(text) != eval_filter(
+                    train_golden("train_crf3_eval_test1.out")):
+                raise AssertionError("train: the crf3 species' evaluation "
+                                     "of genes_test1.gb differs from the "
+                                     "golden")
+            if routes_of(counts) != {"device_prep": 1}:
+                raise AssertionError(f"train: genes_test1.gb took the "
+                                     f"routes {routes_of(counts)}")
+            emit({"phase": "train", "run": "crf3 genes_test1.gb",
+                  "via": "evaluate_genbank", "equal_to_golden": True,
+                  "routes": routes_of(counts), "wall_s": wall,
+                  "launches": launches_since(before), "stages_s": tm,
+                  "card": card})
+    emit({"phase": "train", "seconds": time.perf_counter() - t_phase,
+          "launches": launches_since(phase_before),
+          "crf_launches": crf_launches, "card": card})
+
+
 def kernel_row(name, source, replaces, launches, r, parity):
     """A row of the kernels line; the batched launches and the largest
     grid of one of them where the kernel has a batched launch."""
@@ -2419,6 +2601,8 @@ def main() -> int:
     phase_gff_utr_sample(cold, card)
     phase_gff_utr_mea(cold, card)
     lap("gff_utr_sample, gff_utr_mea")
+    phase_train(cold, card)
+    lap("train")
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")

@@ -6,7 +6,7 @@
         [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled] \
         [utr_sample] [utr_sample_hints] [utr_mea] [utr_sample_depth] \
         [nc_hints] [nc_plain] [nc_fixture] [tiled_pieces] [utr_pieces] \
-        [utr_pieces_hints] [utr_pieces_segments]
+        [utr_pieces_hints] [utr_pieces_segments] [train_crf3] [train_utr]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -143,6 +143,24 @@ architecture written by augustus_tpu_torch/data/make_nc_fixture.py) and
   decode of all three to augustus_tpu's GoldEngine (segments, values,
   backpointers) and the printed nc transcript of nc_hints to the AUGUSTUS
   3.5.0 text of tests/data/golden_human_nc_hints_HS04636.gff.
+The training goldens are `augustus_tpu`'s, each species trained in a
+temporary configuration made from the template species `generic`
+(augustus_tpu_torch/data/make_train_fixture.py; tests/torch_training.py),
+gzipped, named train_<set><file>.gz:
+  train_crf3  run_training on tests/data/genes_crf3.gb with --CRF=on (two
+           rounds; its engine "auto" is the XLA scan engine on a CPU): the
+           exon, intron and intergenic .pbl and the .pbl.HMM copies of the
+           maximum-likelihood exon and intron files; then that species'
+           predict_file(engine="scan") of tests/data/HS04636.fa
+           (_HS04636.gff) and evaluate_genbank(engine="scan") of
+           tests/data/genes_test1.gb (_eval_test1.out); about 2 minutes
+  train_utr  run_training on tests/data/utrtrain.gb with --UTR=on
+           --/EHMMTraining/statecount=4: the four .pbl files; then that
+           species' HS04636.fa with --UTR=on --print_utr=on (_HS04636.gff)
+  (tests/test_torch_training_crf.py holds the port's CPU predictions with
+  the golden species to the texts, and recomputes every file with both
+  packages in tests marked slow; chip_smoke.py's train phase holds the
+  card to all of them)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
@@ -417,8 +435,50 @@ def golden_gff(which: str) -> str:
     return predict_records(Model.load(args), [rec], device="cpu")
 
 
+TRAIN_TARGETS = ("train_crf3", "train_utr")
+
+
+def train_golden_texts(which: str, tmp: str) -> dict:
+    """{golden file name: text} of the training set `which` ("crf3" or
+    "utr", torch_training.TRAIN_SETS), computed with augustus_tpu in the
+    configuration tmp."""
+    from augustus_tpu.predict import Model, evaluate_genbank, predict_file
+    from torch_training import (TRAIN_SETS, golden_name, make_config,
+                                predict_args, species_files, train)
+    queryfile, extra, suffixes = TRAIN_SETS[which]
+    cfg = make_config(tmp, "augustus_tpu", "sp")
+    files = species_files(train("augustus_tpu", cfg, "sp",
+                                os.path.join(DATA, queryfile), **extra))
+    out = {golden_name(which, s): files["sp" + s] for s in suffixes}
+    model = Model.load(predict_args(cfg, "sp", which))
+    out[golden_name(which, "_HS04636.gff")] = predict_file(
+        model, os.path.join(DATA, "HS04636.fa"), engine="scan")
+    if which == "crf3":
+        out[golden_name(which, "_eval_test1.out")] = evaluate_genbank(
+            model, os.path.join(DATA, "genes_test1.gb"), engine="scan")
+    return out
+
+
+def write_train_goldens(target: str) -> None:
+    import gzip
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = train_golden_texts(target[len("train_"):], tmp)
+    for name, text in texts.items():
+        path = os.path.join(GOLDEN_DIR, name)
+        # mtime 0: the same text gives the same bytes
+        with gzip.GzipFile(path, "wb", mtime=0) as fh:
+            fh.write(text.encode())
+        print(f"{path}: {len(text)} characters")
+    print(f"{target}: {time.perf_counter() - t0:.1f} s")
+
+
 def main(names) -> int:
-    for which in names or sorted(GOLDENS):
+    for which in names or sorted(GOLDENS) + list(TRAIN_TARGETS):
+        if which in TRAIN_TARGETS:
+            write_train_goldens(which)
+            continue
         t0 = time.perf_counter()
         text = golden_gff(which)
         path = os.path.join(GOLDEN_DIR, GOLDENS[which])
