@@ -76,7 +76,8 @@ line each:
           forward kernels, the host sampling walk): cold through the
           command line (python -m augustus_tpu_torch.cli.augustus, a
           process of its own), warm through predict_records with a fresh
-          model (a fresh rand() stream), each byte-equal to
+          model (a fresh rand() stream; in a worker, see sampled), each
+          byte-equal to
           repo_fixture_HS04636_sample100.gff; then HS04636sm.fa with its
           hints, sampled with the posterior filters --minexonintronprob,
           --minmeanexonintronprob and --keep_viterbi (the hint quotient in
@@ -96,7 +97,8 @@ line each:
           inserted gene (host route), one warm run, byte-equal to
           repo_fixture_tiled_hints.gff
   full_forward  the forward kernel on the full cell's planes (device
-          route) and on full_hints' (host route): its time and time per
+          route) and on those of the first FORWARD_HINTS_DEPTH bases of
+          full_hints' letters and hints (host route): its time and time per
           position, the same finite support as the Viterbi kernel's values
           (debug_vals) and f >= v - (4e-3 + 3e-6 * |v|) everywhere (a
           logsumexp is at least the maximum); then k3_compare on the same
@@ -108,9 +110,22 @@ line each:
           SAMPLE_DEPTH bases of the full cell's sequence, byte-equal to
           repo_fixture_tiled21k_sample100.gff: seconds of the host walk per
           Mb of sequence and per sampled Mb
-  cold    the runs of a process of their own, started together and awaited
-          before the warm runs (each takes a CPU core; the card does under
-          a second of their work): HS04636.fa sampled (gff_sample) and with
+  sampled the warm sampled runs (gff_sample, gff_mea, gff_utr_sample,
+          gff_utr_mea, sample_depth, mea_depth, utr_sample_depth), each a
+          host walk on one CPU core for most of its time: started together
+          in a pool of spawned worker processes (one per core) with the
+          cold group, each with a fresh model (a fresh rand() stream), each
+          counting its kernels' launches from 0; the main path's launches
+          are this process's and the workers'.  While they run, this
+          process runs full_forward, k3_compare, full_utr_forward,
+          k2_compare and k5_compare (timed by CUDA events; their launches
+          are put back out of the main path's counts; another process's
+          launch can stretch a timed turn, so the compare phases take the
+          fewest ms of each build's turns)
+  cold    the runs of a process of their own, started together with the
+          sampled workers and awaited before the warm runs (each takes a
+          CPU core; the card does under a second of their work):
+          HS04636.fa sampled (gff_sample) and with
           --mea=1 (gff_mea) through the command line, the GenBank sets
           tests/data/genes_test1.gb and genes_crf3.gb through the command
           line (eval_genbank), and the UTR runs of gff_utr, gff_utr_sample
@@ -192,8 +207,9 @@ line each:
           repo_fixture_utr_HS04636_mea_nologreg.gff
   utr_sample_depth  sample_depth's letters sampled with --UTR=on, held to
           repo_fixture_utr_tiled21k_sample100.gff: walk seconds per Mb
-  full_utr_forward  one timed launch of K5 on full_utr's piece, its
-          finite support that of K2's values and f >= v - tol
+  full_utr_forward  one timed launch of K5 on the first
+          K2_COMPARE_DEPTH bases of full_utr's piece, its finite support
+          that of K2's values and f >= v - tol
   k2_compare  K2 against its earlier design (the K2_SIMPLE build of
           csrc/scan.cu) on 6 kb of HS04636.fa with repo_fixture_utr, on the
           same 6 kb with the 47-state repo_fixture and on the first
@@ -256,6 +272,42 @@ line each:
           predicting HS04636.fa (host route, K2): every .pbl, .pbl.HMM, GFF
           and evaluation text equal to augustus_tpu's golden
           (data/golden/train_*.gz); the phase's seconds and launches
+  pipeline_hints  the RNA-seq path (pipeline/bam2hints.py,
+          pipeline/hints_gen.py): a BAM of seeded spliced and noise reads
+          along the genes of repo_fixture's HS04636.fa golden
+          (tests/torch_pipeline_fixtures.py) through bam2hints in intron
+          mode and with --exonhints, each set sorted and merged by
+          join_mult_hints, then HS04636.fa predicted on the card with each
+          set and extrinsic.M.RM.E.W.cfg (intron hints: device route,
+          prefix.cu, K1, K4; exon-kind hints: host route, K1 with K1.f):
+          hint texts and GFFs equal to augustus_tpu's goldens
+          (data/golden/pipeline_*), seconds and launches
+  chunks  the cluster path (pipeline/chunking.py): HS04636.fa and
+          HS08198.fa split by split_mfasta, cut by make_joblist into jobs of
+          1,000 bases overlapping by 300 (three or more per sequence), each
+          predicted on the card with --predictionStart/--predictionEnd,
+          merged by join_aug_pred and held to the golden
+  optimize  the slice's main path (pipeline/optimize.py): optimize on
+          tests/data/genes_crf3.gb with 3 folds over two metaparameters
+          (tests/torch_pipeline.py:OPT_PARS), trained from the template
+          species generic, each held-out bucket evaluated on the card
+          (device route: prefix.cu, K1, K4, each launched in every
+          evaluation): score lines, chosen values and the .pbl files of the
+          last training equal to the goldens; training s against the
+          evaluations' dev_prep, kernel and traceback s
+  ppx     the protein-profile tools on the host (ppx/, no launches): the
+          profile msa2prfl builds from a seeded MSA and q_ij table,
+          fastBlockSearch of HS04636.fa and its reverse complement,
+          pp_simScore with [intron profile] sections, prepareAlign of an
+          MSA with a gap-riddled row, each equal to its golden
+  latency_probe  (after kernels_new) csrc/latency_probe.cu: one thread's
+          chain of 1,023,095 dependent float64 adds and of 200,000
+          dependent global reads over a random cycle through a buffer the
+          size of the full cell's (n, 64) int32 plane: ns and cycles per add
+          and per read; prefix.cu's latency bound (its calls' row lengths
+          times the add) and K4's (its dependent reads times the read),
+          each beside the kernel's ms (the kernels line's rows carry them as
+          latency_bound_ms)
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.
 The rows of viterbi_forward, scan_forward and event_walk in the kernels
@@ -298,10 +350,10 @@ K2_SPLIT = ("K2_SPLIT",)     # scan.cu's cycle-stamping build
 K2_SIMPLE = ("K2_SIMPLE",)   # scan.cu's earlier design, a warp per state
 K5_SPLIT = ("K5_SPLIT",)     # scan_lse.cu's cycle-stamping build
 K5_SIMPLE = ("K5_SIMPLE",)   # scan_lse.cu's earlier design, serial merges
-# the libraries: each kernel, and forward.cu's, scan.cu's and
-# scan_lse.cu's measurement builds
+# the libraries: each kernel, the latency probes, and forward.cu's,
+# scan.cu's and scan_lse.cu's measurement builds
 KERNELS = ("viterbi", "prefix", "trace", "forward", "scan", "scan_lse",
-           ("forward", TWO_PASS), ("forward", SPLIT),
+           "latency_probe", ("forward", TWO_PASS), ("forward", SPLIT),
            ("forward", SPLIT + TWO_PASS), ("scan", K2_SIMPLE),
            ("scan", K2_SPLIT), ("scan", K2_SPLIT + K2_SIMPLE),
            ("scan_lse", K5_SIMPLE), ("scan_lse", K5_SPLIT),
@@ -316,8 +368,11 @@ SAMPLE_ARGS = {"sample": "100", "alternatives-from-sampling": "true"}
 SAMPLE_FILTERS = {"minexonintronprob": "0.08", "minmeanexonintronprob": "0.4",
                   "keep_viterbi": "true"}
 SAMPLE_DEPTH = 21_000     # bases of the full cell's sequence sampled
-# bases of full_utr's piece that k2_compare and k5_compare take
+# bases of full_utr's piece that k2_compare, k5_compare and
+# full_utr_forward take
 K2_COMPARE_DEPTH = 100_000
+# bases of full_hints' letters whose planes full_forward and k3_compare take
+FORWARD_HINTS_DEPTH = 100_000
 WALK_BOUND = 7            # events a launch of pieces_parity's bounded walks
 # full_pieces / utr_pieces: the piece sizes and utr_pieces' letters
 FULL_PIECE = "100000"
@@ -350,6 +405,10 @@ TRAIN_CRF = ("genes_crf3.gb", {"CRF": "on"},
              + [f"_{m}_probs.pbl.HMM" for m in ("exon", "intron")])
 TRAIN_UTR = ("utrtrain.gb", {"UTR": "on", "/EHMMTraining/statecount": "4"},
              [f"_{m}_probs.pbl" for m in TRAIN_MODELS + ("utr",)])
+# the pipeline phases' files; the latency probe's random cycle and reads
+PIPELINE_DIR = os.path.join(ROOT, "build", "pipeline")
+LATENCY_SEED = 90
+LATENCY_READS = 200_000
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -439,16 +498,17 @@ def _plain(job):
     return out, (time.perf_counter() - t0) * 1000.0
 
 
-def plain_start(jobs):
-    """Start the plain versions of a phase's pieces, one spawned process
-    each (single-threaded loops of small torch operations; the card's host
-    has 8 cores); plain_results awaits them."""
+def plain_start(jobs, fn=_plain):
+    """Start fn on each job (by default the plain versions of a phase's
+    pieces: single-threaded loops of small torch operations) in a pool of
+    spawned processes, one per job up to one per core (the card's host has
+    8); plain_results awaits them."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1),
                                mp_context=multiprocessing.get_context(
                                    "spawn"))
-    return pool, [pool.submit(_plain, job) for job in jobs]
+    return pool, [pool.submit(fn, job) for job in jobs]
 
 
 def plain_results(started) -> list:
@@ -463,6 +523,70 @@ def plain_results(started) -> list:
 def plain_versions(jobs) -> list:
     """The plain versions of a phase's pieces, all at once."""
     return plain_results(plain_start(jobs))
+
+
+def sampled_args(species="repo_fixture", **extra) -> dict:
+    """The species' arguments with --sample=100
+    --alternatives-from-sampling=true and `extra`."""
+    return dict(model_args(species), **SAMPLE_ARGS, **extra)
+
+
+def sampled_jobs() -> dict:
+    """The warm sampled runs, longest first: {name: (model arguments, FASTA
+    of tests/data, or None for the first SAMPLE_DEPTH bases of the full
+    cell's sequence)}."""
+    utr = dict(model_args("repo_fixture_utr"), **UTR_PRINT)
+    return {
+        "mea_depth": (sampled_args(**MEA_ARGS), None),
+        "sample_depth": (sampled_args(), None),
+        "utr_sample_depth": (sampled_args("repo_fixture_utr", **UTR_PRINT),
+                             None),
+        "gff_mea": (sampled_args(**MEA_ARGS), "HS04636.fa"),
+        "gff_mea_nologreg": (sampled_args(**MEA_ARGS, **NOLOGREG),
+                             "HS04636.fa"),
+        "gff_utr_mea": (dict(utr, **MEA_ARGS, **NOLOGREG), "HS04636.fa"),
+        "gff_sample": (sampled_args(), "HS04636.fa"),
+        "gff_utr_sample": (dict(utr, **SAMPLE_ARGS), "HS04636.fa"),
+        "gff_utr_sample_hints": (dict(
+            model_args("repo_fixture_utr", "HS04636sm.E.gff"), **SAMPLE_ARGS,
+            **SAMPLE_FILTERS), "HS04636sm.fa"),
+        "gff_sample_hints": (dict(
+            model_args("repo_fixture", "HS04636sm.E.gff"), **SAMPLE_ARGS,
+            **SAMPLE_FILTERS), "HS04636sm.fa"),
+        "gff_mea_hints": (dict(model_args("repo_fixture", "HS04636sm.E.gff"),
+                               **MEA_ARGS), "HS04636sm.fa")}
+
+
+def _sampled(job):
+    """One warm sampled run in a worker process (a fresh model, so a fresh
+    rand() stream): run_predict's (gff, stage times, counts, wall s, peak
+    device bytes) and the launches of each counted kernel in the run."""
+    from augustus_tpu_torch.io.fasta import FastaRecord, read_fasta
+    from augustus_tpu_torch.io.tiled import tiled_record
+    from augustus_tpu_torch.predict import Model
+    args, fasta = job
+    if fasta is None:
+        rec = tiled_record(DATA)
+        rec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
+    else:
+        rec = read_fasta(os.path.join(DATA, fasta))[0]
+    model = Model.load(args)
+    before = launch_counts()
+    return run_predict(model, rec, "host_prep") + (launches_since(before),)
+
+
+def sampled_start():
+    """Start the warm sampled runs (each a host walk on one core for most
+    of its time) in a pool of spawned worker processes; sampled_results
+    awaits them."""
+    jobs = sampled_jobs()
+    return list(jobs), plain_start(list(jobs.values()), _sampled)
+
+
+def sampled_results(started) -> dict:
+    """{name: _sampled's result} of sampled_start's runs."""
+    names, pool_futures = started
+    return dict(zip(names, plain_results(pool_futures)))
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -665,7 +789,8 @@ def phase_kernels_new(device, model, rec, card):
     prefix_row = {
         "phase": "kernels_new", "kernel": "prefix_sum_f64", "calls": len(rows),
         "rows": sum(int(np.prod(x.shape[:-1])) for x in rows),
-        "entries": ops, "parity": "bit-exact (also np.cumsum)",
+        "entries": ops, "chain_adds": sum(x.shape[-1] for x in rows),
+        "parity": "bit-exact (also np.cumsum)",
         "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
         "plain_on": "CPU (torch.cumsum)", "library_ms": lib_ms,
         "bytes": nbytes, "bound_bytes_ms": bound_bytes,
@@ -716,9 +841,15 @@ def phase_kernels_new(device, model, rec, card):
     packed_emits, _ = tb.trace_packed(bp.cpu().numpy(), state0, n)
     host_walk_ms = (time.perf_counter() - t0) * 1e3
     nbytes = cnt * (3 * 4 + 5 * 4) + 12
+    # a step reads bp at (base, state); a skipped self-loop run (a
+    # non-empty run [b2+1, base]) adds the dependent reads of brk and of bp
+    # at b2
+    ev_h = ev[:cnt].cpu()
+    skips = int((ev_h[:, 0] <= ev_h[:, 1]).sum())
     trace_row = {
         "phase": "kernels_new", "kernel": "event_walk", "n": n,
-        "events": cnt, "final_base": fb, "parity": "exact",
+        "events": cnt, "skips": skips, "dependent_reads": cnt + 2 * skips,
+        "final_base": fb, "parity": "exact",
         "bounded_walk": {"bound": bound, "launches": relaunches,
                          "equal": True},
         "max_abs_err": 0, "ms": k_ms, "walk_breaks_ms": brk_ms,
@@ -1029,7 +1160,6 @@ def k2_compare_row(name, st, t, v0, usage, card):
     in turns (simple, new, new, simple); registers, spills and shared
     memory of the four builds (`usage`); the clock64 split of both (the
     K2_SPLIT builds)."""
-    import numpy as np
     import torch
     from augustus_tpu_torch.engine.scan import scan_forward
     new = scan_forward(st, t, v0, debug_vals=True)
@@ -1047,7 +1177,7 @@ def k2_compare_row(name, st, t, v0, usage, card):
     for d in (K2_SIMPLE, (), (), K2_SIMPLE):
         turns[d].append(time_cuda(
             lambda: scan_forward(st, t, v0, defines=d), 1))
-    simple, new_ms = (float(np.mean(turns[d])) for d in (K2_SIMPLE, ()))
+    simple, new_ms = (min(turns[d]) for d in (K2_SIMPLE, ()))
     row = {"phase": "k2_compare", "piece": name, "n": st.n, "S": st.S,
            "NHW": st.NHW, "bit_equal_to_simple": True,
            "simple_ms": turns[K2_SIMPLE], "new_ms": turns[()],
@@ -1123,7 +1253,6 @@ def k5_compare_row(name, st, t, v0, usage, card):
     timed in turns (simple, new, new, simple); registers, spills and shared
     memory of the four builds (`usage`); the clock64 split of both (the
     K5_SPLIT builds)."""
-    import numpy as np
     import torch
     from augustus_tpu_torch.engine.scan import scan_table
     new = scan_table(st, t, v0)
@@ -1137,7 +1266,7 @@ def k5_compare_row(name, st, t, v0, usage, card):
     for d in (K5_SIMPLE, (), (), K5_SIMPLE):
         turns[d].append(time_cuda(
             lambda: scan_table(st, t, v0, defines=d), 1))
-    simple, new_ms = (float(np.mean(turns[d])) for d in (K5_SIMPLE, ()))
+    simple, new_ms = (min(turns[d]) for d in (K5_SIMPLE, ()))
     row = {"phase": "k5_compare", "piece": name, "n": st.n, "S": st.S,
            "NHW": st.NHW, "support": "identical",
            "tolerance": f"{FWD_ABS_TOL} + {FWD_REL_TOL} * |f|",
@@ -1191,9 +1320,8 @@ def phase_full_forward(device, cells, card):
     import torch
     from augustus_tpu_torch.engine.forward import forward_table
     from augustus_tpu_torch.engine.viterbi import planes_for, viterbi_forward
-    for name, model, rec in cells:
-        st, fplanes, (_, arr), route = forward_planes(model, rec, None,
-                                                      device)
+    for name, model, rec, n in cells:
+        st, fplanes, (_, arr), route = forward_planes(model, rec, n, device)
         _, _, v = viterbi_forward(st, planes_for(st, arr, device),
                                   debug_vals=True)
         f = forward_table(st, fplanes)
@@ -1224,7 +1352,7 @@ def phase_full_forward(device, cells, card):
         for d in (TWO_PASS, (), (), TWO_PASS):
             turns[d].append(time_cuda(lambda: forward_table(st, fplanes, d),
                                       1))
-        parent, new = (float(np.mean(turns[d])) for d in (TWO_PASS, ()))
+        parent, new = (min(turns[d]) for d in (TWO_PASS, ()))
         row = {"phase": "k3_compare", "cell": name, "n": st.n,
                "NHW": st.NHW, "bit_equal_to_parent": True,
                "parent_ms": turns[TWO_PASS], "new_ms": turns[()],
@@ -1240,14 +1368,12 @@ def phase_full_forward(device, cells, card):
         del fplanes
 
 
-def phase_gff_sample(model_sampled, cold, card):
+def phase_gff_sample(cold, warm, card):
     """HS04636.fa sampled: cold through the command line (the cold phase),
-    warm in this process (a fresh model each, so each starts the rand()
-    stream)."""
-    from augustus_tpu_torch.io.fasta import read_fasta
-    from augustus_tpu_torch.predict import Model
+    warm in a worker process (sampled_start: a fresh model each, so each
+    starts the rand() stream), then HS04636sm.fa with its hints and the
+    posterior filters warm."""
     golden = golden_body("repo_fixture_HS04636_sample100.gff")
-    fasta = os.path.join(DATA, "HS04636.fa")
     out, cold_s = cold["gff_sample"]
     if strip_comments(out) != golden:
         raise AssertionError("gff_sample cold run (command line): GFF "
@@ -1255,20 +1381,15 @@ def phase_gff_sample(model_sampled, cold, card):
     emit({"phase": "gff_sample", "run": "cold", "via": "command line",
           "equal_to_golden": True, "seconds": cold_s,
           "transcripts": out.count("\ttranscript\t"), "card": card})
-    gff, tm, counts, wall, _ = run_predict(model_sampled(),
-                                           read_fasta(fasta)[0], "host_prep")
+    gff, tm, counts, wall, _, launches = warm["gff_sample"]
     if strip_comments(gff) != golden:
         raise AssertionError("gff_sample warm run: GFF differs from the "
                              "committed golden")
     emit({"phase": "gff_sample", "run": "warm", "via": "predict_records",
           "equal_to_golden": True, "seconds": wall,
           "transcripts": gff.count("\ttranscript\t"), "counts": counts,
-          "stages_s": tm, "card": card})
-    hmodel = Model.load(dict(model_args("repo_fixture", "HS04636sm.E.gff"),
-                             **SAMPLE_ARGS, **SAMPLE_FILTERS))
-    gff, tm, counts, wall, _ = run_predict(
-        hmodel, read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0],
-        "host_prep")
+          "launches": launches, "stages_s": tm, "card": card})
+    gff, tm, counts, wall, _, launches = warm["gff_sample_hints"]
     if strip_comments(gff) != golden_body(
             "repo_fixture_HS04636sm_hints_sample100.gff") or \
             "# Evidence for and against" not in gff:
@@ -1277,15 +1398,15 @@ def phase_gff_sample(model_sampled, cold, card):
     emit({"phase": "gff_sample", "run": "warm, hints and filters",
           "via": "predict_records", "equal_to_golden": True,
           "seconds": wall, "transcripts": gff.count("\ttranscript\t"),
-          "counts": counts, "stages_s": tm, "card": card})
+          "counts": counts, "launches": launches, "stages_s": tm,
+          "card": card})
 
 
-def phase_sample_depth(model, rec, card, phase="sample_depth",
+def phase_sample_depth(got, card, phase="sample_depth",
                        golden="repo_fixture_tiled21k_sample100.gff"):
-    from augustus_tpu_torch.io.fasta import FastaRecord
-    srec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
-    before = launch_counts()
-    gff, tm, counts, wall, peak = run_predict(model, srec, "host_prep")
+    """The sampled run of the first SAMPLE_DEPTH bases of the full cell's
+    sequence (`got`: its _sampled result), held to its golden."""
+    gff, tm, counts, wall, peak, launches = got
     if strip_comments(gff) != golden_body(golden):
         raise AssertionError(f"{phase}: GFF differs from the committed "
                              "golden")
@@ -1301,7 +1422,7 @@ def phase_sample_depth(model, rec, card, phase="sample_depth",
           "kernel_ms": tm.get("kernel", 0) * 1e3,
           "forward_ms": tm.get("forward", 0) * 1e3,
           "walk_share": tm.get("sample", 0.0) / wall,
-          "launches": launches_since(before), "peak_mem_bytes": peak,
+          "launches": launches, "peak_mem_bytes": peak,
           "stages_s": tm, "counts": counts, "card": card})
 
 
@@ -1321,9 +1442,10 @@ def cli_args(args: dict) -> list:
         [f"--{k}={v}" for k, v in args.items()]
 
 
-def phase_cold(card):
+def phase_cold():
     """Start the command-line runs together, each a process of its own, and
-    await them: {name: (stdout, seconds)}; each must exit 0."""
+    await them: {name: (stdout, seconds)}; each must exit 0.  Prints
+    nothing (it runs beside the main thread's phases)."""
     species = {k: v for k, v in model_args("repo_fixture").items()
                if k != "softmasking"}     # GenBank input sets it off
     hs04636 = os.path.join(DATA, "HS04636.fa")
@@ -1359,8 +1481,6 @@ def phase_cold(card):
             raise AssertionError(f"cold run {k} exited {r.returncode}: "
                                  f"{r.stderr[-2000:]}")
         out[k] = (r.stdout, seconds)
-    emit({"phase": "cold", "runs": list(cmds), "seconds":
-          {k: v[1] for k, v in out.items()}, "card": card})
     return out
 
 
@@ -1414,12 +1534,11 @@ def mea_row(phase, run, gff, tm, counts, wall, launches, card):
             "counts": counts, "stages_s": tm, "card": card}
 
 
-def phase_gff_mea(model_sampled, cold, card):
+def phase_gff_mea(cold, warm, card):
     """HS04636.fa with --mea=1 cold (the command line) and warm, HS04636sm.fa
-    hinted and HS04636.fa with the piecewise-linear scores warm, each held
-    to its golden; a fresh model each (a fresh rand() stream)."""
-    from augustus_tpu_torch.io.fasta import read_fasta
-    from augustus_tpu_torch.predict import Model
+    hinted and HS04636.fa with the piecewise-linear scores warm (each in a
+    worker process, a fresh model each: a fresh rand() stream), each held
+    to its golden."""
     golden = golden_body("repo_fixture_HS04636_mea.gff")
     out, cold_s = cold["gff_mea"]
     if strip_comments(out) != golden:
@@ -1428,37 +1547,29 @@ def phase_gff_mea(model_sampled, cold, card):
     emit({"phase": "gff_mea", "run": "cold", "via": "command line",
           "equal_to_golden": True, "seconds": cold_s,
           "transcripts": out.count("\ttranscript\t"), "card": card})
-    hs04636 = read_fasta(os.path.join(DATA, "HS04636.fa"))[0]
-    hs04636sm = read_fasta(os.path.join(DATA, "HS04636sm.fa"))[0]
-    runs = [("warm", model_sampled(**MEA_ARGS), hs04636,
-             "repo_fixture_HS04636_mea.gff"),
-            ("warm, hints", Model.load(dict(
-                model_args("repo_fixture", "HS04636sm.E.gff"), **MEA_ARGS)),
-             hs04636sm, "repo_fixture_HS04636sm_hints_mea.gff"),
-            ("warm, logreg off", model_sampled(**MEA_ARGS, **NOLOGREG),
-             hs04636, "repo_fixture_HS04636_mea_nologreg.gff")]
-    for label, model, rec, name in runs:
-        before = launch_counts()
-        gff, tm, counts, wall, _ = run_predict(model, rec, "host_prep")
+    runs = [("warm", "gff_mea", "repo_fixture_HS04636_mea.gff"),
+            ("warm, hints", "gff_mea_hints",
+             "repo_fixture_HS04636sm_hints_mea.gff"),
+            ("warm, logreg off", "gff_mea_nologreg",
+             "repo_fixture_HS04636_mea_nologreg.gff")]
+    for label, job, name in runs:
+        gff, tm, counts, wall, _, launches = warm[job]
         if strip_comments(gff) != golden_body(name):
             raise AssertionError(f"gff_mea {label} run: GFF differs from "
                                  f"the committed golden {name}")
         if "hints" in label and "# Evidence for and against" not in gff:
             raise AssertionError("gff_mea hinted run: no evidence block")
-        emit(mea_row("gff_mea", label, gff, tm, counts, wall,
-                     launches_since(before), card))
+        emit(mea_row("gff_mea", label, gff, tm, counts, wall, launches,
+                     card))
 
 
-def phase_mea_depth(model, rec, card):
-    from augustus_tpu_torch.io.fasta import FastaRecord
-    srec = FastaRecord(rec.name, rec.sequence[:SAMPLE_DEPTH])
-    before = launch_counts()
-    gff, tm, counts, wall, peak = run_predict(model, srec, "host_prep")
+def phase_mea_depth(got, card):
+    gff, tm, counts, wall, peak, launches = got
     if strip_comments(gff) != golden_body("repo_fixture_tiled21k_mea.gff"):
         raise AssertionError("mea_depth: GFF differs from the committed "
                              "golden")
     emit(dict(mea_row("mea_depth", "warm", gff, tm, counts, wall,
-                      launches_since(before), card),
+                      launches, card),
               length=SAMPLE_DEPTH, peak_mem_bytes=peak))
 
 
@@ -1774,36 +1885,29 @@ def utr_forward_finish(device, started, card):
     return rows
 
 
-def phase_gff_utr_sample(cold, card):
+def phase_gff_utr_sample(cold, warm, card):
     """--UTR=on sampled: HS04636.fa cold (the command line) and warm,
     HS04636sm.fa with its hints and the posterior filters warm, each held
     to its golden; every piece on the host route through K2 and K5."""
-    from augustus_tpu_torch.predict import Model
-    runs = [("warm", Model.load(dict(model_args("repo_fixture_utr"),
-                                     **UTR_PRINT, **SAMPLE_ARGS)),
-             "HS04636.fa", "repo_fixture_utr_HS04636_sample100.gff"),
-            ("warm, hints and filters", Model.load(dict(
-                model_args("repo_fixture_utr", "HS04636sm.E.gff"),
-                **SAMPLE_ARGS, **SAMPLE_FILTERS)),
-             "HS04636sm.fa", "repo_fixture_utr_HS04636sm_hints_sample100.gff")]
-    utr_gff_runs("gff_utr_sample", cold, runs, card)
+    utr_gff_runs("gff_utr_sample", cold, warm, [
+        ("warm", "gff_utr_sample", "HS04636.fa",
+         "repo_fixture_utr_HS04636_sample100.gff"),
+        ("warm, hints and filters", "gff_utr_sample_hints", "HS04636sm.fa",
+         "repo_fixture_utr_HS04636sm_hints_sample100.gff")], card)
 
 
-def phase_gff_utr_mea(cold, card):
+def phase_gff_utr_mea(cold, warm, card):
     """--UTR=on with --mea=1 --/CompPred/logreg=false on HS04636.fa, cold
     and warm, held to its golden."""
-    from augustus_tpu_torch.predict import Model
-    utr_gff_runs("gff_utr_mea", cold, [
-        ("warm", Model.load(dict(model_args("repo_fixture_utr"), **UTR_PRINT,
-                                 **MEA_ARGS, **NOLOGREG)),
-         "HS04636.fa", "repo_fixture_utr_HS04636_mea_nologreg.gff")], card)
+    utr_gff_runs("gff_utr_mea", cold, warm, [
+        ("warm", "gff_utr_mea", "HS04636.fa",
+         "repo_fixture_utr_HS04636_mea_nologreg.gff")], card)
 
 
-def utr_gff_runs(phase, cold, runs, card):
+def utr_gff_runs(phase, cold, warm, runs, card):
     """The cold run of `phase` (the command line, the first run's golden),
-    then each warm run, held to its golden: host route, K2 and K5 launched
-    once per piece."""
-    from augustus_tpu_torch.io.fasta import read_fasta
+    then each warm run (run in a worker process), held to its golden: host
+    route, K2 and K5 launched once per piece."""
     out, cold_s = cold[phase]
     if strip_comments(out) != golden_body(runs[0][3]):
         raise AssertionError(f"{phase} cold run (command line): GFF differs "
@@ -1811,14 +1915,11 @@ def utr_gff_runs(phase, cold, runs, card):
     emit({"phase": phase, "input": runs[0][2], "run": "cold",
           "via": "command line", "equal_to_golden": True, "seconds": cold_s,
           "transcripts": out.count("\ttranscript\t"), "card": card})
-    for label, model, fasta, golden_name in runs:
-        rec = read_fasta(os.path.join(DATA, fasta))[0]
-        before = launch_counts()
-        gff, tm, counts, wall, peak = run_predict(model, rec, "host_prep")
+    for label, job, fasta, golden_name in runs:
+        gff, tm, counts, wall, peak, launches = warm[job]
         if strip_comments(gff) != golden_body(golden_name):
             raise AssertionError(f"{phase} {label} run: GFF differs from "
                                  f"{golden_name}")
-        launches = launches_since(before)
         if launches["scan_forward"] < 1 or launches["scan_table"] < 1:
             raise AssertionError(f"{phase} {label}: launches {launches}")
         emit(dict(mea_row(phase, label, gff, tm, counts, wall, launches,
@@ -1827,14 +1928,15 @@ def utr_gff_runs(phase, cold, runs, card):
 
 
 def phase_full_utr_forward(device, model, rec, card):
-    """K5 on full_utr's piece: one timed launch; the same finite support as
-    K2's values of the piece and f >= v - (4e-3 + 3e-6 * |v|) everywhere
-    (a logsumexp is at least the maximum)."""
+    """K5 on the first K2_COMPARE_DEPTH bases of full_utr's piece: one timed
+    launch; the same finite support as K2's values of the piece and
+    f >= v - (4e-3 + 3e-6 * |v|) everywhere (a logsumexp is at least the
+    maximum)."""
     import numpy as np
     import torch
     from augustus_tpu_torch.engine.scan import scan_forward, scan_table
     from augustus_tpu_torch.predict import piece_scan
-    st, t, v0, _ = piece_scan(model, rec, None, device)
+    st, t, v0, _ = piece_scan(model, rec, K2_COMPARE_DEPTH, device)
     v = scan_forward(st, t, v0, debug_vals=True)[2].cpu().numpy()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2443,6 +2545,275 @@ def phase_train(cold, card):
           "crf_launches": crf_launches, "card": card})
 
 
+def pipeline_module():
+    """tests/torch_pipeline.py: the seeded inputs and the runs of the
+    pipeline and protein-profile tools, shared with the tests and the
+    golden writer (the port's runs import nothing of augustus_tpu)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_pipeline
+    return torch_pipeline
+
+
+def pipeline_dir(name: str) -> str:
+    """A fresh directory under build/pipeline for a phase's files."""
+    import shutil
+    d = os.path.join(PIPELINE_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def check_golden(phase: str, name: str, text: str) -> None:
+    """text equal to the golden `name` (a GFF without its comment lines,
+    any other file whole)."""
+    TP = pipeline_module()
+    want = TP.golden(name)
+    if name.endswith(".gff"):
+        text, want = strip_comments(text), strip_comments(want)
+    if text != want:
+        raise AssertionError(f"{phase}: {name} differs from the golden")
+
+
+def k1_launches(launches: dict) -> dict:
+    """The launches a pipeline phase reports: K1, K1.f, prefix.cu, K4."""
+    return {k: launches[k] for k in ("viterbi_forward",
+                                     "viterbi_forward:hint_quot",
+                                     "prefix_sum_f64", "event_walk")}
+
+
+def phase_pipeline_hints(card):
+    """The RNA-seq path: the generated BAM through bam2hints in intron
+    mode and with --exonhints, each set sorted and merged by
+    join_mult_hints, then HS04636.fa predicted on the card with each set
+    (intron hints: device route, K1; exon-kind hints: host route, K1 with
+    K1.f); the hint texts and both GFFs equal to their goldens."""
+    TP = pipeline_module()
+    t_phase = time.perf_counter()
+    phase_before = launch_counts()
+    tmp = pipeline_dir("hints")
+    t0 = time.perf_counter()
+    bam = TP.F.write_bam(os.path.join(tmp, "reads.bam"))
+    texts = TP.hint_texts(TP.PORT, bam)
+    hint_s = time.perf_counter() - t0
+    names = TP.GOLDENS["pipeline_hints"]
+    routes = {"introns": "device_prep", "exonhints": "host_prep"}
+    for i, mode in enumerate(TP.HINT_MODES):
+        check_golden("pipeline_hints", names[i], texts[mode])
+        path = os.path.join(tmp, f"hints_{mode}.gff")
+        with open(path, "w") as fh:
+            fh.write(texts[mode])
+        before = launch_counts()
+        gff, tm, counts, wall, _ = measured(lambda: TP.predict(
+            TP.PORT, TP.hinted_args(path), os.path.join(DATA, "HS04636.fa"),
+            "cuda"))
+        launches = k1_launches(launches_since(before))
+        check_golden("pipeline_hints", names[2 + i], gff)
+        if routes_of(counts) != {routes[mode]: 1}:
+            raise AssertionError(f"pipeline_hints {mode}: routes "
+                                 f"{routes_of(counts)}")
+        need = ["viterbi_forward", "event_walk"] + (
+            ["prefix_sum_f64"] if mode == "introns"
+            else ["viterbi_forward:hint_quot"])
+        if min(launches[k] for k in need) < 1:
+            raise AssertionError(f"pipeline_hints {mode}: launches "
+                                 f"{launches}")
+        emit({"phase": "pipeline_hints", "run": mode,
+              "route": routes[mode], "equal_to_golden": True,
+              "hints": texts[mode].count("\n"),
+              "hint_types": {k: texts[mode].count(f"\t{k}\t") for k in
+                             ("intron", "exonpart", "exon")},
+              "genes": gff.count("\tgene\t"), "wall_s": wall,
+              "launches": launches, "stages_s": tm, "card": card})
+    emit({"phase": "pipeline_hints", "bam2hints_s": hint_s,
+          "seconds": time.perf_counter() - t_phase,
+          "launches": k1_launches(launches_since(phase_before)),
+          "card": card})
+
+
+def phase_chunks(card):
+    """The cluster path: HS04636.fa and HS08198.fa split by split_mfasta,
+    cut into overlapping jobs by make_joblist, each job predicted on the
+    card with --predictionStart/--predictionEnd, the outputs merged by
+    join_aug_pred and held to the golden."""
+    from augustus_tpu_torch.pipeline.chunking import join_aug_pred
+    TP = pipeline_module()
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    tmp = pipeline_dir("chunks")
+    jobs = TP.chunk_jobs(TP.PORT, tmp)
+    per_seq = {}
+    for _, seqname, _, _ in jobs:
+        per_seq[seqname] = per_seq.get(seqname, 0) + 1
+    if min(per_seq.values()) < 3:
+        raise AssertionError(f"chunks: jobs per sequence {per_seq}")
+    outs, tms = [], {}
+    for path, _, s, e in jobs:
+        gff, tm, counts, _, _ = measured(lambda: TP.predict(
+            TP.PORT, TP.chunk_args(s, e), path, "cuda"))
+        if set(routes_of(counts)) != {"device_prep"}:
+            raise AssertionError(f"chunks: job {s}-{e} took the routes "
+                                 f"{routes_of(counts)}")
+        outs.append(gff)
+        for k, v in tm.items():
+            tms[k] = tms.get(k, 0.0) + v
+    joined = join_aug_pred(outs)
+    check_golden("chunks", TP.GOLDENS["chunks"][0], joined)
+    launches = k1_launches(launches_since(before))
+    if min(launches[k] for k in ("viterbi_forward", "prefix_sum_f64",
+                                 "event_walk")) < len(jobs):
+        raise AssertionError(f"chunks: launches {launches} for "
+                             f"{len(jobs)} jobs")
+    emit({"phase": "chunks", "equal_to_golden": True, "jobs": len(jobs),
+          "jobs_per_sequence": per_seq,
+          "chunk_size": TP.CHUNK_SIZE, "overlap": TP.CHUNK_OVERLAP,
+          "genes": joined.count("\tgene\t"),
+          "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "stages_s": tms, "card": card})
+
+
+def phase_optimize(card):
+    """The slice's main path: optimize (pipeline/optimize.py) on
+    genes_crf3.gb with 3 folds over the generated metaparameters, trained
+    from the template species `generic`, each held-out bucket evaluated on
+    the card (device route: prefix.cu, K1, K4); the score lines, the
+    chosen values and the .pbl files of the last training equal to the
+    goldens, and every kernel of the route launched in each evaluation."""
+    TP = pipeline_module()
+    tmp = pipeline_dir("optimize")
+    before = launch_counts()
+    got, tm, counts, wall, peak = measured(lambda: TP.optimize(
+        TP.PORT, tmp, os.path.join(DATA, TP.OPT_SET), TP.OPT_PARS,
+        TP.OPT_KFOLD, "cuda"))
+    chosen, lines, files, _ = got
+    launches = k1_launches(launches_since(before))
+    names = TP.GOLDENS["optimize"]
+    check_golden("optimize", names[0], TP.optimize_text(chosen, lines))
+    for name, m in zip(names[1:], TP.OPT_FILES):
+        check_golden("optimize", name, files[m])
+    evaluations = sum(len(v) for _, v in TP.OPT_PARS) * TP.OPT_KFOLD
+    if min(launches[k] for k in ("viterbi_forward", "prefix_sum_f64",
+                                 "event_walk")) < evaluations:
+        raise AssertionError(f"optimize: launches {launches} for "
+                             f"{evaluations} evaluations")
+    if set(routes_of(counts)) != {"device_prep"}:
+        raise AssertionError(f"optimize: routes {routes_of(counts)}")
+    emit({"phase": "optimize", "equal_to_golden": True, "chosen": chosen,
+          "scores": lines, "evaluations": evaluations,
+          "records_predicted": counts.get("device_prep", 0),
+          "wall_s": wall, "training_s": tm.get("train", 0.0),
+          "dev_prep_s": tm.get("dev_prep", 0.0),
+          "kernel_s": tm.get("kernel", 0.0),
+          "traceback_s": tm.get("traceback", 0.0),
+          "launches": launches, "peak_mem_bytes": peak, "stages_s": tm,
+          "counts": counts, "card": card})
+
+
+def phase_ppx(card):
+    """The protein-profile tools on the host (no launches): msa2prfl on the
+    seeded MSA with the generated q_ij table, fastBlockSearch of
+    HS04636.fa and its reverse complement, pp_simScore, prepareAlign; each
+    output equal to its golden."""
+    TP = pipeline_module()
+    t0 = time.perf_counter()
+    before = launch_counts()
+    texts = TP.ppx(TP.PORT, pipeline_dir("ppx"))
+    for name, text in texts.items():
+        check_golden("ppx", name, text)
+    launches = launches_since(before)
+    if any(launches.values()):
+        raise AssertionError(f"ppx: launches {launches}")
+    emit({"phase": "ppx", "equal_to_golden": True,
+          "hits": texts[TP.GOLDENS["ppx"][0]].count("\t"),
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "card": card})
+
+
+def latency_chain(lib, kind, args, reps=3):
+    """Launch one probe of csrc/latency_probe.cu `reps` times: (the least
+    ms by CUDA events, the clock64 cycles of that launch, its result)."""
+    import ctypes
+    import torch
+    fn = getattr(lib, f"{kind}_chain_launch")
+    fn.restype = ctypes.c_int
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    out = torch.zeros(1, dtype=torch.float64 if kind == "add"
+                      else torch.int32, device="cuda")
+    best = None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        start.record()
+        err = fn(*args(out, cycles), ctypes.c_void_p(stream))
+        end.record()
+        end.synchronize()
+        if err != 0:
+            raise RuntimeError(f"{kind}_chain launch failed: CUDA error "
+                               f"{err}")
+        ms = start.elapsed_time(end)
+        if best is None or ms < best[0]:
+            best = (ms, int(cycles.item()), out.item())
+    return best
+
+
+def phase_latency_probe(prefix_row, trace_row, n, card):
+    """The latency of one dependent float64 add and of one dependent
+    global read, measured by csrc/latency_probe.cu apart from the kernels:
+    a chain of n (the full cell's length) adds in one thread, and a chain
+    of reads over a random cycle through a buffer of (n, 64) int32, the
+    size of the full cell's backpointer plane.  prefix.cu's latency bound
+    is its calls' row lengths times the add, K4's its dependent reads times
+    the read; each kernel's ms beside its bound."""
+    import ctypes
+    import torch
+    from augustus_tpu_torch.engine import _build
+    lib = _build.load("latency_probe")
+    d = 0.5 ** 30
+    ms, cyc, val = latency_chain(lib, "add", lambda out, c: (
+        ctypes.c_double(1.0), ctypes.c_double(d), ctypes.c_longlong(n),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(c.data_ptr())))
+    if val != 1.0 + n * d:
+        raise AssertionError(f"latency_probe: the add chain gave {val}")
+    add = {"adds": n, "ms": ms, "ns_per_add": ms * 1e6 / n,
+           "cycles_per_add": cyc / n}
+    size = n * 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LATENCY_SEED)
+    perm = torch.randperm(size, generator=gen, device="cuda")
+    nxt = torch.empty(size, dtype=torch.int32, device="cuda")
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    start = int(perm[0].item())
+    want = int(perm[LATENCY_READS % size].item())
+    del perm
+    ms, cyc, last = latency_chain(lib, "read", lambda out, c: (
+        ctypes.c_void_p(nxt.data_ptr()), ctypes.c_longlong(LATENCY_READS),
+        ctypes.c_int(start), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(c.data_ptr())))
+    del nxt
+    if last != want:
+        raise AssertionError(f"latency_probe: the read chain ended at "
+                             f"{last}, not {want}")
+    read = {"reads": LATENCY_READS, "buffer_bytes": size * 4, "ms": ms,
+            "ns_per_read": ms * 1e6 / LATENCY_READS,
+            "cycles_per_read": cyc / LATENCY_READS}
+    prefix_bound = prefix_row["chain_adds"] * add["ns_per_add"] * 1e-6
+    trace_bound = trace_row["dependent_reads"] * read["ns_per_read"] * 1e-6
+    prefix_row["latency_bound_ms"] = prefix_bound
+    trace_row["latency_bound_ms"] = trace_bound
+    emit({"phase": "latency_probe", "add_chain": add, "read_chain": read,
+          "prefix_sum_f64": {"chain_adds": prefix_row["chain_adds"],
+                             "latency_bound_ms": prefix_bound,
+                             "ms": prefix_row["ms"],
+                             "bound_over_ms": prefix_bound / prefix_row["ms"]},
+          "event_walk": {"dependent_reads": trace_row["dependent_reads"],
+                         "latency_bound_ms": trace_bound,
+                         "ms": trace_row["ms"],
+                         "bound_over_ms": trace_bound / trace_row["ms"]},
+          "card": card})
+
+
 def kernel_row(name, source, replaces, launches, r, parity):
     """A row of the kernels line; the batched launches and the largest
     grid of one of them where the kernel has a batched launch."""
@@ -2451,8 +2822,8 @@ def kernel_row(name, source, replaces, launches, r, parity):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("batched_launches", "largest_grid")
-               if k in r}}
+            **{k: r[k] for k in ("batched_launches", "largest_grid",
+                                 "latency_bound_ms") if k in r}}
 
 
 def main() -> int:
@@ -2519,7 +2890,7 @@ def main() -> int:
     rec = tiled_record(DATA)
 
     def model_sampled(species="repo_fixture", **extra):
-        return Model.load(dict(model_args(species), **SAMPLE_ARGS, **extra))
+        return Model.load(sampled_args(species, **extra))
 
     def utr_sampled(**extra):
         return model_sampled("repo_fixture_utr", **UTR_PRINT, **extra)
@@ -2565,16 +2936,14 @@ def main() -> int:
         ("HS04636sm_exon_free", sm_model, hs04636sm, None),
         ("full", model, rec, None)], card)
     prefix_row, trace_row = phase_kernels_new(device, model, rec, card)
-    lap("prep_parity, kernels_new")
+    phase_latency_probe(prefix_row, trace_row, len(rec.sequence), card)
+    lap("prep_parity, kernels_new, latency_probe")
     phase_pieces_parity(device, k1_pieces, k2_pieces, card)
     del k1_pieces, k2_pieces
     lap("pieces_parity")
     utr_fwd_rows = utr_forward_finish(device, utr_fwd, card)
     fwd_parity = forward_parity_finish(fwd, card)
     lap("utr_forward_parity, forward_parity")
-
-    cold = phase_cold(card)
-    lap("cold")
 
     # ---- main path: GFF parity, then full size; counts from here on ----
     for counter in (viterbi_forward, tb.event_walk, scan_forward):
@@ -2586,28 +2955,65 @@ def main() -> int:
     forward_table.launches = 0
     scan_forward.launches = 0
     scan_table.launches = 0
+    # the warm sampled runs in worker processes (each counts its own
+    # launches from 0) and the command-line runs of the cold group, host
+    # walks for the most part; meanwhile this process measures the kernels
+    # at full size (card-bound; their launches are not the main path's)
+    hrec, hint_lines = tiled_hinted(DATA)
+    thmodel = Model.load(model_args("repo_fixture", "tiled_sm.E.gff"))
+    started = sampled_start()
+    with ThreadPoolExecutor(1) as background:
+        cold_runs = background.submit(phase_cold)
+        saved = launch_counters()
+        phase_full_forward(device, [("full", model, rec, None),
+                                    ("full_hints_100kb", thmodel, hrec,
+                                     FORWARD_HINTS_DEPTH)], card)
+        lap("full_forward, k3_compare")
+        phase_full_utr_forward(device, utr, rec, card)
+        lap("full_utr_forward")
+        phase_band_compare(device, [("HS04636_6kb", utr, hs04636, 6000),
+                                    ("47_state_6kb", model, hs04636, 6000),
+                                    ("full_utr_100kb", utr, rec,
+                                     K2_COMPARE_DEPTH)], card)
+        lap("k2_compare, k5_compare")
+        restore_launch_counters(saved)
+        cold = cold_runs.result()
+    emit({"phase": "cold", "runs": list(cold), "seconds":
+          {k: v[1] for k, v in cold.items()}, "card": card})
+    warm = sampled_results(started)
+    worker_launches = {k: sum(r[5][k] for r in warm.values())
+                       for k in launch_counts()}
+    emit({"phase": "sampled", "runs": list(warm), "workers": min(
+        len(warm), os.cpu_count() or 1), "wall_s": {
+            k: r[3] for k, r in warm.items()},
+          "launches": worker_launches, "card": card})
+    lap("cold, sampled")
     predict_phase("gff", model, os.path.join(DATA, "HS04636.fa"),
                   "repo_fixture_HS04636.gff", "device_prep", False)
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
     predict_phase("gff_hints", hmodel, os.path.join(DATA, "HS04636sm.fa"),
                   "repo_fixture_HS04636sm_hints.gff", "host_prep", True)
-    phase_gff_sample(model_sampled, cold, card)
-    phase_gff_mea(model_sampled, cold, card)
+    phase_gff_sample(cold, warm, card)
+    phase_gff_mea(cold, warm, card)
     phase_eval_genbank(model, cold, card)
     phase_gff_utr(cold, card)
     lap("gff .. gff_utr")
     phase_gff_nc(cold, card)
     lap("gff_nc")
-    phase_gff_utr_sample(cold, card)
-    phase_gff_utr_mea(cold, card)
+    phase_gff_utr_sample(cold, warm, card)
+    phase_gff_utr_mea(cold, warm, card)
     lap("gff_utr_sample, gff_utr_mea")
     phase_train(cold, card)
     lap("train")
+    phase_pipeline_hints(card)
+    phase_chunks(card)
+    phase_optimize(card)
+    phase_ppx(card)
+    lap("pipeline_hints, chunks, optimize, ppx")
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")
 
-    hrec, hint_lines = tiled_hinted(DATA)
     with open(os.path.join(HINTS, "tiled_sm.E.gff")) as fh:
         if fh.read() != "".join(hint_lines):
             raise AssertionError("tiled_sm.E.gff is not tiled_hinted's hints")
@@ -2632,8 +3038,7 @@ def main() -> int:
           "equal_to_golden": True,
           "genes": dev_texts[0].count("\tgene\t")})
 
-    hmodel = Model.load(model_args("repo_fixture", "tiled_sm.E.gff"))
-    phase_full("full_hints", hmodel, hrec, golden_body(
+    phase_full("full_hints", thmodel, hrec, golden_body(
         "repo_fixture_tiled_hints.gff"), card,
         dict(counts, hints=len(hint_lines)), "host_prep", labels=("warm",))
     lap("full, full_sm, full_hints")
@@ -2652,13 +3057,12 @@ def main() -> int:
             rec.name, rec.sequence[:UTR_PIECES_LEN]),
         "repo_fixture_utr_tiled100k_pieces20k.gff", "host_prep", card)
     lap("utr_pieces")
-    phase_sample_depth(model_sampled(), rec, card)
-    phase_mea_depth(model_sampled(**MEA_ARGS), rec, card)
-    lap("sample_depth, mea_depth")
-    phase_sample_depth(utr_sampled(), rec, card, "utr_sample_depth",
+    phase_sample_depth(warm["sample_depth"], card)
+    phase_mea_depth(warm["mea_depth"], card)
+    phase_sample_depth(warm["utr_sample_depth"], card, "utr_sample_depth",
                        "repo_fixture_utr_tiled21k_sample100.gff")
-    lap("utr_sample_depth")
-    launches = launch_counts()
+    launches = {k: v + worker_launches[k]
+                for k, v in launch_counts().items()}
     if min(launches.values()) < 1:
         raise AssertionError(f"the main path's kernel launches: {launches}")
     batched = {c: {"batched_launches": f.batched_launches,
@@ -2668,16 +3072,6 @@ def main() -> int:
                             ("scan_forward", scan_forward))}
     if min(b["batched_launches"] for b in batched.values()) < 1:
         raise AssertionError(f"the main path's batched launches: {batched}")
-    phase_full_forward(device, [("full", model, rec),
-                                ("full_hints", hmodel, hrec)], card)
-    lap("full_forward, k3_compare")
-    phase_full_utr_forward(device, utr, rec, card)
-    lap("full_utr_forward")
-    phase_band_compare(device, [("HS04636_6kb", utr, hs04636, 6000),
-                                ("47_state_6kb", model, hs04636, 6000),
-                                ("full_utr_100kb", utr, rec,
-                                 K2_COMPARE_DEPTH)], card)
-    lap("k2_compare, k5_compare")
     emit({"phase": "seconds", "by_phase": laps,
           "total": time.perf_counter() - t_start})
 

@@ -6,7 +6,8 @@
         [utr_hs04636] [utr_hints] [utr_rc] [utr_eval] [utr_tiled] \
         [utr_sample] [utr_sample_hints] [utr_mea] [utr_sample_depth] \
         [nc_hints] [nc_plain] [nc_fixture] [tiled_pieces] [utr_pieces] \
-        [utr_pieces_hints] [utr_pieces_segments] [train_crf3] [train_utr]
+        [utr_pieces_hints] [utr_pieces_segments] [train_crf3] [train_utr] \
+        [pipeline_hints] [chunks] [optimize] [ppx]
 
 All use the `repo_fixture` species with `--UTR=off`; hs04636, tiled and
 sample with `--softmasking=0` and no hints, hints, tiled_hints and
@@ -161,6 +162,29 @@ gzipped, named train_<set><file>.gz:
   the golden species to the texts, and recomputes every file with both
   packages in tests marked slow; chip_smoke.py's train phase holds the
   card to all of them)
+The pipeline and protein-profile goldens are `augustus_tpu`'s (JAX on the
+CPU, engine="scan"), run on the seeded inputs of
+tests/torch_pipeline_fixtures.py by tests/torch_pipeline.py (its GOLDENS
+name the files of each):
+  pipeline_hints  bam2hints of the generated RNA-seq BAM in intron mode
+           and with --exonhints, each sorted and merged by join_mult_hints,
+           and HS04636.fa predicted with each hint set and
+           extrinsic.M.RM.E.W.cfg (about 3 minutes)
+  chunks   HS04636.fa and HS08198.fa split by split_mfasta, cut into
+           overlapping jobs by make_joblist, each job predicted with
+           --predictionStart/--predictionEnd, merged by join_aug_pred
+  optimize  optimize on tests/data/genes_crf3.gb (3 folds, the
+           metaparameters of torch_pipeline.OPT_PARS) from the template
+           species `generic`: its score lines, the chosen values and the
+           .pbl files of its last training
+  ppx      the profile msa2prfl builds from the seeded MSA and q_ij table
+           (with [intron profile] sections), fastBlockSearch of HS04636.fa
+           and its reverse complement, pp_simScore of the fixture protein,
+           prepareAlign of the MSA with a gap-riddled row
+  (tests/test_torch_pipeline.py, test_torch_bam2hints.py,
+  test_torch_ppx.py and test_torch_optimize.py hold the port to
+  augustus_tpu on smaller inputs and on these; chip_smoke.py's
+  pipeline_hints, chunks, optimize and ppx phases hold the card to them)
 The tiled goldens do not come from `augustus_tpu`: the time per position
 of its XLA scan on the CPU grows with the length, so 1 Mb takes hours.  The
 port's CPU path equals `augustus_tpu` on every smaller input that
@@ -436,6 +460,20 @@ def golden_gff(which: str) -> str:
 
 
 TRAIN_TARGETS = ("train_crf3", "train_utr")
+PIPELINE_TARGETS = ("pipeline_hints", "chunks", "optimize", "ppx")
+
+
+def write_pipeline_goldens(target: str) -> None:
+    import tempfile
+    import torch_pipeline as TP
+    t0 = time.perf_counter()
+    run = {"pipeline_hints": TP.pipeline_hints, "chunks": TP.chunks,
+           "optimize": TP.optimize_phase, "ppx": TP.ppx}[target]
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = run("augustus_tpu", tmp)
+    for name, text in texts.items():
+        print(f"{TP.write_golden(name, text)}: {len(text)} characters")
+    print(f"{target}: {time.perf_counter() - t0:.1f} s")
 
 
 def train_golden_texts(which: str, tmp: str) -> dict:
@@ -475,9 +513,13 @@ def write_train_goldens(target: str) -> None:
 
 
 def main(names) -> int:
-    for which in names or sorted(GOLDENS) + list(TRAIN_TARGETS):
+    for which in names or sorted(GOLDENS) + list(TRAIN_TARGETS) + list(
+            PIPELINE_TARGETS):
         if which in TRAIN_TARGETS:
             write_train_goldens(which)
+            continue
+        if which in PIPELINE_TARGETS:
+            write_pipeline_goldens(which)
             continue
         t0 = time.perf_counter()
         text = golden_gff(which)
