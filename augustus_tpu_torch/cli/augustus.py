@@ -64,12 +64,24 @@ def main(argv=None) -> int:
     if "species" not in args:
         sys.stderr.write("error: no species specified (--species=...)\n")
         return 1
-    if "alnfile" in args:
-        raise NotImplementedError("comparative gene prediction (--alnfile) "
-                                  "is not ported")
-    if queryfile is None:
+    if queryfile is None and "alnfile" not in args:
         sys.stderr.write("error: no query file\n")
         return 1
+    if "alnfile" in args:
+        # comparative (CGP) mode: --treefile --alnfile --speciesfilenames
+        # (reference augustus.cc:129-130 -> CompGenePred::start); every
+        # species' range decodes on --device
+        from ..cgp import CompGenePred
+        tree = args.pop("treefile")
+        aln = args.pop("alnfile")
+        tbl = args.pop("speciesfilenames")
+        outdir = args.pop("/CompPred/outdir", ".")
+        model = Model.load(args)
+        cgp = CompGenePred(model, tree, aln, tbl, outdir=outdir)
+        cgp.start(device)
+        sys.stdout.write(HEADER.format(version=__version__))
+        sys.stdout.write(f"# CGP outputs written to {outdir}\n")
+        return 0
     fmt = detect_format(queryfile)
     if fmt == "genbank" and "softmasking" not in args:
         # reference: softmasking default is off for .gb files

@@ -61,7 +61,14 @@ enum {
   D_SM_LT, D_SM_LTC, D_SM_STAGE, D_SM_RW, D_SM_VBUF, D_SM_BPBUF,
   D_SM_SEGOFF, D_SM_SEGW0, D_SM_SEGWF, D_SM_RES, D_SM_EDGE, D_SM_FP,
   D_SM_SEGBASE, D_SM_SCRATCH, D_SM_WORDS,
-  D_HEADER = 48
+  // the ints of the descriptor in shared memory (the slot lists of a deep
+  // piece stay in global memory past them), the scalar and int columns of
+  // a staged row, 1 for the deep layout, the shared memory in bytes
+  D_SHARE, D_NSS, D_NIS, D_DEEP, D_BYTES,
+  // written by the kernel into its shared copy, 8-byte aligned: the
+  // global descriptor and tables, where a deep piece's slots are read
+  D_GDESC = 44, D_GSTAB = 46, D_GITAB = 48,
+  D_HEADER = 56
 };
 // task kinds (high 8 bits of a task word; the low 24 bits: record offset)
 enum { T_CHAIN, T_FIXED, T_LESSD, T_PINNED, T_CONV };
@@ -70,16 +77,23 @@ enum { CH_STATE, CH_EMI };
 enum { FX_STATE, FX_JUMP, FX_KIND, FX_LANE, FX_EMI, FX_EXTRA };
 enum { LD_STATE, LD_LANE, LD_W, LD_CUM, LD_CUMJ, LD_PSI, LD_JSEL, LD_JGATE,
        LD_LV, LD_LI, LD_SEG };
-enum { PN_STATE, PN_LANE, PN_SCORE, PN_EOP };
+// PN_X: the int column of the offset of a position's further candidates
+// (-1: none at this position; the field -1: none in the piece), PN_XB:
+// where the lists start in the float table; a list is [count, then eop and
+// score per candidate] (engine/scan.py:_pinned_lists)
+enum { PN_STATE, PN_LANE, PN_SCORE, PN_EOP, PN_X, PN_XB };
 enum { CV_STATE, CV_BPL, CV_AOFF, CV_LANE, CV_FMODE, CV_SMIN, CV_SMAX,
        CV_GATE, CV_NVAR, CV_VAR, CV_HINT, CV_SEG };
 enum { VR_G, VR_H, VR_LO, VR_HI, VR_W, VR_R0, VR_HAS_LO, VR_VB_LO,
        VR_HAS_HI, VR_VB_HI, VR_LV, VR_SIZE };
 // hint record: ipo, aL, aR, exclass, 11 window rows, 13 x columns, the
-// counts of crossing and exact-match slots, then their (int, scalar, int)
-// column triples
+// counts of crossing and exact-match slots, the offset from the record to
+// their (int, scalar, int) column triples (one list per distinct list,
+// after the segment table), the record's own offset in the descriptor and
+// its conv's a_off (hint_quot finds the descriptor and the position j
+// from them)
 enum { HR_IPO, HR_AL, HR_AR, HR_EXCLASS, HR_W, HR_X = HR_W + 11,
-       HR_NCROSS = HR_X + 13, HR_NEX, HR_SLOTS };
+       HR_NCROSS = HR_X + 13, HR_NEX, HR_SLOTS, HR_OFF, HR_AOFF };
 enum { W_BE_EP, W_BE_CP, W_CNTBE_EP, W_CNTBE_CP, W_CR_EP, W_CR_CP,
        W_CNTCR_EP, W_CNTCR_CP, W_CNTE_EP, W_CNTE_CP, W_ZC };
 enum { X_BE_EP, X_BE_CP, X_CNTBE_EP, X_CNTBE_CP, X_C2_EP, X_CNTC2_EP,
@@ -110,16 +124,38 @@ struct Tables {
 // model's quotient (augustus_tpu/engine/gold_nc.py:_not_end_part) over the
 // nc hint tables (engine/device.py:_nc_hint_tables); out of line, since
 // only hinted bands call it
+// h: the hint record in the descriptor's shared copy, srow / irow: the
+// position's staged rows.  EXT: the kernel may run a deep piece (header
+// D_DEEP), whose record is read from the global descriptor (its slot lists
+// lie past the shared part) and its columns from the position's global
+// rows (their first columns are the staged ones, then the slot columns;
+// engine/scan.py:deep_perms), through the pointers the kernel wrote into
+// its shared header.  K2 instantiates both (its EXT build only for the
+// pieces that need it: the extra registers of the deep branch cost its
+// caller spills), K5 the EXT one.
+template <bool EXT>
 __device__ __noinline__ float hint_quot(const int* h, const float* srow,
                                         const int* irow, const float* hw,
                                         int HL, int GPAD, const float* lm,
                                         int b, int w, int len_hi) {
+  if constexpr (EXT) {
+    const int* desc = h - h[HR_OFF];
+    if (desc[D_DEEP]) {
+      const int j = b - w + len_hi - h[HR_AOFF];
+      const int off = h[HR_OFF];
+      h = *(const int* const*)(desc + D_GDESC) + off;
+      srow = *(const float* const*)(desc + D_GSTAB) +
+             (size_t)j * desc[D_NSC];
+      irow = *(const int* const*)(desc + D_GITAB) +
+             (size_t)j * desc[D_NIC];
+    }
+  }
   const int bob = b - h[HR_IPO];
   const int c1 = GPAD + bob - 1;
   const int* W = h + HR_W;
   const int* X = h + HR_X;
   const int ncross = h[HR_NCROSS], nex = h[HR_NEX];
-  const int* cross = h + HR_SLOTS;
+  const int* cross = h + h[HR_SLOTS];
   const int* ex = cross + 3 * ncross;
 #define WR(k, col) hw[(size_t)W[k] * HL + (col)]
   float cov_ep = srow[X[X_TX_EP]], cov_cp = srow[X[X_TX_CP]];
@@ -207,6 +243,37 @@ __device__ __noinline__ float hint_quot(const int* h, const float* srow,
 #undef WR
 }
 
+// the further candidates of pinned record fr at the position of irow, or
+// null: nc intron hints of one end and several starts
+__device__ __forceinline__ const float* pinned_more(const int* fr,
+                                                    const int* irow,
+                                                    const float* fdesc) {
+  if (fr[PN_X] < 0) return nullptr;
+  const int x = irow[fr[PN_X]];
+  return x < 0 ? nullptr : fdesc + fr[PN_XB] + x;
+}
+
+// K2's pinned value with the further candidates m of its position: the
+// last maximum of the live ones in candidate order (v, bp in and out); out
+// of line, since few pieces have any
+__device__ __noinline__ void pinned_max(const float* m, const float* lanes,
+                                           const int8_t* largs, int l,
+                                           size_t LW, int PAD, int j,
+                                           float& v, int& bp) {
+  const int cnt = (int)m[0];
+  for (int k = 0; k < cnt; ++k) {
+    const int e = (int)m[1 + 2 * k];
+    const float sc = m[2 + 2 * k];
+    const size_t row = (size_t)(max(e, -PAD) + PAD);
+    const float lv = lanes[l * LW + row];
+    const float c = lv + sc;
+    if (sc > GATE && lv > GATE && c >= v) {
+      v = c;
+      bp = ((int)largs[l * LW + row] << 20) | (j - e);
+    }
+  }
+}
+
 __device__ __forceinline__ int frame_of(int r0, int fmode, int w) {
   return r0 < 0 ? 0
       : (fmode == 1 ? (r0 + w) % 3 : ((r0 - w) % 3 + 3) % 3);
@@ -230,6 +297,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // at smem), and the band list's arithmetic.
 struct K2Ctx {
   const int* desc;
+  // NSC / NIC: the tables' widths; a staged row holds their first
+  // desc[D_NSS] / desc[D_NIS] columns (all of them but in the deep layout,
+  // read from the shared header where they are used: no register more)
   int n, S, NL, SP, PAD, GPAD, NSC, NIC, cls_col, C;
   const int* tasks;
   int nconv, nlessd, nchain, nfixed, npinned, nfp, ncomb, NSEG;
@@ -281,19 +351,27 @@ struct K2Ctx {
     scratch = (float*)(smem + desc[D_SM_SCRATCH]);
   }
 
-  // the staged scalar row of position r (its int row follows at + NSC)
+  // the staged scalar row of position r (its int row follows at
+  // + desc[D_NSS]).  EXT false: a kernel that runs no deep piece, whose
+  // staged rows hold all NSC + NIC columns (K2's other instantiation)
   __device__ __forceinline__ const float* srow_of(int r) const {
     return stage + (r & (STAGES - 1)) * RW;
   }
+  template <bool EXT = true>
+  __device__ __forceinline__ const int* irow_of(int r) const {
+    return (const int*)(srow_of(r) + (EXT ? desc[D_NSS] : NSC));
+  }
 
   // row r of the scalar and int tables into its slot (one commit group)
+  template <bool EXT = true>
   __device__ __forceinline__ void stage_row(int r, const Tables& a,
                                             int tid) const {
     if (r < n) {
       float* dst = stage + (r & (STAGES - 1)) * RW;
-      for (int i = tid; i < NSC + NIC; i += K2_THREADS) {
-        if (i < NSC) cp_async4(dst + i, a.stab + (size_t)r * NSC + i);
-        else cp_async4(dst + i, a.itab + (size_t)r * NIC + (i - NSC));
+      const int ns = EXT ? desc[D_NSS] : NSC, ni = EXT ? desc[D_NIS] : NIC;
+      for (int i = tid; i < ns + ni; i += K2_THREADS) {
+        if (i < ns) cp_async4(dst + i, a.stab + (size_t)r * NSC + i);
+        else cp_async4(dst + i, a.itab + (size_t)r * NIC + (i - ns));
       }
     }
     cp_async_commit();
@@ -316,10 +394,11 @@ struct K2Ctx {
   // the counts' exclusive prefix into buffer nb; warps SEG_WARP.., thread
   // t takes segments 2t and 2t + 1 (seg_tot: SEG_THREADS / 32 ints of
   // shared memory)
+  template <bool EXT = true>
   __device__ __forceinline__ void seg_counts(int jn, int nb, int tid,
                                              int lane, int warp,
                                              int* seg_tot) const {
-    const int* irow1 = (const int*)(srow_of(jn) + NSC);
+    const int* irow1 = irow_of<EXT>(jn);
     int* so = segoff + nb * (MAX_SEG + 1);
     int* sw = segw0 + nb * MAX_SEG;
     long long* sb = segbase + nb * MAX_SEG;
@@ -381,6 +460,15 @@ struct K2Ctx {
     return ch * 8 + __ffs(m2) - 1;
   }
 };
+
+// after the copy of the descriptor's first D_SHARE ints into smem: where
+// hint_quot finds a deep piece's slot lists and columns (one thread)
+__device__ __forceinline__ void put_globals(int* smem, const int* desc_g,
+                                           const Tables& a) {
+  *(const int**)(smem + D_GDESC) = desc_g;
+  *(const float**)(smem + D_GSTAB) = a.stab;
+  *(const int**)(smem + D_GITAB) = a.itab;
+}
 
 // share w of the T entries of a position's band list: entries [T w / 16,
 // T (w + 1) / 16) (engine/scan.py:k2_shares)

@@ -224,11 +224,14 @@ __device__ __forceinline__ void warp_last_max(float& v, int& i) {
   }
 }
 
+template <bool EXT>
 __global__ void __launch_bounds__(K2_THREADS, 1)
 scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
   extern __shared__ int smem[];
   int* desc = smem;
-  float* vprev = (float*)(smem + desc_len);
+  // the ints in shared memory; a deep piece's slot lists stay in desc_g
+  const int share = desc_g[D_SHARE];
+  float* vprev = (float*)(smem + share);
   float* vals = vprev + MAX_STATES;
   int* bps = (int*)(vals + MAX_STATES);
   float* l0 = (float*)(bps + MAX_STATES);
@@ -237,7 +240,9 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   SPLIT(SPLIT_SHARED)
-  for (int i = tid; i < desc_len; i += blockDim.x) desc[i] = desc_g[i];
+  for (int i = tid; i < share; i += blockDim.x) desc[i] = desc_g[i];
+  __syncthreads();
+  if (tid == 0) put_globals(smem, desc_g, a);
   __syncthreads();
 
   const int n = desc[D_N], S = desc[D_S], NL = desc[D_NL];
@@ -349,8 +354,14 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
           const size_t row = (size_t)(max(eop, -PAD) + PAD);
           const float lv = a.lanes[l * LW + row];
           const int la = a.largs[l * LW + row];
-          vals[s] = (sc > GATE && lv > GATE) ? lv + sc : NEG;
-          bps[s] = (la << 20) | (j - eop);
+          float v = (sc > GATE && lv > GATE) ? lv + sc : NEG;
+          int b = (la << 20) | (j - eop);
+          if constexpr (EXT) {
+            if (const float* m = pinned_more(r, irow, a.fdesc))
+              pinned_max(m, a.lanes, a.largs, l, LW, PAD, j, v, b);
+          }
+          vals[s] = v;
+          bps[s] = b;
         }
       } else {  // T_CONV
         const int s = r[CV_STATE];
@@ -391,8 +402,8 @@ scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
               float sc = NEG;
               if (L > GATE && g > GATE) {
                 sc = ((L + g) + lvd[w]) +
-                     hint_quot(hrec, srow, irow, a.hw, (int)HL, GPAD, lm,
-                               b0 + w, w, len_hi);
+                     hint_quot<EXT>(hrec, srow, irow, a.hw, (int)HL, GPAD,
+                                    lm, b0 + w, w, len_hi);
               }
               if (sc >= sb) { sb = sc; ridx = w; }
             }
@@ -487,6 +498,7 @@ __device__ __forceinline__ void group_first_max(float& v, int& i) {
 
 // The whole pass of one piece, by one block: the body of the single and the
 // batched kernel.
+template <bool EXT>
 __device__ __forceinline__ void scan_body(const Args& a,
                                           const int* __restrict__ desc_g,
                                           int desc_len) {
@@ -494,12 +506,15 @@ __device__ __forceinline__ void scan_body(const Args& a,
   const int* desc = smem;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   SPLIT(SPLIT_SHARED)
-  for (int i = tid; i < desc_len; i += K2_THREADS) smem[i] = desc_g[i];
+  const int share = desc_g[D_SHARE];
+  for (int i = tid; i < share; i += K2_THREADS) smem[i] = desc_g[i];
+  __syncthreads();
+  if (tid == 0) put_globals(smem, desc_g, a);
   __syncthreads();
 
   const K2Ctx x(smem);
   const int n = x.n, S = x.S, NL = x.NL, SP = x.SP, PAD = x.PAD;
-  const int GPAD = x.GPAD, NSC = x.NSC, cls_col = x.cls_col;
+  const int GPAD = x.GPAD, cls_col = x.cls_col;
   const int* tasks = x.tasks;
   const int nconv = x.nconv, nchain = x.nchain, nfixed = x.nfixed;
   const int* chain_tasks = x.chain_tasks;
@@ -529,7 +544,7 @@ __device__ __forceinline__ void scan_body(const Args& a,
   float* scratch = x.scratch;
   __shared__ int seg_tot[SEG_THREADS / 32];
 
-  auto stage_row = [&](int r) { x.stage_row(r, a, tid); };
+  auto stage_row = [&](int r) { x.template stage_row<EXT>(r, a, tid); };
   auto srow_of = [&](int r) -> const float* { return x.srow_of(r); };
   auto fp_at = [&](int t, int j, const int* irow) -> int2 {
     return x.fp_at(t, j, irow);
@@ -541,7 +556,7 @@ __device__ __forceinline__ void scan_body(const Args& a,
     return (int)(int8_t)(word >> (8 * ((uintptr_t)(a.largs + at) & 3)));
   };
   auto seg_counts = [&](int jn, int nb) {
-    x.seg_counts(jn, nb, tid, lane, warp, seg_tot);
+    x.template seg_counts<EXT>(jn, nb, tid, lane, warp, seg_tot);
   };
   // phase C of position jc (0 for the start column): every warp, groups of
   // RED_G lanes; the lanes of jc from the values vsrc, the chain states of
@@ -553,7 +568,7 @@ __device__ __forceinline__ void scan_body(const Args& a,
     const int k = lane & (RED_G - 1);
     const int nitems = NL + (next ? nchain : 0);
     const float* srow1 = next ? srow_of(jc + 1) : nullptr;
-    const int* irow1 = next ? (const int*)(srow1 + NSC) : nullptr;
+    const int* irow1 = next ? x.template irow_of<EXT>(jc + 1) : nullptr;
     const int CH = SP / RED_G;
     constexpr int PER_WARP = 32 / RED_G;
     for (int base = warp * PER_WARP; base < nitems;
@@ -634,7 +649,7 @@ __device__ __forceinline__ void scan_body(const Args& a,
     float* vcur = vbuf + cur * MAX_STATES;
     int* bcur = bpbuf + cur * MAX_STATES;
     const float* srow = srow_of(j);
-    const int* irow = (const int*)(srow + NSC);
+    const int* irow = x.template irow_of<EXT>(j);
     const int* so = segoff + cur * (MAX_SEG + 1);
     const int* sw0 = segw0 + cur * MAX_SEG;
     if (j == 1) {  // v0 was read: the even positions' buffer starts at NEG
@@ -770,9 +785,9 @@ __device__ __forceinline__ void scan_body(const Args& a,
                       const int b0 = j + sg[SG_BOFF];
                       const int len_hi = desc[sg[SG_REC] + CV_AOFF] -
                                          sg[SG_BOFF];
-                      sc = sc + hint_quot(desc + hint, srow, irow, a.hw,
-                                          (int)HL, GPAD, lm, b0 + w, w,
-                                          len_hi);
+                      sc = sc + hint_quot<EXT>(desc + hint, srow, irow,
+                                               a.hw, (int)HL, GPAD, lm,
+                                               b0 + w, w, len_hi);
                     }
                   }
                   if (sc >= sb) { sb = sc; ridx = w; rp = pb[u]; }
@@ -919,8 +934,15 @@ __device__ __forceinline__ void scan_body(const Args& a,
         } else {
           const int eop = irow[fr[PN_EOP]];
           const float sc = srow[fr[PN_SCORE]];
-          vcur[fr[PN_STATE]] = (sc > GATE && lv > GATE) ? lv + sc : NEG;
-          bcur[fr[PN_STATE]] = (la << 20) | (j - eop);
+          float v = (sc > GATE && lv > GATE) ? lv + sc : NEG;
+          int b = (la << 20) | (j - eop);
+          if constexpr (EXT) {
+            if (const float* m = pinned_more(fr, irow, a.fdesc))
+              pinned_max(m, a.lanes, a.largs, fr[PN_LANE], LW, PAD, j, v,
+                         b);
+          }
+          vcur[fr[PN_STATE]] = v;
+          bcur[fr[PN_STATE]] = b;
         }
       }
     } else if (warp >= SEG_WARP && j + 1 < n) {
@@ -946,9 +968,10 @@ __device__ __forceinline__ void scan_body(const Args& a,
   SPLIT(SPLIT_STORE)
 }
 
+template <bool EXT>
 __global__ void __launch_bounds__(K2_THREADS, 1)
 scan_forward_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
-  scan_body(a, desc_g, desc_len);
+  scan_body<EXT>(a, desc_g, desc_len);
 }
 
 // A batch record: the arguments of scan_forward_launch from desc to v_final,
@@ -965,6 +988,7 @@ struct BatchRec {
 // One block per piece of a batch: block b copies record b into shared
 // memory and runs the same body as a single launch, so each piece's bp and
 // v_final are those of its own launch.
+template <bool EXT>
 __global__ void __launch_bounds__(K2_THREADS, 1)
 scan_forward_batch_kernel(const long long* __restrict__ recs) {
   __shared__ BatchRec rec;
@@ -990,7 +1014,7 @@ scan_forward_batch_kernel(const long long* __restrict__ recs) {
     rec.a.v_final = (float*)f[17];
   }
   __syncthreads();
-  scan_body(rec.a, rec.desc, rec.desc_len);
+  scan_body<EXT>(rec.a, rec.desc, rec.desc_len);
 }
 
 constexpr bool SIMPLE = false;
@@ -1005,14 +1029,19 @@ extern "C" int scan_forward_launch(
     const void* stab, const void* itab, const void* bvalid,
     const void* bstop, const void* hw, const void* v0, void* lanes,
     void* largs, void* bp, void* vals, void* v_final, int smem_bytes,
-    void* stream) {
-  if (desc_len > MAX_DESC || desc_len < D_HEADER) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // the earlier design holds the descriptor and five state vectors
-  const int smem = SIMPLE ? desc_len * 4 + MAX_STATES * 4 * 5 : smem_bytes;
+    int ext, void* stream) {
+  if (desc_len < D_HEADER) return (int)cudaErrorInvalidValue;
+  // ext: the piece takes the deep layout or has pinned states of several
+  // candidates (engine/scan.py:_launch_fields), which only the EXT
+  // instantiation reads
+  auto kernel = ext ? scan_forward_kernel<true> : scan_forward_kernel<false>;
+  // the earlier design holds the descriptor (at most MAX_DESC ints of it)
+  // and five state vectors
+  const int smem = SIMPLE ? (desc_len < MAX_DESC ? desc_len : MAX_DESC) * 4 +
+                                MAX_STATES * 4 * 5
+                          : smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      scan_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   Args a;
   a.fdesc = (const float*)fdesc;
@@ -1031,7 +1060,7 @@ extern "C" int scan_forward_launch(
   a.bp = (int*)bp;
   a.vals = (float*)vals;
   a.v_final = (float*)v_final;
-  scan_forward_kernel<<<1, K2_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<1, K2_THREADS, smem, (cudaStream_t)stream>>>(
       a, (const int*)desc, desc_len);
   return (int)cudaGetLastError();
 }
@@ -1039,18 +1068,21 @@ extern "C" int scan_forward_launch(
 #ifndef K2_SIMPLE
 // recs: (P, NFIELDS) int64 on the card, one record per piece (each checked
 // by the caller as scan_forward_launch checks its arguments); smem_bytes:
-// the most dynamic shared memory of any piece of the batch.  One block per
-// piece; returns cudaGetLastError() (0 when the launch was taken).  The
-// earlier design (K2_SIMPLE) has no batched launch.
+// the most dynamic shared memory of any piece of the batch; ext: any piece
+// needs the EXT instantiation.  One block per piece; returns
+// cudaGetLastError() (0 when the launch was taken).  The earlier design
+// (K2_SIMPLE) has no batched launch.
 extern "C" int scan_forward_batch_launch(const void* recs, int P,
-                                         int smem_bytes, void* stream) {
+                                         int smem_bytes, int ext,
+                                         void* stream) {
   if (P < 1) return (int)cudaErrorInvalidValue;
+  auto kernel = ext ? scan_forward_batch_kernel<true>
+                    : scan_forward_batch_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      scan_forward_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  scan_forward_batch_kernel<<<P, K2_THREADS, smem_bytes,
-                              (cudaStream_t)stream>>>((const long long*)recs);
+  kernel<<<P, K2_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+      (const long long*)recs);
   return (int)cudaGetLastError();
 }
 #endif

@@ -322,12 +322,15 @@ scan_table_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
   const int* desc = smem;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   SPLIT(SPLIT_SHARED)
-  for (int i = tid; i < desc_len; i += K2_THREADS) smem[i] = desc_g[i];
+  const int share = desc_g[D_SHARE];
+  for (int i = tid; i < share; i += K2_THREADS) smem[i] = desc_g[i];
+  __syncthreads();
+  if (tid == 0) put_globals(smem, desc_g, a);
   __syncthreads();
 
   const K2Ctx x(smem);
   const int n = x.n, S = x.S, NL = x.NL, SP = x.SP, PAD = x.PAD;
-  const int GPAD = x.GPAD, NSC = x.NSC, cls_col = x.cls_col;
+  const int GPAD = x.GPAD, cls_col = x.cls_col;
   const int nconv = x.nconv, nchain = x.nchain, nfixed = x.nfixed;
   const int nfp = x.nfp, ncomb = x.ncomb, NSEG = x.NSEG;
   const size_t LW = x.LW, ML = x.ML, HL = x.HL;
@@ -354,7 +357,7 @@ scan_table_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
     const int k = lane & (RED_G - 1);
     const int nitems = NL + (next ? nchain : 0);
     const float* srow1 = next ? x.srow_of(jc + 1) : nullptr;
-    const int* irow1 = next ? (const int*)(srow1 + NSC) : nullptr;
+    const int* irow1 = next ? x.irow_of(jc + 1) : nullptr;
     const int CH = SP / RED_G;
     constexpr int PER_WARP = 32 / RED_G;
     for (int base = warp * PER_WARP; base < nitems;
@@ -452,7 +455,7 @@ scan_table_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
     const int cur = j & 1;
     float* vcur = vbuf + cur * MAX_STATES;
     const float* srow = x.srow_of(j);
-    const int* irow = (const int*)(srow + NSC);
+    const int* irow = x.irow_of(j);
     const int* so = x.segoff + cur * (MAX_SEG + 1);
     const int* sw0 = x.segw0 + cur * MAX_SEG;
     if (j == 1) {  // v0 was read: the even positions' buffer starts at NEG
@@ -577,9 +580,10 @@ scan_table_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
                     const int b0 = j + sg[SG_BOFF];
                     const int len_hi = desc[sg[SG_REC] + CV_AOFF] -
                                        sg[SG_BOFF];
-                    sc[u] = sc[u] + hint_quot(desc + hint, srow, irow, a.hw,
-                                              (int)HL, GPAD, lm, b0 + w, w,
-                                              len_hi);
+                    sc[u] = sc[u] + hint_quot<true>(desc + hint, srow,
+                                                    irow, a.hw, (int)HL,
+                                                    GPAD, lm, b0 + w, w,
+                                                    len_hi);
                   }
                 }
               }
@@ -759,7 +763,19 @@ scan_table_kernel(Args a, const int* __restrict__ desc_g, int desc_len) {
           vcur[fr[FX_STATE]] = ok ? lv + emi : NEG;
         } else {
           const float sc = srow[fr[PN_SCORE]];
-          vcur[fr[PN_STATE]] = (sc > GATE && lv > GATE) ? lv + sc : NEG;
+          float v = (sc > GATE && lv > GATE) ? lv + sc : NEG;
+          // further candidates of the position: lse2 in candidate order
+          if (const float* m = pinned_more(fr, irow, a.fdesc)) {
+            const int cnt = (int)m[0];
+            for (int k = 0; k < cnt; ++k) {
+              const int e = (int)m[1 + 2 * k];
+              const float sk = m[2 + 2 * k];
+              const float lk =
+                  a.lanes[fr[PN_LANE] * x.LW + (max(e, -x.PAD) + x.PAD)];
+              v = lse2(v, (sk > GATE && lk > GATE) ? lk + sk : NEG);
+            }
+          }
+          vcur[fr[PN_STATE]] = v;
         }
       }
     } else if (warp >= SEG_WARP && j + 1 < n) {
@@ -788,9 +804,7 @@ extern "C" int scan_table_launch(
     const void* stab, const void* itab, const void* bvalid,
     const void* bstop, const void* hw, const void* v0, void* lanes,
     void* rows, int smem_bytes, void* stream) {
-  if (desc_len > MAX_DESC || desc_len < D_HEADER) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (desc_len < D_HEADER) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       scan_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);

@@ -166,6 +166,12 @@ class ExonPinnedState:
     lane: int
     eop: np.ndarray               # (n,) int32, -1 invalid
     score: np.ndarray             # (C, n) f32 endPart+notEnd, -inf invalid
+    # the candidates after the first at positions with several (nc intron
+    # hints of one end and several starts), in candidate order: their
+    # positions, ends of predecessor and (C, m) scores; None without any
+    x_pos: Optional[np.ndarray] = None
+    x_eop: Optional[np.ndarray] = None
+    x_score: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -573,6 +579,11 @@ def _finalize_tracks(tr: DPTracks, eng: GoldEngine, pool: Pool) -> None:
         adj = U.val(base_at(ps.eop) - base_dd)
         ps.score = _c32(xp.where(ps.score > float(F32_NEG) / 2,
                                  ps.score + adj[None, :], ps.score))
+        if ps.x_pos is not None:
+            adj = U.val(base_at(ps.x_eop) - base_dd.take(ps.x_pos))
+            ps.x_score = _c32(xp.where(ps.x_score > float(F32_NEG) / 2,
+                                       ps.x_score + adj[None, :],
+                                       ps.x_score))
     for ls in tr.lessd:
         ls.lenvec = np.asarray(ls.lenvec, dtype=np.float32)
     for ecs in tr.exon_conv:
@@ -1795,7 +1806,8 @@ def _nc_chain_emi(eng, s: int, t: ST, anc) -> np.ndarray:
     bonus (gold_nc.nc_cands NC_CHAIN branch); the intron malus on entry is
     in the transition column (build_tracks).  At j = 1 every predecessor
     pays it (endOfPred == 0): the self-loop's share is added to the
-    emission there, exact while no other ancestor may start the piece."""
+    emission there, exact while no other ancestor may start the piece,
+    which no initial distribution of the architecture allows."""
     C = len(eng.inp.gc)
     n = eng.n
     fwd = t == ST.ncintron
@@ -1806,11 +1818,14 @@ def _nc_chain_emi(eng, s: int, t: ST, anc) -> np.ndarray:
         emi += (eng.ipb_plus if fwd else eng.ipb_minus)[None, :]
         li = eng.log_init
         if li[s] > NEG_INF and n > 1:
-            if any(li[p] > NEG_INF for p in anc if p != s):
-                raise NotImplementedError(
-                    f"state {t.name}: the piece may start in it and in one "
-                    "of its other predecessors, so the intron malus at "
-                    "position 1 is not one term")
+            # unreachable in the 83-state architecture: the initial
+            # distribution is the architecture's own (trans_shadow_partial_
+            # utr_nc.pbl [Initial]), where the nc intron's other
+            # predecessors, the nc exon states, start no piece (PERF.md,
+            # PR 16, "Capacity limits"); a cut piece starts in igenic only
+            assert not any(li[p] > NEG_INF for p in anc if p != s), (
+                f"state {t.name}: the piece may start in it and in one of "
+                "its other predecessors")
             emi[:, 1] += eng.log_malus["intron"]
     return _f32(emi)
 
@@ -1818,11 +1833,14 @@ def _nc_chain_emi(eng, s: int, t: ST, anc) -> np.ndarray:
 def _build_nc_intronvar(eng, s: int, t: ST, lane: int) -> ExonPinnedState:
     """ncintronvar / rncintronvar: the variable-length nc intron that an
     intron hint ending exactly at the splice site gives (gold_nc.
-    _nc_intronvar_cands), one far-back candidate per position.  Hints of
-    one end and one start add their bonuses in list order; the best
-    running sum is the candidate (its predecessor and value are the same
-    for every sum).  Hints of one end with two starts would need two
-    candidates, which K2's pinned record does not hold: refused."""
+    _nc_intronvar_cands).  The candidates of a position are its hints of
+    that end in list order, each adding its bonus to a running quotient
+    while the start stays the same.  Where they share one start, the best
+    running sum is the position's one candidate (its predecessor and value
+    are the same for every sum).  Where they have several starts, every
+    candidate is kept in order: the first in eop / score, the others in
+    x_pos / x_eop / x_score, of which K2 takes the last maximum and K5 the
+    logsumexp."""
     cn, n = eng.cn, eng.n
     sp = eng.splice
     C = len(eng.inp.gc)
@@ -1833,12 +1851,27 @@ def _build_nc_intronvar(eng, s: int, t: ST, lane: int) -> ExonPinnedState:
     min_len = a_in + d_in
     eop = np.full(n, -1, dtype=np.int32)
     score = np.full((C, n), NEG_INF)
+    x_pos, x_eop, x_score = [], [], []
     hits: Dict[int, list] = {}
     for f in eng.hints.by_type["intron"]:
         if f.strand in (strand, "."):
             hits.setdefault(f.end, []).append(f)
     d = eng.inp.d
     log_ld_d = float(eng.log_len_intron[d])
+    mals = [eng.inp.gc[c].mal for c in range(C)]
+    log_geo = [float(np.log(1.0 - 1.0 / m)) if m > 0 else NEG_INF
+               for m in mals]
+
+    def cand_score(j: int, e: int, q: float) -> np.ndarray:
+        bio_len = (j - (e + 1) + 1) + (d_in if fwd else a_in)
+        out = np.empty(C)
+        for c in range(C):
+            cum = eng.cum_intron_f[c]
+            emi = (cum[j + 1] - cum[min(max(e + 1, 0), n)]) + \
+                (log_ld_d + (bio_len - d) * log_geo[c])
+            out[c] = emi + q
+        return out
+
     for ebi, fs in hits.items():
         j = ebi - (a_in if fwd else d_in)
         if not (0 <= ebi < n) or j < 1 or j >= n:
@@ -1847,7 +1880,7 @@ def _build_nc_intronvar(eng, s: int, t: ST, lane: int) -> ExonPinnedState:
             continue
         if not fwd and not T.is_possible_rdss(sp.rdss_ok, ebi):
             continue
-        best: Dict[int, float] = {}
+        cands = []
         old_eop, quot = None, 0.0
         for f in fs:
             e = f.start - 1 + (d_in if fwd else a_in)
@@ -1855,27 +1888,26 @@ def _build_nc_intronvar(eng, s: int, t: ST, lane: int) -> ExonPinnedState:
                 continue
             quot = quot + float(np.log(f.bonus)) if e == old_eop \
                 else float(np.log(f.bonus))
-            best[e] = max(best.get(e, NEG_INF), quot)
+            cands.append((e, quot))
             old_eop = e
-        if not best:
+        if not cands:
             continue
-        if len(best) > 1:
-            raise NotImplementedError(
-                f"state {t.name} at position {j}: intron hints ending at "
-                f"{ebi} with {len(best)} different starts; the general "
-                "Viterbi kernel's pinned states take one candidate per "
-                "position")
-        (e, q), = best.items()
-        bio_len = (j - (e + 1) + 1) + (d_in if fwd else a_in)
-        for c in range(C):
-            mal = eng.inp.gc[c].mal
-            log_geo = float(np.log(1.0 - 1.0 / mal)) if mal > 0 else NEG_INF
-            cum = eng.cum_intron_f[c]
-            emi = (cum[j + 1] - cum[min(max(e + 1, 0), n)]) + \
-                (log_ld_d + (bio_len - d) * log_geo)
-            score[c, j] = emi + q
+        if len({e for e, _ in cands}) == 1:
+            cands = [(cands[0][0], max(q for _, q in cands))]
+        (e, q), rest = cands[0], cands[1:]
+        score[:, j] = cand_score(j, e, q)
         eop[j] = e
-    return ExonPinnedState(state=s, lane=lane, eop=eop, score=_f32(score))
+        for e, q in rest:
+            x_pos.append(j)
+            x_eop.append(e)
+            x_score.append(cand_score(j, e, q))
+    ps = ExonPinnedState(state=s, lane=lane, eop=eop, score=_f32(score))
+    if x_pos:
+        order = np.argsort(np.asarray(x_pos), kind="stable")
+        ps.x_pos = np.asarray(x_pos, np.int64)[order]
+        ps.x_eop = np.asarray(x_eop, np.int64)[order]
+        ps.x_score = _f32(np.stack(x_score, axis=1)[:, order])
+    return ps
 
 
 def _nc_narrow_lo(eng, fwd: bool, bo: int, Kl: int, hi, lo0):

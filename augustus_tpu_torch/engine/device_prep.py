@@ -75,14 +75,21 @@ def device_engine(gold: GoldEngine, codes: np.ndarray, softmask, gff_hints,
                   device):
     """The device route's ViterbiEngine of one chunk, its tables on
     `device` and not yet run, or None when the chunk lies outside the route
-    (see prepare_on_device for the side effects on `gold`).  A caller that
+    or K1 cannot hold it (viterbi.k1_fits, asked before any launch; see
+    prepare_on_device for the side effects on `gold`).  A caller that
     decodes many chunks prepares them all first and launches later
     (parallel/mesh.py)."""
-    from .viterbi import ViterbiEngine
+    from .. import stats
+    from .viterbi import ViterbiEngine, k1_fits
     got = prepare_on_device(gold, codes, softmask, gff_hints, device)
     if got is None:
         return None
     tracks, packed = got
+    if not k1_fits(*packed):
+        # K1 cannot hold the chunk (viterbi.k1_refusal): the host route
+        # takes it, with K2 (predict._engine)
+        stats.count("k1_capacity_to_host")
+        return None
     return ViterbiEngine(tracks, device, packed)
 
 

@@ -32,7 +32,7 @@ build).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -205,17 +205,32 @@ K3_WARPS = 16
 LESSD_MAXW = 64
 
 
+def _window_refusal(static: PKStatic) -> Optional[str]:
+    wide = [d.window for d in static.lessd if d.window > LESSD_MAXW]
+    if wide:
+        return (f"a lessD window of {max(wide)} positions (the forward "
+                f"kernel takes {LESSD_MAXW})")
+    return None
+
+
 def kernel_limits(static: PKStatic) -> None:
     """Raise NotImplementedError for a piece beyond what csrc/forward.cu
     takes on top of the Viterbi kernel's limits (variants per conv, hint
     slots, shared memory and descriptor size, which _descriptor and
     smem_layout check): a lessD window wider than LESSD_MAXW.  A conv's
     band has no limit: entries past the K3_R kept per lane are rebuilt."""
-    wide = [d.window for d in static.lessd if d.window > LESSD_MAXW]
-    if wide:
-        raise NotImplementedError(
-            f"a lessD window of {max(wide)} positions (the forward kernel "
-            f"takes {LESSD_MAXW})")
+    msg = _window_refusal(static)
+    if msg:
+        raise NotImplementedError(msg)
+
+
+def k3_fits(static: PKStatic, arrays) -> bool:
+    """Whether K3 holds the chunk of pack_tracks' (static, arrays): K1's
+    checks (viterbi.k1_refusal, which K3's wrapper makes through _check)
+    and the lessD window of kernel_limits; decided before any launch."""
+    from .viterbi import k1_refusal, packed_widths
+    return k1_refusal(static, *packed_widths(arrays)) is None and \
+        _window_refusal(static) is None
 
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \

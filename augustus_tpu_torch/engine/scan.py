@@ -127,6 +127,13 @@ class PinnedStatic:
     lane: int
     score_col: int
     eop_col: int              # int col
+    # positions with several candidates (nc intron hints of one end and
+    # several starts): an int col holding, at such a position, the offset
+    # of its list in arrays[x_key] ([count, then (eop, score) per
+    # candidate after the first], float32), -1 elsewhere; -1 / None when
+    # no position has more than one
+    x_col: int = -1
+    x_key: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -148,6 +155,26 @@ class ScanStatic:
     NHW: int = 0              # hint window rows in hw_all
     hint_lm: Optional[tuple] = None   # (lm_ep, lm_cp, lm_exon, lm_CDS,
     #                                    lm_local_cp[, lm_local_ep: nc])
+
+
+def _pinned_lists(ps, cls):
+    """(the float32 lists of a pinned state's further candidates, the
+    (n,) int32 offset of each position's list or -1): a list is [count,
+    then eop and score for each candidate], the score of the position's GC
+    class."""
+    n = ps.eop.shape[0]
+    at = np.full(n, -1, dtype=np.int32)
+    cls = np.asarray(cls)
+    out: List[float] = []
+    pos = np.asarray(ps.x_pos)
+    for j in np.unique(pos):
+        ks = np.flatnonzero(pos == j)
+        at[j] = len(out)
+        out.append(float(len(ks)))
+        for k in ks:
+            out += [float(ps.x_eop[k]),
+                    float(np.float32(ps.x_score[int(cls[j]), k]))]
+    return np.asarray(out, np.float32), at
 
 
 def split_tracks(tr: DPTracks):
@@ -275,10 +302,18 @@ def split_tracks(tr: DPTracks):
             for ls in tr.lessd])
 
     # ---- pinned --------------------------------------------------------
-    pinned_s = tuple(PinnedStatic(
-        state=ps.state, lane=ps.lane,
-        score_col=scol(U.class_pick(ps.score, cls)), eop_col=icol(ps.eop))
-        for ps in tr.exon_pinned)
+    def pinned_static(pi, ps) -> PinnedStatic:
+        x_col, x_key = -1, None
+        if ps.x_pos is not None:
+            x_key = f"pin_x{pi}"
+            arrays[x_key], at = _pinned_lists(ps, U.val(cls))
+            x_col = icol(at)
+        return PinnedStatic(
+            state=ps.state, lane=ps.lane,
+            score_col=scol(U.class_pick(ps.score, cls)),
+            eop_col=icol(ps.eop), x_col=x_col, x_key=x_key)
+    pinned_s = tuple(pinned_static(pi, ps)
+                     for pi, ps in enumerate(tr.exon_pinned))
 
     # ---- sparse exon-hint machinery --------------------------------------
     ht = tr.hint_tables
@@ -433,6 +468,9 @@ MAX_DESC = 12_288        # descriptor ints the kernel holds in shared memory
 MAX_SEG = 256            # segments of a position's band list (csrc/scan.cu)
 STAGES = 4               # table rows staged in shared memory
 SMEM_BYTES = 232_448     # shared memory one block may take on an H100
+# a measurement switch: the deep layout (_descriptor) for every piece, to
+# hold it against the layout a piece takes by itself
+DEEP_ALWAYS = False
 
 # the order of a hint record's window rows and x columns in the descriptor
 # (csrc/scan.cu HINT_W / HINT_X)
@@ -482,8 +520,11 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
 
     cov_ep, cov_cp = srow[hs.x_tx_ep], srow[hs.x_tx_cp]
     covc_ep, covc_cp = srow[hs.x_txc_ep], srow[hs.x_txc_cp]
+    # an empty slot (flag or kind 0) adds and subtracts zeros only: skipped
     for (sc_, wc_, fc_) in hs.cross_cols:
         sk, wk, fl = int(irow[sc_]), srow[wc_], int(irow[fc_])
+        if fl == 0:
+            continue
         sub = (sk >= bob).to(f32)
         cov_ep = cov_ep - (wk if fl == 1 else z0) * sub
         covc_ep = covc_ep - (1.0 if fl == 1 else 0.0) * sub
@@ -510,6 +551,8 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
     sup_ex, sup_cds = zero, zero
     for (pc_, wc_, kc_) in hs.ex_cols:
         pk, wk, kd = int(irow[pc_]), srow[wc_], int(irow[kc_])
+        if kd == 0:
+            continue
         cond = ((bob == pk) & (kd == 1)).to(f32)
         quot = quot + wk * cond
         sup_cds = torch.maximum(sup_cds, cond)
@@ -524,6 +567,8 @@ def _hint_quot_ref(st: ScanStatic, hs: HintConvStatic, hw, srow, irow, lm,
     if hs.exclass == 2:
         for (sc_, wc_, fc_) in hs.cross_cols:
             sk, wk, fl = int(irow[sc_]), srow[wc_], int(irow[fc_])
+            if fl != 4:
+                continue
             cond = ((bob == sk) & (fl == 4)).to(f32)
             quot = quot + (0.5 * wk) * cond
             sup_ex = torch.maximum(sup_ex, cond)
@@ -587,6 +632,8 @@ class _Plain:
         self.pn_l = T([p.lane for p in pn])
         self.pn_sc = T([p.score_col for p in pn])
         self.pn_eop = T([p.eop_col for p in pn])
+        self.pn_x = [(pi, p, t[p.x_key].cpu().numpy())
+                     for pi, p in enumerate(pn) if p.x_col >= 0]
         groups = {}
         for li, d in enumerate(st.lessd):
             groups.setdefault(d.window, []).append((li, d))
@@ -603,6 +650,22 @@ class _Plain:
                              torch.arange(v.width, device=dev))
                             for vi, v in enumerate(cv.variants)])
                       for ei, cv in enumerate(st.convs)]
+
+    def pinned_more(self, irow):
+        """The further candidates of the pinned states at a position:
+        [(state, lane, [(eop, score as a float32 tensor), ...])]."""
+        import torch
+        out = []
+        for _, p, lst in self.pn_x:
+            x = int(irow[p.x_col])
+            if x < 0:
+                continue
+            cnt = int(lst[x])
+            out.append((p.state, p.lane, [
+                (int(lst[x + 1 + 2 * k]),
+                 torch.tensor(lst[x + 2 + 2 * k], device=self.dev))
+                for k in range(cnt)]))
+        return out
 
     def lessd_score(self, group, lanes, j: int, c: int, srow, irow_t):
         """The scores (windows, W) of one group of lessD windows at j, and
@@ -736,7 +799,8 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
             vals[ls] = torch.where(gated, best, NEGt)
             bps[ls] = (largs[ll, c0 + ridx] << 20) | (W - ridx)
 
-        # pinned states: one far-back candidate
+        # pinned states: a far-back candidate; where a position has
+        # several, the last maximum of the live ones in candidate order
         if st.pinned:
             eop = irow_t[P.pn_eop]
             row = torch.clamp(eop, min=-PAD) + PAD
@@ -745,6 +809,15 @@ def scan_forward_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
             ok = (sc > GATEt) & (lv > GATEt)
             vals[P.pn_s] = torch.where(ok, lv + sc, NEGt)
             bps[P.pn_s] = (la << 20) | (j - eop)
+            for s, lane, more in P.pinned_more(irow):
+                for e, sc in more:
+                    r = max(e, -PAD) + PAD
+                    lv = lanes[lane, r]
+                    v = lv + sc
+                    if bool(sc > GATEt) and bool(lv > GATEt) and \
+                            bool(v >= vals[s]):
+                        vals[s] = v
+                        bps[s] = (largs[lane, r] << 20) | (j - e)
 
         # exon and UTR convolutions, skipped where the end gate is off
         for cv, variants in P.convs:
@@ -849,13 +922,21 @@ def scan_table_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
             gated = (irow_t[g[8]] != 0) & (best > GATEt)
             vals[g[2]] = torch.where(gated, best, NEGt)
 
-        # pinned states: one far-back candidate
+        # pinned states: a far-back candidate; where a position has
+        # several, lse2 of the live ones in candidate order
         if st.pinned:
             eop = irow_t[P.pn_eop]
             lv = lanes[P.pn_l, torch.clamp(eop, min=-PAD) + PAD]
             sc = srow[P.pn_sc]
             vals[P.pn_s] = torch.where((sc > GATEt) & (lv > GATEt), lv + sc,
                                        NEGt)
+            for s, lane, more in P.pinned_more(irow):
+                for e, sc in more:
+                    lv = lanes[lane, max(e, -PAD) + PAD]
+                    v = torch.where((sc > GATEt) & (lv > GATEt), lv + sc,
+                                    NEGt)
+                    vals[s], k = _lse2(vals[s], v)
+                    sfu += k
 
         # exon and UTR convolutions: per variant a logsumexp over its
         # clipped band, then lse2 into the state's value in variant order
@@ -889,9 +970,12 @@ def scan_table_reference(st: ScanStatic, t: Dict[str, "torch.Tensor"],
 # the kernel's descriptor, the wrapper, the work count and the engine
 # --------------------------------------------------------------------------
 
-D_HEADER = 48
+D_HEADER = 56
+# header fields after the layout (csrc/k2_common.cuh D_SHARE .. D_BYTES)
+D_SHARE_AT, D_NSS_AT, D_NIS_AT, D_DEEP_AT, D_BYTES_AT = range(39, 44)
 T_CHAIN, T_FIXED, T_LESSD, T_PINNED, T_CONV = range(5)
 VR_SIZE = 11             # ints of a variant record
+HR_SLOTS = 30            # a hint record's field of its slot lists' offset
 # the shared-memory regions of csrc/scan.cu after the descriptor, in this
 # order (header fields D_SM_LT .. D_SM_SCRATCH, in 4-byte words)
 SMEM_REGIONS = ("lt", "ltc", "stage", "vbuf", "bpbuf", "segoff", "segw0",
@@ -906,9 +990,11 @@ N_LM = 6                 # hint maluses at the head of the float table
 INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
 
 
-def smem_layout(st: ScanStatic, desc_len: int) -> Dict[str, int]:
+def smem_layout(st: ScanStatic, desc_len: int,
+                staged: Optional[int] = None) -> Dict[str, int]:
     """Word offsets of csrc/scan.cu's shared-memory regions, the staged
-    row width `rw` and the total `bytes`: the descriptor, lane_trans (NL,
+    row width `rw` (of `staged` columns, all NSC + NIC by default) and the
+    total `bytes`: the descriptor's first desc_len ints, lane_trans (NL,
     S) and the chain states' log_trans columns (C, chain, S) in rows of S
     padded to a multiple of 16, STAGES table rows, values and backpointers
     of two positions, the segment offsets and clipped starts of two
@@ -918,7 +1004,7 @@ def smem_layout(st: ScanStatic, desc_len: int) -> Dict[str, int]:
     positions and each warp's parked lane partials."""
     def up4(x):
         return (x + 3) // 4 * 4
-    rw = up4(st.NSC + st.NIC)
+    rw = up4(st.NSC + st.NIC if staged is None else staged)
     sp = (st.S + 15) // 16 * 16        # S padded, the rows of lt and ltc
     sizes = {"lt": st.NL * sp, "ltc": st.C * len(st.chain) * sp,
              "stage": STAGES * rw, "vbuf": 2 * MAX_STATES,
@@ -1149,17 +1235,83 @@ def check_limits(st: ScanStatic) -> None:
             f"Viterbi kernel takes at most {MAX_SEG}")
 
 
+def slot_columns(st: ScanStatic) -> Tuple[List[int], List[int]]:
+    """The scalar and int columns of the hint slots (every crossing and
+    exact-match slot of every hinted conv), ascending: the columns a deep
+    piece's kernel reads from global memory, not from its staged rows."""
+    sc, ic = set(), set()
+    for cv in st.convs:
+        if cv.hint is not None:
+            for a, b, c in tuple(cv.hint.cross_cols) + tuple(cv.hint.ex_cols):
+                ic.update((a, c))
+                sc.add(b)
+    return sorted(sc), sorted(ic)
+
+
+def deep_perms(st: ScanStatic):
+    """(scalar, int) column orders of a deep piece's kernel tables: the
+    columns that are no hint slot, then the slot columns, each ascending."""
+    ss, si = slot_columns(st)
+    s_set, i_set = set(ss), set(si)
+    return ([c for c in range(st.NSC) if c not in s_set] + ss,
+            [c for c in range(st.NIC) if c not in i_set] + si)
+
+
 def _descriptor(st: ScanStatic, t: Dict[str, object]):
     """(int32 descriptor, float32 table) of csrc/scan.cu: the header, one
     task word (kind << 24 | record offset) per state, the records of the
-    states, variants and hint records; the floats hold hint_lm and every
-    length vector (reversed, as split_tracks stores them)."""
+    states, variants, hint records and segments, then the hint records'
+    slot lists (one per distinct list); the floats hold hint_lm, every
+    length vector (reversed, as split_tracks stores them) and the pinned
+    states' further candidates.
+
+    A piece whose descriptor or staged rows would not fit the kernel's
+    shared memory (hint slots stacked deep) takes the deep layout (header
+    D_DEEP): the slot lists stay in global memory (the kernel copies the
+    first D_SHARE ints), the kernel's tables are column-permuted copies
+    (deep_perms) whose staged rows hold only the D_NSS / D_NIS columns
+    that are no hint slot, and the slots are read from the global rows."""
+    desc, floats = _descriptor_of(st, t, False)
+    # the normal layout only where a batched launch's block holds it too
+    if DEEP_ALWAYS or desc[D_SHARE_AT] > MAX_DESC or \
+            desc[D_BYTES_AT] > SMEM_BYTES - BATCH_RECORD_BYTES:
+        desc, floats = _descriptor_of(st, t, True)
+    if desc[D_SHARE_AT] > MAX_DESC:
+        raise NotImplementedError(
+            f"a descriptor of {desc[D_SHARE_AT]} ints before its slot lists "
+            f"(the general Viterbi kernel holds {MAX_DESC})")
+    if desc[D_BYTES_AT] > SMEM_BYTES:
+        raise NotImplementedError(
+            f"{desc[D_BYTES_AT]} bytes of shared memory (the general "
+            f"Viterbi kernel's block may take {SMEM_BYTES})")
+    return desc, floats
+
+
+def _descriptor_of(st: ScanStatic, t: Dict[str, object], deep: bool):
+    """_descriptor's arrays in the normal or the deep layout."""
     n = st.n
     ints: List[int] = [0] * D_HEADER
     lm = tuple(st.hint_lm or ())
     floats: List[np.ndarray] = [np.asarray(
         lm + (0.0,) * (N_LM - len(lm)), np.float32)]
     nfl = [N_LM]
+    if deep:
+        ps, pi = deep_perms(st)
+        smap = np.empty(st.NSC, np.int64)
+        smap[ps] = np.arange(st.NSC)
+        imap = np.empty(st.NIC, np.int64)
+        imap[pi] = np.arange(st.NIC)
+        ss, si = slot_columns(st)
+        nss, nis = st.NSC - len(ss), st.NIC - len(si)
+    else:
+        smap, imap = np.arange(st.NSC), np.arange(st.NIC)
+        nss, nis = st.NSC, st.NIC
+
+    def sc(c: int) -> int:            # a scalar column of the kernel's table
+        return int(smap[c]) if c >= 0 else c
+
+    def ic(c: int) -> int:            # an int column
+        return int(imap[c]) if c >= 0 else c
 
     def fl(a) -> int:
         a = np.asarray(a.cpu() if hasattr(a, "cpu") else a,
@@ -1174,6 +1326,9 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
         tasks.append((kind << 24) | len(ints))
         ints.extend(int(x) for x in fields)
 
+    # hint records name their slot list by its place in the tail; the
+    # offsets are filled in once the tail's start is known
+    slot_lists: Dict[tuple, List[int]] = {}
     seg_first = np.cumsum([0] + [len(cv.variants) for cv in st.convs])
     seg_recs: List[List[int]] = []
     for cv in st.convs:
@@ -1183,10 +1338,14 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
             hint = len(ints)
             ints.extend([h.ipo, int(h.aL), int(h.aR), h.exclass])
             ints.extend(getattr(h, k) for k in HINT_W)
-            ints.extend(getattr(h, k) for k in HINT_X)
-            ints.extend([len(h.cross_cols), len(h.ex_cols)])
-            for tr in tuple(h.cross_cols) + tuple(h.ex_cols):
-                ints.extend(int(x) for x in tr)
+            ints.extend(sc(getattr(h, k)) for k in HINT_X)
+            # the slot lists' offset (filled in below), the record's own
+            # offset and the conv's a_off
+            ints.extend([len(h.cross_cols), len(h.ex_cols), 0, hint,
+                         cv.a_off])
+            key = tuple((ic(a), sc(b), ic(c)) for a, b, c in
+                        tuple(h.cross_cols) + tuple(h.ex_cols))
+            slot_lists.setdefault(key, []).append(hint + HR_SLOTS)
         var_off = len(ints)
         ei = st.convs.index(cv)
         rec_off = var_off + VR_SIZE * len(cv.variants)
@@ -1196,58 +1355,61 @@ def _descriptor(st: ScanStatic, t: Dict[str, object]):
             else:
                 r0 = v.fsel[0]
             lv = fl(t[f"lenvec{ei}_{vi}"])
-            ints.extend([v.g_id, v.h_col, v.len_lo, v.len_hi, v.width, r0,
-                         int(v.vb_lo is not None), v.vb_lo or 0,
+            ints.extend([v.g_id, sc(v.h_col), v.len_lo, v.len_hi, v.width,
+                         r0, int(v.vb_lo is not None), v.vb_lo or 0,
                          int(v.vb_hi is not None), v.vb_hi or 0, lv])
             boff = cv.a_off - v.len_hi
             seg_recs.append([
-                rec_off, vi, cv.gate_col, cv.smin_col, cv.smax_col, boff,
+                rec_off, vi, ic(cv.gate_col), ic(cv.smin_col),
+                ic(cv.smax_col), boff,
                 INT_MIN if v.vb_lo is None else v.vb_lo,
                 INT_MAX if v.vb_hi is None else v.vb_hi, v.width, v.g_id, lv,
                 r0, cv.frame_mode, cv.lane, boff - cv.bpl - 1 + st.PAD, hint,
-                v.h_col, v.len_hi - cv.a_off + cv.bpl + 1])
+                sc(v.h_col), v.len_hi - cv.a_off + cv.bpl + 1])
         rec(T_CONV, [cv.state, cv.bpl, cv.a_off, cv.lane, cv.frame_mode,
-                     cv.smin_col, cv.smax_col, cv.gate_col,
+                     ic(cv.smin_col), ic(cv.smax_col), ic(cv.gate_col),
                      len(cv.variants), var_off, hint, seg_first[ei]])
     for li, d in enumerate(st.lessd):
         lv = fl(t[d.lenvec_key])
         seg_recs.append([len(ints), -1, -1, 0, 0, 0, 0, 0, d.window, 0, lv,
                          0, 0, d.lane, st.PAD - d.window, -1, 0, 0])
-        rec(T_LESSD, [d.state, d.lane, d.window, d.cum_id, d.cumj_col,
-                      d.psi_col, d.jsel_col, d.jgate_col, lv, li,
-                      seg_first[-1] + li])
+        rec(T_LESSD, [d.state, d.lane, d.window, d.cum_id, sc(d.cumj_col),
+                      sc(d.psi_col), ic(d.jsel_col), ic(d.jgate_col), lv,
+                      li, seg_first[-1] + li])
     for c in st.chain:
-        rec(T_CHAIN, [c.state, c.emi_col])
+        rec(T_CHAIN, [c.state, sc(c.emi_col)])
     for f in st.fixed:
-        rec(T_FIXED, [f.state, f.jump, f.kind, f.lane, f.emi_col,
-                      f.extra_col])
+        rec(T_FIXED, [f.state, f.jump, f.kind, f.lane, sc(f.emi_col),
+                      sc(f.extra_col)])
     for p in st.pinned:
-        rec(T_PINNED, [p.state, p.lane, p.score_col, p.eop_col])
+        rec(T_PINNED, [p.state, p.lane, sc(p.score_col), ic(p.eop_col),
+                       ic(p.x_col), fl(t[p.x_key]) if p.x_key else -1])
     off_task = len(ints)
     ints.extend(tasks)
     off_seg = len(ints)
     for sg in seg_recs:
         ints.extend(sg)
+    share = len(ints)
+    for key, users in slot_lists.items():
+        for u in users:                 # from the record's start
+            ints[u] = len(ints) - (u - HR_SLOTS)
+        for tr in key:
+            ints.extend(tr)
+    if not deep:
+        share = len(ints)
     head = [n, st.S, st.NL, st.C, st.PAD, st.GPAD, st.NSC, st.NIC,
-            st.cls_col, len(tasks), off_task, n + st.PAD + END_PAD,
+            ic(st.cls_col), len(tasks), off_task, n + st.PAD + END_PAD,
             st.GPAD + n + END_PAD, st.GPAD + n + 1 + END_PAD,
             st.PAD + n + END_PAD, st.GPAD + n + END_PAD, int(st.NHW > 0),
             len(st.convs), len(st.lessd), len(st.chain), len(st.fixed),
             len(st.pinned), len(segments(st)), off_seg]
-    lay = smem_layout(st, len(ints))
+    lay = smem_layout(st, share, nss + nis)
     head += [lay[k] for k in SMEM_REGIONS[:3]] + [lay["rw"]] + \
         [lay[k] for k in SMEM_REGIONS[3:]] + [lay["words"]]
+    head += [share, nss, nis, int(deep), lay["bytes"]]
     ints[: len(head)] = head
-    desc = np.asarray(ints, dtype=np.int64)
-    if desc.size > MAX_DESC:
-        raise NotImplementedError(
-            f"a descriptor of {desc.size} ints (the general Viterbi kernel "
-            f"holds {MAX_DESC})")
-    if lay["bytes"] > SMEM_BYTES:
-        raise NotImplementedError(
-            f"{lay['bytes']} bytes of shared memory (the general Viterbi "
-            f"kernel's block may take {SMEM_BYTES})")
-    return desc.astype(np.int32), np.concatenate(floats)
+    return np.asarray(ints, dtype=np.int64).astype(np.int32), \
+        np.concatenate(floats)
 
 
 def _check(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0):
@@ -1286,11 +1448,18 @@ def _check(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0):
     # what the kernel holds, on every device, so that the CPU refuses what
     # the card would
     return dev, _descriptor(st, {k: v for k, v in t.items()
-                                 if "lenvec" in k})
+                                 if "lenvec" in k or "pin_x" in k})
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16 + \
-    [ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def needs_ext(st: ScanStatic, desc_h) -> int:
+    """1 when a piece needs csrc/scan.cu's EXT instantiation: the deep
+    layout, or pinned states with further candidates at some position."""
+    return int(bool(desc_h[D_DEEP_AT]) or any(p.x_col >= 0
+                                              for p in st.pinned))
 
 
 def _launch_fields(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
@@ -1320,16 +1489,33 @@ def _launch_fields(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
     bs = t.get("lessd_bstop_all", empty8)
     v0 = v0.to(torch.float32).contiguous()
 
+    stab, itab = kernel_tables(st, t, desc_h)
+
     def ptr(x):
         return x.data_ptr() if x is not None and x.numel() else 0
     fields = [ptr(desc), int(desc.shape[0]), ptr(fdesc), ptr(t["G_all"]),
               ptr(t["cum_all"]), ptr(t["log_trans"]), ptr(t["lane_trans"]),
-              ptr(t["scalar_table"]), ptr(t["int_table"]), ptr(bv), ptr(bs),
+              ptr(stab), ptr(itab), ptr(bv), ptr(bs),
               ptr(t["hw_all"]), ptr(v0), ptr(lanes), ptr(largs), ptr(bp),
               ptr(vals), ptr(v_final)]
-    smem = smem_layout(st, int(desc.shape[0]))["bytes"]
+    smem = int(desc_h[D_BYTES_AT])
     return fields, smem, (bp, v_final, vals), (desc, fdesc, lanes, largs,
-                                               empty8, v0)
+                                               empty8, v0, stab, itab)
+
+
+def kernel_tables(st: ScanStatic, t: Dict[str, "torch.Tensor"], desc_h):
+    """The scalar and int tables as the kernel reads them: split_tracks'
+    own, or for a deep piece (descriptor header D_DEEP) their copies with
+    the columns in deep_perms' order."""
+    import torch
+    if not desc_h[D_DEEP_AT]:
+        return t["scalar_table"], t["int_table"]
+    ps, pi = deep_perms(st)
+    dev = t["scalar_table"].device
+    return (t["scalar_table"].index_select(
+                1, torch.tensor(ps, device=dev)).contiguous(),
+            t["int_table"].index_select(
+                1, torch.tensor(pi, device=dev)).contiguous())
 
 
 def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
@@ -1355,7 +1541,8 @@ def scan_forward(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
     fn.restype = ctypes.c_int
     fields, smem, out, keep = _launch_fields(st, t, v0, debug_vals, descs,
                                              dev)
-    err = fn(*fields, smem, torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*fields, smem, needs_ext(st, descs[0]),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_forward kernel launch failed: CUDA error "
                            f"{err}")
@@ -1400,17 +1587,19 @@ def scan_forward_batch(pieces, debug_vals: bool = False) -> list:
     from ._build import load
     fn = load("scan").scan_forward_batch_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     launches = [_launch_fields(st, t, v0, debug_vals, descs, dev)
                 for (st, t, v0), (_, descs) in zip(pieces, checked)]
+    ext = max(needs_ext(st, descs[0])
+              for (st, _, _), (_, descs) in zip(pieces, checked))
     smem = max(x[1] for x in launches)
     if smem + BATCH_RECORD_BYTES > SMEM_BYTES:
         raise NotImplementedError(
             f"{smem} bytes of shared memory and a batch record (the "
             f"kernel's block may take {SMEM_BYTES})")
     recs = torch.tensor([x[0] for x in launches], dtype=torch.int64).to(dev)
-    err = fn(recs.data_ptr(), len(pieces), smem,
+    err = fn(recs.data_ptr(), len(pieces), smem, ext,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_forward batch launch failed: CUDA error "
@@ -1456,18 +1645,18 @@ def scan_table(st: ScanStatic, t: Dict[str, "torch.Tensor"], v0,
     v0 = v0.to(torch.float32).contiguous()
     rows[0] = v0
     empty8 = torch.zeros(1, dtype=torch.int8, device=dev)
+    stab, itab = kernel_tables(st, t, desc_h)
 
     def ptr(x):
         return x.data_ptr() if x.numel() else None
 
     err = fn(desc.data_ptr(), int(desc.shape[0]), fdesc.data_ptr(),
              ptr(t["G_all"]), ptr(t["cum_all"]), t["log_trans"].data_ptr(),
-             t["lane_trans"].data_ptr(), t["scalar_table"].data_ptr(),
-             t["int_table"].data_ptr(),
+             t["lane_trans"].data_ptr(), stab.data_ptr(), itab.data_ptr(),
              ptr(t.get("lessd_bvalid_all", empty8)),
              ptr(t.get("lessd_bstop_all", empty8)), ptr(t["hw_all"]),
              v0.data_ptr(), lanes.data_ptr(), rows.data_ptr(),
-             smem_layout(st, int(desc.shape[0]))["bytes"],
+             int(desc_h[D_BYTES_AT]),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_table kernel launch failed: CUDA error "
@@ -1505,6 +1694,11 @@ def heated(st: ScanStatic, arrays: Dict[str, object], heat: float):
             "temperature heating (--temperature) of a piece with sparse "
             "exon/CDS hints: refused, as augustus_tpu's ForwardEngine "
             "refuses it (UnsupportedByDevice, engine/scan.py:961-963)")
+    if any(k.startswith("pin_x") for k in arrays):
+        raise NotImplementedError(
+            "temperature heating of a piece whose nc intron hints give "
+            "several candidates at one position (sampling with --nc=on is "
+            "refused)")
     h = np.float32(heat)
     out = {}
     for k, v in arrays.items():

@@ -31,7 +31,7 @@ States gated off at j get value NEG and a backpointer that is never read
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,15 +91,21 @@ def _hint_lm32(st: PKStatic) -> np.ndarray:
     return np.asarray(st.hint_lm, dtype=np.float32)
 
 
-def _hint_record(h) -> Tuple[int, ...]:
+def _slots_refusal(h) -> Optional[str]:
+    if len(h.cross) > MAX_SLOTS or len(h.ex) > MAX_SLOTS:
+        return (f"{len(h.cross)} crossing / {len(h.ex)} exact-match hint "
+                f"slots (the kernel takes at most {MAX_SLOTS} of each)")
+    return None
+
+
+def _hint_record(h, check: bool = True) -> Tuple[int, ...]:
     """One hinted conv's record: ipo, aL, aR, exclass, K, K2, the window
     rows (HINT_W_ROWS), the x lanes (HINT_X_LANES), then K crossing slots
     (xi start lane, xh weight lane, xi flag lane) and K2 exact-match slots
     (xi position lane, xh weight lane, xi kind lane)."""
-    if len(h.cross) > MAX_SLOTS or len(h.ex) > MAX_SLOTS:
-        raise NotImplementedError(
-            f"{len(h.cross)} crossing / {len(h.ex)} exact-match hint slots "
-            f"(the kernel takes at most {MAX_SLOTS} of each)")
+    msg = _slots_refusal(h)
+    if check and msg:
+        raise NotImplementedError(msg)
     rec = [h.ipo, int(h.aL), int(h.aR), h.exclass, len(h.cross), len(h.ex)]
     rec += [getattr(h, k) for k in HINT_W_ROWS + HINT_X_LANES]
     for slot in h.cross + h.ex:
@@ -121,21 +127,35 @@ def _r4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
-def smem_layout(st: PKStatic, desc_len: int, nxh: int = 0,
-                nxi: int = 0) -> Dict[str, int]:
-    """Where the kernel keeps what in its dynamic shared memory, in 4-byte
-    words, and the bytes in all (`bytes`).  Raises NotImplementedError for
-    a chunk beyond what the kernel holds: more than MAX_VAR variants in a
-    conv, ip_misc lanes beyond IPM_W, or more than SMEM_LIMIT bytes."""
+def _layout_refusal(st: PKStatic) -> Optional[str]:
     nvar = [len(cv.variants) for cv in st.convs]
     if max(nvar + [0]) > MAX_VAR:
-        raise NotImplementedError(
-            f"a conv of {max(nvar)} variants (the kernel takes {MAX_VAR})")
+        return f"a conv of {max(nvar)} variants (the kernel takes {MAX_VAR})"
     ipm = [st.gate_lane, st.cls_lane] + [p.eop_lane for p in st.pinned] \
         + [d.jsel_lane for d in st.lessd]
     if max(ipm) >= IPM_W:
-        raise NotImplementedError(
-            f"ip_misc lane {max(ipm)} (the kernel stages {IPM_W})")
+        return f"ip_misc lane {max(ipm)} (the kernel stages {IPM_W})"
+    return None
+
+
+def _bytes_refusal(lay: Dict[str, int]) -> Optional[str]:
+    if lay["bytes"] > SMEM_LIMIT:
+        return (f"{lay['bytes']} bytes of shared memory (a block may have "
+                f"{SMEM_LIMIT})")
+    return None
+
+
+def smem_layout(st: PKStatic, desc_len: int, nxh: int = 0,
+                nxi: int = 0, check: bool = True) -> Dict[str, int]:
+    """Where the kernel keeps what in its dynamic shared memory, in 4-byte
+    words, and the bytes in all (`bytes`).  With check, raises
+    NotImplementedError for a chunk beyond what the kernel holds: more than
+    MAX_VAR variants in a conv, ip_misc lanes beyond IPM_W, or more than
+    SMEM_LIMIT bytes."""
+    msg = _layout_refusal(st)
+    if check and msg:
+        raise NotImplementedError(msg)
+    nvar = [len(cv.variants) for cv in st.convs]
     hints = [cv.hint for cv in st.convs if cv.hint is not None]
     kc = max([len(h.cross) for h in hints] + [0])
     ke = max([len(h.ex) for h in hints] + [0])
@@ -162,10 +182,9 @@ def smem_layout(st: PKStatic, desc_len: int, nxh: int = 0,
         lay[name] = words
         words += _r4(size)
     lay["bytes"] = words * 4
-    if lay["bytes"] > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"{lay['bytes']} bytes of shared memory (a block may have "
-            f"{SMEM_LIMIT})")
+    msg = _bytes_refusal(lay)
+    if check and msg:
+        raise NotImplementedError(msg)
     return lay
 
 
@@ -177,10 +196,19 @@ _LAYOUT_FIELDS = ("lvw", "lt", "ltc", "lvl", "f0", "vbuf",
                   "chc")
 
 
+def _desc_refusal(desc: np.ndarray) -> Optional[str]:
+    if desc.shape[0] > MAX_DESC:
+        return (f"chunk descriptor of {desc.shape[0]} ints (the kernel "
+                f"holds at most {MAX_DESC}): too many hinted convs or hint "
+                "slots")
+    return None
+
+
 def _descriptor(st: PKStatic, sel_pack: np.ndarray, nxh: int = 0,
-                nxi: int = 0) -> np.ndarray:
+                nxi: int = 0, check: bool = True) -> np.ndarray:
     """The chunk's static structure as one int32 array, with the kernel's
-    shared-memory layout (smem_layout) in its header."""
+    shared-memory layout (smem_layout) in its header; with check, raises
+    NotImplementedError where the kernel cannot hold it (k1_refusal)."""
     fixed = _fixed_lanes(st, sel_pack)
     chain = list(st.chain_states)
     lessd = [(d.state, d.lane, d.window, d.cum_row, d.valid_row, d.stop_row,
@@ -196,7 +224,7 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray, nxh: int = 0,
         hoff = -1
         if cv.hint is not None:
             hoff = len(hints)
-            hints += _hint_record(cv.hint)
+            hints += _hint_record(cv.hint, check)
         convs.append((cv.state, cv.bpl, cv.a_off, cv.lane, cv.frame_mode,
                       cv.ip_lane, len(variants), len(cv.variants), hoff))
         for v in cv.variants:
@@ -211,14 +239,47 @@ def _descriptor(st: PKStatic, sel_pack: np.ndarray, nxh: int = 0,
         offsets.append(H_LEN + len(body))
         for e in part:
             body.extend(e if isinstance(e, tuple) else (e,))
-    lay = smem_layout(st, H_LEN + len(body), nxh, nxi)
+    lay = smem_layout(st, H_LEN + len(body), nxh, nxi, check)
     layout = [st.C] + [lay[k] for k in _LAYOUT_FIELDS]
     desc = np.array(header + offsets + layout + body, dtype=np.int32)
-    if desc.shape[0] > MAX_DESC:
-        raise NotImplementedError(
-            f"chunk descriptor of {desc.shape[0]} ints (the kernel holds "
-            f"at most {MAX_DESC}): too many hinted convs or hint slots")
+    msg = _desc_refusal(desc)
+    if check and msg:
+        raise NotImplementedError(msg)
     return desc
+
+
+def k1_refusal(st: PKStatic, sel_pack: np.ndarray, nxh: int = 0,
+               nxi: int = 0) -> Optional[str]:
+    """Why csrc/viterbi.cu cannot hold a chunk, from its packed static
+    alone, or None: the checks that the wrapper makes before any launch
+    (hint slots per conv, variants per conv, ip_misc lanes, shared memory,
+    descriptor size), in the order it makes them."""
+    for cv in st.convs:
+        if cv.hint is not None and _slots_refusal(cv.hint):
+            return _slots_refusal(cv.hint)
+    desc = _descriptor(st, sel_pack, nxh, nxi, check=False)
+    return (_layout_refusal(st)
+            or _bytes_refusal(smem_layout(st, desc.shape[0], nxh, nxi,
+                                          check=False))
+            or _desc_refusal(desc))
+
+
+def packed_widths(arrays) -> Tuple[np.ndarray, int, int]:
+    """(sel_pack on the host, xh lanes, xi lanes) of pack_tracks' arrays
+    (numpy, or tensors on the device route): what the descriptor of their
+    chunk takes."""
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
+            np.asarray(a)
+    nxh = len(arrays["m_xh"]) if "m_xh" in arrays else 0
+    nxi = len(arrays["m_xi"]) if "m_xi" in arrays else 0
+    return host(arrays["sel_pack"]), nxh, nxi
+
+
+def k1_fits(static: PKStatic, arrays) -> bool:
+    """Whether K1 holds the chunk of pack_tracks' (static, arrays); decided
+    before any launch, by the checks its wrapper makes (k1_refusal)."""
+    return k1_refusal(static, *packed_widths(arrays)) is None
 
 
 def _merged_bands(cv) -> List[Tuple[int, int]]:

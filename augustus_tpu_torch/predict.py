@@ -185,13 +185,23 @@ def _engine(gold: GoldEngine, codes, softmask, gff_hints,
     (engine/scan.py), as augustus_tpu sends it to its scan engine; the
     others the 64-state kernel K1.  need_forward (sampling): the host
     route, and K3 over K1's packing or K5 over K2's split tables
-    (augustus_tpu/predict.py:140-155)."""
+    (augustus_tpu/predict.py:140-155).
+
+    The kernel is chosen by capacity, from the packed static before any
+    launch, as augustus_tpu sends a piece its Pallas kernel cannot hold to
+    its scan (pallas_pack.py:415, :423): a device-route piece that K1
+    cannot hold (viterbi.k1_fits) takes the host route; a 47-state piece
+    that K1 cannot hold takes K2 (bit-equal to K1 on 47 states), and a
+    sampled one that K3 cannot hold (forward.k3_fits) K2 with K5.  The
+    stats count each choice: k1_capacity_to_host, k1_capacity_to_k2,
+    k3_capacity_to_k5."""
     from .engine.device import build_tracks
     from .engine.device_prep import device_engine
-    from .engine.forward import ForwardEngine
+    from .engine.forward import ForwardEngine, k3_fits
+    from .engine.pack import pack_tracks
     from .engine.scan import (ScanEngine, ScanForwardEngine,
                               needs_general_scan)
-    from .engine.viterbi import ViterbiEngine
+    from .engine.viterbi import ViterbiEngine, k1_fits
     if _auto_route(route) and not need_forward:
         eng = device_engine(gold, codes, softmask, gff_hints, device)
         if eng is not None:
@@ -206,12 +216,21 @@ def _engine(gold: GoldEngine, codes, softmask, gff_hints,
     with stats.stage("build_tracks"):
         tracks = build_tracks(gold)
     with stats.stage("pack"):
-        if needs_general_scan(tracks):
+        general = needs_general_scan(tracks)
+        if not general:
+            packed = pack_tracks(tracks)
+            if not k1_fits(*packed):
+                stats.count("k1_capacity_to_k2")
+                general = True
+            elif need_forward and not k3_fits(*packed):
+                stats.count("k3_capacity_to_k5")
+                general = True
+        if general:
             eng = ScanEngine(tracks, device)
             fwd = ScanForwardEngine(tracks, (eng.static, eng.arrays),
                                     device) if need_forward else None
         else:
-            eng = ViterbiEngine(tracks, device)
+            eng = ViterbiEngine(tracks, device, packed)
             fwd = ForwardEngine(tracks, device, (eng.static, eng.arrays)) \
                 if need_forward else None
     return eng, fwd

@@ -308,6 +308,34 @@ line each:
           times the add) and K4's (its dependent reads times the read),
           each beside the kernel's ms (the kernels line's rows carry them as
           latency_bound_ms)
+  capacity  (after ppx) pieces that a kernel cannot hold, routed before
+          any launch (predict._engine: viterbi.k1_fits, forward.k3_fits):
+          tests/torch_capacity_fixtures.py's 1,200 bases of HS04636sm.fa
+          with 70 stacked exonpart hints ("slots", past K1's 64 slots: K2)
+          and with 1,300 ("deep", past what K2 holds in shared memory: the
+          deep layout of engine/scan.py:_descriptor) on repo_fixture and
+          repo_fixture_utr, each through predict_file, the GFF (evidence
+          blocks included) equal to its golden; repo_fixture_wide
+          (lessD window 79, past K3's 64) sampled on HS04636.fa in the
+          worker pool (K2 + K5), equal to augustus_tpu's golden; routing
+          counts and launches per run; then K2 on each capacity piece
+          bit-equal to its plain version (run on the host CPU from before
+          gff on), K5 within 4e-3 + 3e-6 * |f| of its plain version and
+          bit-identical across two launches, and, on the pieces that fit,
+          the deep layout (DEEP_ALWAYS) bit-equal to the normal one
+  nc_multi  nc intron hints of one end and several starts
+          (tests/torch_nc_check.py: nc_two_starts, nc_alt_donors) through
+          predict_file (host route, K2), each equal to its golden; K2
+          bit-equal to its plain version on the piece, K5 bit-identical
+          across two launches
+  cgp     comparative gene prediction (cgp/, tests/torch_cgp_fixtures.py:
+          three species of two sequences, a MAF, a tree, an SQLite store)
+          through CompGenePred.start on the card, from memory and from the
+          SQLite store: every <species>.cgp.gff equal to augustus_tpu's
+          golden (data/golden/cgp_*), every orthoExons.*.gff3 but for the
+          omega values that the host's LAPACK rounding decides
+          (tests/torch_goldens.py:omega_masked), K1, prefix.cu and K4
+          launched for each of the six species ranges
 Every prediction phase prints the route of each piece (stats counts) and
 asserts the one it expects; the new phases print the kernels' launches.
 The rows of viterbi_forward, scan_forward and event_walk in the kernels
@@ -409,6 +437,13 @@ TRAIN_UTR = ("utrtrain.gb", {"UTR": "on", "/EHMMTraining/statecount": "4"},
 PIPELINE_DIR = os.path.join(ROOT, "build", "pipeline")
 LATENCY_SEED = 90
 LATENCY_READS = 200_000
+# the new cells' files, the routing counts of predict._engine, and the
+# gene ranges of the cgp input (two sequences, three species)
+CAPACITY_DIR = os.path.join(ROOT, "build", "capacity")
+NC_MULTI_DIR = os.path.join(ROOT, "build", "nc_multi")
+CGP_DIR = os.path.join(ROOT, "build", "cgp")
+ROUTING = ("k1_capacity_to_host", "k1_capacity_to_k2", "k3_capacity_to_k5")
+CGP_RANGES = 6
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -554,7 +589,9 @@ def sampled_jobs() -> dict:
             model_args("repo_fixture", "HS04636sm.E.gff"), **SAMPLE_ARGS,
             **SAMPLE_FILTERS), "HS04636sm.fa"),
         "gff_mea_hints": (dict(model_args("repo_fixture", "HS04636sm.E.gff"),
-                               **MEA_ARGS), "HS04636sm.fa")}
+                               **MEA_ARGS), "HS04636sm.fa"),
+        # the capacity cell's sampled run: a lessD window K3 cannot hold
+        "wide_intron": (sampled_args("repo_fixture_wide"), "HS04636.fa")}
 
 
 def _sampled(job):
@@ -1297,7 +1334,10 @@ def phase_band_compare(device, pieces, card):
     its K5_SIMPLE build."""
     import torch
     from augustus_tpu_torch.predict import piece_scan
-    usage2 = build_usage("scan", "scan_forward_kernel", K2_SIMPLE, K2_SPLIT)
+    # the instantiation these pieces run (EXT false: no deep layout, no
+    # pinned state of several candidates)
+    usage2 = build_usage("scan", "scan_forward_kernelILb0E", K2_SIMPLE,
+                         K2_SPLIT)
     usage5 = build_usage("scan_lse", "scan_table_kernel", K5_SIMPLE,
                          K5_SPLIT)
     rows = []
@@ -2076,8 +2116,12 @@ def launch_only(kernel, items):
     if kernel == "scan_forward":
         lib = _build.load("scan")
         one, argtypes = lib.scan_forward_launch, S._ARGTYPES
-        prepared = [S._launch_fields(st, t, v0, False, S._check(st, t, v0)[1],
-                                     dev) for st, t, v0 in items]
+        descs = [S._check(st, t, v0)[1] for st, t, v0 in items]
+        prepared = [S._launch_fields(st, t, v0, False, d, dev)
+                    for (st, t, v0), d in zip(items, descs)]
+        # K2's launches take the EXT flag (engine/scan.py:needs_ext)
+        ext = [(S.needs_ext(st, d[0]),) for (st, _, _), d in zip(items,
+                                                                  descs)]
         many = lib.scan_forward_batch_launch
         extra = S.BATCH_RECORD_BYTES
     else:
@@ -2085,11 +2129,13 @@ def launch_only(kernel, items):
         one, argtypes = lib.viterbi_forward_launch, V._ARGTYPES
         prepared = [V._launch_fields(st, planes, False, dev)
                     for st, planes in items]
+        ext = [()] * len(prepared)
         many = lib.viterbi_forward_batch_launch
         extra = V.BATCH_RECORD_BYTES
     one.argtypes, one.restype = argtypes, ctypes.c_int
-    many.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p]
+    batch_ext = max(ext)
+    many.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + \
+        [ctypes.c_int] * len(batch_ext) + [ctypes.c_void_p]
     many.restype = ctypes.c_int
     recs = torch.tensor([p[0] for p in prepared], dtype=torch.int64,
                         device=dev)
@@ -2097,12 +2143,12 @@ def launch_only(kernel, items):
     assert smem + extra <= 232_448
 
     def batch(prepared=prepared, recs=recs):
-        if many(recs.data_ptr(), len(prepared), smem, stream):
+        if many(recs.data_ptr(), len(prepared), smem, *batch_ext, stream):
             raise RuntimeError(f"{kernel}: batched launch failed")
 
     def singles(prepared=prepared):
-        for fields, sm, _, _ in prepared:
-            if one(*fields, sm, stream):
+        for (fields, sm, _, _), e in zip(prepared, ext):
+            if one(*fields, sm, *e, stream):
                 raise RuntimeError(f"{kernel}: launch failed")
     return batch, singles
 
@@ -2814,6 +2860,284 @@ def phase_latency_probe(prefix_row, trace_row, n, card):
           "card": card})
 
 
+def tests_module(name: str):
+    """A module of tests/ (the seeded inputs and goldens that the tests
+    share; none imports augustus_tpu or jax at import)."""
+    import importlib
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
+
+
+def routing_counts(counts: dict) -> dict:
+    """The capacity choices of predict._engine in a run's stats counts."""
+    return {k: counts.get(k, 0) for k in ROUTING}
+
+
+def cell_launches(launches: dict) -> dict:
+    """The launches a new cell reports: K1 (with K1.f), K2, K3, K5,
+    prefix.cu and K4."""
+    return {k: launches[k] for k in ("viterbi_forward",
+                                     "viterbi_forward:hint_quot",
+                                     "scan_forward", "forward_table",
+                                     "scan_table", "prefix_sum_f64",
+                                     "event_walk")}
+
+
+def scan_pair(st, t, v0):
+    """K2 and K5 on one piece's tables on the card, their launches put
+    back out of the main path's counts: ((bp, v_final, vals), rows, rows
+    of a second K5 launch, K2 ms, K5 ms)."""
+    import torch
+    from augustus_tpu_torch.engine.scan import scan_forward, scan_table
+    saved = launch_counters()
+    k2 = scan_forward(st, t, v0, debug_vals=True)
+    rows = scan_table(st, t, v0)
+    again = scan_table(st, t, v0)
+    torch.cuda.synchronize()
+    k2_ms = time_cuda(lambda: scan_forward(st, t, v0), 2)
+    k5_ms = time_cuda(lambda: scan_table(st, t, v0), 2)
+    restore_launch_counters(saved)
+    return k2, rows, again, k2_ms, k5_ms
+
+
+def check_k2(name, got, want) -> None:
+    """K2's (bp, v_final, vals) bit-equal to the plain version's."""
+    import numpy as np
+    for what, a, b in zip(("backpointers", "final column", "values"),
+                          got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            bad = np.argwhere(a.view(np.int32) != b.view(np.int32))
+            raise AssertionError(f"{name}: K2's {what} differ from the "
+                                 f"plain version at {bad[:5].tolist()}")
+
+
+def check_k5(name, rows, want) -> float:
+    """K5's rows against the plain version's: the same finite support and
+    |df| <= FWD_ABS_TOL + FWD_REL_TOL * |f|; returns max |df|."""
+    import numpy as np
+    a, b = rows.cpu().numpy(), want.cpu().numpy()
+    live_a, live_b = a > -5.0e29, b > -5.0e29
+    if not np.array_equal(live_a, live_b):
+        raise AssertionError(f"{name}: K5's support differs from the plain "
+                             "version's")
+    d = np.abs(a - b)[live_b]
+    tol = FWD_ABS_TOL + FWD_REL_TOL * np.abs(b[live_b])
+    if (d > tol).any():
+        raise AssertionError(f"{name}: K5 differs from the plain version "
+                             f"by {float(d.max())}")
+    return float(d.max()) if d.size else 0.0
+
+
+def new_cell_pieces(device):
+    """The pieces whose K2 / K5 the new cells hold to the plain versions,
+    prepared on the host route with tables on the card: [(name, model
+    arguments, ScanStatic, tables, v0)], and the plain versions' jobs
+    started on the host CPU (K2 for each, K5 for the capacity pieces)."""
+    from augustus_tpu_torch.io.fasta import read_fasta
+    from augustus_tpu_torch.predict import Model, piece_scan
+    CF = tests_module("torch_capacity_fixtures")
+    NC = tests_module("torch_nc_check")
+    inputs = [("capacity_slots",) + CF.capacity_run("slots", CAPACITY_DIR),
+              ("capacity_deep",) + CF.capacity_run("deep", CAPACITY_DIR),
+              ("capacity_deep_utr",) + CF.capacity_run(
+                  "deep", CAPACITY_DIR, "repo_fixture_utr")]
+    for which in NC.MULTI:
+        inputs.append((which,) + NC.nc_run(which, NC_MULTI_DIR))
+    pieces, jobs = [], []
+    for name, args, fasta in inputs:
+        rec = read_fasta(fasta)[0]
+        st, t, v0, _ = piece_scan(Model.load(dict(args)), rec, None, device)
+        pieces.append((name, args, fasta, st, t, v0))
+        jobs.append(("scan", (st, on_cpu(t), v0.cpu(), True)))
+        if name.startswith("capacity"):
+            jobs.append(("scan_table", (st, on_cpu(t), v0.cpu())))
+    return pieces, plain_start(jobs)
+
+
+def phase_capacity(device, pieces, plain, wide, card):
+    """The pieces past a kernel's capacity (A1 / A2): each run through
+    predict_file on the card, the route chosen before any launch; then K2
+    and K5 on their tables against the plain versions (run on the host
+    CPU while the runs went on), the deep layout also against the layout
+    a piece takes by itself (engine/scan.py:DEEP_ALWAYS).  Returns the
+    plain versions of the other pieces (phase_nc_multi's)."""
+    import torch
+    from augustus_tpu_torch.engine import scan as S
+    from augustus_tpu_torch.predict import Model, predict_file
+    t_phase = time.perf_counter()
+    runs = (("capacity_slots", "repo_fixture_capacity_slots.gff",
+             "k1_capacity_to_k2", "scan_forward", "viterbi_forward"),
+            ("capacity_deep", "repo_fixture_capacity_deep.gff",
+             "k1_capacity_to_k2", "scan_forward", "viterbi_forward"),
+            ("capacity_deep_utr", "repo_fixture_utr_capacity_deep.gff",
+             None, "scan_forward", "viterbi_forward"),
+            ("wide_intron", "repo_fixture_wide_HS04636_sample100.gff",
+             "k3_capacity_to_k5", "scan_table", "forward_table"))
+    by_name = {p[0]: p for p in pieces}
+    for name, golden, routed, need, never in runs:
+        if name == "wide_intron":
+            # sampled in the worker pool (sampled_jobs): a host walk
+            gff, tm, counts, wall, _, launches = wide
+            launches = cell_launches(launches)
+            if strip_comments(gff) != golden_body(golden):
+                raise AssertionError(f"capacity {name}: the GFF differs "
+                                     f"from {golden}")
+        else:
+            _, args, fasta, *_ = by_name[name]
+            before = launch_counts()
+            gff, tm, counts, wall, _ = measured(lambda: predict_file(
+                Model.load(dict(args)), fasta, device="cuda"))
+            launches = cell_launches(launches_since(before))
+            with open(os.path.join(GOLDEN_DIR, golden)) as fh:
+                if gff != fh.read():
+                    raise AssertionError(f"capacity {name}: the GFF "
+                                         f"differs from {golden}")
+        if (routed and counts.get(routed) != 1) or launches[need] < 1 or \
+                launches[never] != 0:
+            raise AssertionError(f"capacity {name}: routing "
+                                 f"{routing_counts(counts)}, launches "
+                                 f"{launches}")
+        emit({"phase": "capacity", "run": name, "equal_to_golden": True,
+              "evidence": "# Evidence for and against" in gff,
+              "genes": gff.count("\tgene\t"), "wall_s": wall,
+              "routing": routing_counts(counts), "launches": launches,
+              "stages_s": tm, "card": card})
+    results = plain_results(plain)
+    k, others = 0, []
+    for name, args, fasta, st, t, v0 in pieces:
+        (want, plain_ms), k = results[k], k + 1
+        if not name.startswith("capacity"):
+            others.append((want, plain_ms))           # phase_nc_multi's
+            continue
+        ((rows_want, _), plain5_ms), k = results[k], k + 1
+        got, rows, again, k2_ms, k5_ms = scan_pair(st, t, v0)
+        check_k2(name, got, want)
+        dk5 = check_k5(name, rows, rows_want)
+        desc, _ = S._check(st, t, v0)[1]
+        row = {"phase": "capacity", "piece": name, "n": st.n, "S": st.S,
+               "deep": bool(desc[S.D_DEEP_AT]),
+               "crossing_slots": max([len(cv.hint.cross_cols) for cv in
+                                      st.convs if cv.hint] + [0]),
+               "k2": "bit-exact", "k2_ms": k2_ms, "k2_plain_ms": plain_ms,
+               "k5_max_abs_err": dk5, "k5_ms": k5_ms,
+               "k5_plain_ms": plain5_ms,
+               "k5_repeat_identical": bool(torch.equal(rows, again))}
+        if not row["k5_repeat_identical"]:
+            raise AssertionError(f"capacity {name}: two K5 launches differ")
+        if not row["deep"]:
+            # the deep layout on the same piece, against this one's
+            S.DEEP_ALWAYS = True
+            try:
+                dgot, drows, _, dk2_ms, dk5_ms = scan_pair(st, t, v0)
+            finally:
+                S.DEEP_ALWAYS = False
+            check_k2(name + " (deep layout)", dgot, want)
+            if not torch.equal(drows, rows):
+                raise AssertionError(f"capacity {name}: K5 in the deep "
+                                     "layout differs")
+            row.update(deep_layout_equal=True, deep_k2_ms=dk2_ms,
+                       deep_k5_ms=dk5_ms)
+        row["card"] = card
+        emit(row)
+    emit({"phase": "capacity", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    return others
+
+
+def phase_nc_multi(pieces, plain_rows, card):
+    """nc intron hints of one end and several starts (A3): each input
+    through predict_file on the card (host route, K2), held to its golden
+    (the port's CPU path, held to augustus_tpu's GoldEngine.run by the
+    tests); K2 bit-equal to its plain version on the piece's tables and K5
+    bit-identical across two launches."""
+    import torch
+    from augustus_tpu_torch.predict import Model, predict_file
+    t_phase = time.perf_counter()
+    for (name, args, fasta, st, t, v0), (want, plain_ms) in zip(
+            pieces, plain_rows):
+        before = launch_counts()
+        gff, tm, counts, wall, _ = measured(lambda: predict_file(
+            Model.load(dict(args)), fasta, device="cuda"))
+        launches = cell_launches(launches_since(before))
+        golden = {"nc_two_starts": "repo_fixture_utr_nc_HS08198_two_starts"
+                  ".gff", "nc_alt_donors":
+                  "repo_fixture_utr_nc_HS08198_alt_donors.gff"}[name]
+        with open(os.path.join(GOLDEN_DIR, golden)) as fh:
+            if gff != fh.read():
+                raise AssertionError(f"nc_multi {name}: the GFF differs "
+                                     f"from {golden}")
+        if launches["scan_forward"] < 1 or routes_of(counts) != {
+                "host_prep": 1}:
+            raise AssertionError(f"nc_multi {name}: launches {launches}, "
+                                 f"routes {routes_of(counts)}")
+        got, rows, again, k2_ms, k5_ms = scan_pair(st, t, v0)
+        check_k2(name, got, want)
+        if not torch.equal(rows, again):
+            raise AssertionError(f"nc_multi {name}: two K5 launches differ")
+        more = sum(0 if p.x_key is None else 1 for p in st.pinned)
+        emit({"phase": "nc_multi", "run": name, "equal_to_golden": True,
+              "noncoding_transcripts": gff.count("\tnoncoding_transcript\t"),
+              "pinned_with_more_candidates": more, "wall_s": wall,
+              "routing": routing_counts(counts), "launches": launches,
+              "k2": "bit-exact", "k2_ms": k2_ms, "k2_plain_ms": plain_ms,
+              "k5_repeat_identical": True, "k5_ms": k5_ms,
+              "stages_s": tm, "card": card})
+    emit({"phase": "nc_multi", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+
+
+def phase_cgp(card):
+    """Comparative gene prediction (B): the seeded three-species input
+    (tests/torch_cgp_fixtures.py) through CompGenePred.start on the card,
+    its genomes read from memory and from the SQLite store; every
+    <species>.cgp.gff equal to its golden (augustus_tpu's) and every
+    orthoExons.<species>.gff3 but for its omega values, which this host's
+    LAPACK rounding decides (tests/torch_goldens.py:omega_masked; the
+    lines whose omega differs are counted), and K1, prefix.cu and K4
+    launched for every species range."""
+    TG = tests_module("torch_goldens")
+    t_phase = time.perf_counter()
+    for store in ("mem", "sqlite"):
+        import shutil
+        d = os.path.join(CGP_DIR, store)
+        shutil.rmtree(d, ignore_errors=True)
+        before = launch_counts()
+        texts, tm, counts, wall, _ = measured(
+            lambda: TG.cgp_texts("augustus_tpu_torch", d, store, "cuda"))
+        launches = cell_launches(launches_since(before))
+        omega_lines = {}
+        for name, text in texts.items():
+            with open(os.path.join(GOLDEN_DIR, "cgp_" + name)) as fh:
+                want = fh.read()
+            if not TG.cgp_equal(name, text, want):
+                diff = [(a, b) for a, b in zip(text.splitlines(),
+                                               want.splitlines()) if a != b]
+                raise AssertionError(f"cgp {store}: {name} differs from "
+                                     f"its golden: {len(diff)} lines, the "
+                                     f"first {diff[:3]}")
+            if name.startswith("orthoExons."):
+                omega_lines[name] = sum(a != b for a, b in zip(
+                    text.splitlines(), want.splitlines()))
+        ranges = counts.get("device_prep", 0) + counts.get("host_prep", 0)
+        if ranges != CGP_RANGES or min(
+                launches[k] for k in ("viterbi_forward", "prefix_sum_f64",
+                                      "event_walk")) < CGP_RANGES:
+            raise AssertionError(f"cgp {store}: {ranges} ranges, launches "
+                                 f"{launches}")
+        emit({"phase": "cgp", "store": store, "equal_to_golden": True,
+              "files": sorted(texts), "species_ranges": ranges,
+              "omega_lines_unlike_golden": omega_lines,
+              "genes": {k: v.count("# start gene") for k, v in texts.items()
+                        if k.endswith(".cgp.gff")},
+              "wall_s": wall, "routing": routing_counts(counts),
+              "launches": launches, "stages_s": tm, "card": card})
+    emit({"phase": "cgp", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+
+
 def kernel_row(name, source, replaces, launches, r, parity):
     """A row of the kernels line; the batched launches and the largest
     grid of one of them where the kernel has a batched launch."""
@@ -2988,6 +3312,9 @@ def main() -> int:
             k: r[3] for k, r in warm.items()},
           "launches": worker_launches, "card": card})
     lap("cold, sampled")
+    # the new cells' pieces; their plain versions run on the host while the
+    # phases up to ppx run
+    new_pieces, new_plain = new_cell_pieces(device)
     predict_phase("gff", model, os.path.join(DATA, "HS04636.fa"),
                   "repo_fixture_HS04636.gff", "device_prep", False)
     hmodel = Model.load(model_args("repo_fixture", "HS04636sm.E.gff"))
@@ -3010,6 +3337,13 @@ def main() -> int:
     phase_optimize(card)
     phase_ppx(card)
     lap("pipeline_hints, chunks, optimize, ppx")
+    nc_plain = phase_capacity(device, new_pieces, new_plain,
+                              warm["wide_intron"], card)
+    phase_nc_multi([p for p in new_pieces if p[0].startswith("nc_")],
+                   nc_plain, card)
+    phase_cgp(card)
+    del new_pieces
+    lap("capacity, nc_multi, cgp")
 
     phase_full("full", model, rec, golden_body("repo_fixture_tiled.gff"),
                card, {}, "device_prep")

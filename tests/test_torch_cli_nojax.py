@@ -48,12 +48,17 @@ finally:
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     """The commands' inputs: the seeded BAM, its hints and PSL lines, the
-    protein-profile files, two small GenBank records and a configuration
-    with the species `sp` made from the template `generic`."""
+    protein-profile files, two small GenBank records, a configuration
+    with the species `sp` made from the template `generic` and the seeded
+    cgp input of one gene range."""
     from augustus_tpu_torch.pipeline.bam2hints import Bam2Hints
     from augustus_tpu_torch.pipeline.trainprep import gff2gb
     d = tmp_path_factory.mktemp("cli")
     p = {"dir": str(d), "bam": F.write_bam(str(d / "reads.bam"))}
+    # the comparative run's input: one gene range (HS08198's) of three
+    # species
+    from torch_cgp_fixtures import write_cgp
+    p["cgp"] = write_cgp(str(d / "cgp"), seqids=("HS08198",))
     hints = io.StringIO()
     Bam2Hints(introns_only=False).run(p["bam"], hints)
     p["hints"] = str(d / "hints.gff")
@@ -97,6 +102,12 @@ CASES = [
         "--UTR=off", "--softmasking=0", "--device=cpu",
         "--predictionStart=401", "--predictionEnd=1800",
         os.path.join(DATA, "HS08198.fa")], None),
+    ("augustus_cgp", "augustus_tpu_torch.cli.augustus", lambda p: [
+        "--species=repo_fixture", f"--AUGUSTUS_CONFIG_PATH={CONFIG}",
+        "--UTR=off", "--softmasking=0", "--device=cpu",
+        f"--alnfile={p['cgp']['aln']}", f"--treefile={p['cgp']['tree']}",
+        f"--speciesfilenames={p['cgp']['tbl']}",
+        f"--/CompPred/outdir={os.path.join(p['dir'], 'cgp_out')}"], None),
     ("etraining", "augustus_tpu_torch.cli.etraining", lambda p: [
         p["gb"], "--species=sp", f"--AUGUSTUS_CONFIG_PATH={p['cfg']}",
         "--device=cpu"], None),

@@ -62,7 +62,21 @@ def test_no_jax_in_sys_modules_after_import():
             "augustus_tpu_torch.cli.bam2hints",
             "augustus_tpu_torch.cli.fastBlockSearch",
             "augustus_tpu_torch.cli.pp_simScore",
-            "augustus_tpu_torch.cli.prepareAlign"} <= set(_port_modules())
+            "augustus_tpu_torch.cli.prepareAlign",
+            "augustus_tpu_torch.cgp",
+            "augustus_tpu_torch.cgp.alignment",
+            "augustus_tpu_torch.cgp.codonevo",
+            "augustus_tpu_torch.cgp.compgenepred",
+            "augustus_tpu_torch.cgp.exoncand",
+            "augustus_tpu_torch.cgp.helpers",
+            "augustus_tpu_torch.cgp.mysql_db",
+            "augustus_tpu_torch.cgp.orthoexon",
+            "augustus_tpu_torch.cgp.orthograph",
+            "augustus_tpu_torch.cgp.phylo",
+            "augustus_tpu_torch.cgp.seq_access",
+            "augustus_tpu_torch.cgp.speciesgraph",
+            "augustus_tpu_torch.cgp.sqlite_db",
+            "augustus_tpu_torch.cgp.train_logreg"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -3,8 +3,9 @@ the CPU, before any decode: the generated architecture (reproducible, the
 UTR architecture's 71 states at their indices, every nc state reachable),
 the nc host tracks of prepare_nc bit-equal to augustus_tpu's, the
 candidate enumeration nc_cands equal at every nc state of a window around
-the hints, the hint fixture's branches, and the refusals that remain
-(intron hints of one end with two starts; sampling and MEA)."""
+the hints, the hint fixture's branches, intron hints of one end with two starts
+held to augustus_tpu's GoldEngine.run, and the refusals that remain
+(sampling and MEA)."""
 
 import os
 
@@ -183,26 +184,37 @@ def test_fixture_reaches_every_nc_branch():
 
 def test_intron_hints_of_one_end_with_two_starts_refused(tmp_path):
     """Two intron hints ending at one splice site with different starts
-    would give ncintronvar two candidates at one position; K2's pinned
-    record holds one, so the tracks refuse the piece by name."""
-    from augustus_tpu_torch.engine.device import build_tracks
-    from torch_nc_check import _codes_and_hints
-    from augustus_tpu_torch.predict import _new_gold
-    args, fasta = nc_run("nc_fixture")
-    with open(args["hintsfile"]) as fh:
-        lines = fh.read().splitlines(True)
-    first = next(l.split("\t") for l in lines if "\tintron\t" in l)
-    extra = list(first)
-    extra[3] = str(int(first[3]) - 30)
-    path = tmp_path / "two_starts.gff"
-    path.write_text("".join(lines) + "\t".join(extra))
-    m = Model.load(dict(args, hintsfile=str(path)))
-    codes, hints = _codes_and_hints(m, fasta)
-    g = _new_gold(m, True, True)
-    g.collect_hints(codes, None, hints)
-    g.prepare_collected()
-    with pytest.raises(NotImplementedError, match="different starts"):
-        build_tracks(g)
+    give ncintronvar two candidates at one position, which the tracks now
+    carry (test_two_starts_decode_held_to_gold); sampling them with
+    --nc=on stays refused, naming the cause, as every nc sampling does."""
+    args, _ = nc_run("nc_two_starts", str(tmp_path))
+    m = Model.load(dict(args))
+    assert m.gff_hints is not None
+    with pytest.raises(NotImplementedError, match="noncoding transcript"):
+        Model.load(dict(args, sample="100"))
+
+
+def test_two_starts_decode_held_to_gold(tmp_path, monkeypatch):
+    """The same two-start input decodes: the tracks keep both candidates of
+    the position in hint order, and K2's plain version over them is held
+    to augustus_tpu's GoldEngine.run table (values within TOL at every
+    live state, nc backpointers where gold's best leads its runner-up)."""
+    import torch_nc_check
+    from torch_nc_check import TOL, compare, port_scan
+    monkeypatch.setattr(torch_nc_check, "MULTI_DIR", str(tmp_path))
+    gold = gold_engine("nc_two_starts")
+    g, tr, eng = port_scan("nc_two_starts")
+    types = g.sg.state_types
+    var = next(p for p in tr.exon_pinned if types[p.state] == ST.ncintronvar)
+    assert var.x_pos is not None and len(var.x_pos) >= 1
+    j = int(var.x_pos[0])
+    assert var.x_eop[0] != var.eop[j]
+    # the second start wins there, as in gold
+    won = j - (int(eng.bp[j, var.state]) & 0xFFFFF)
+    assert won == var.x_eop[0] == int(gold.bp_base[j, var.state])
+    nc = [s for s, t in enumerate(types) if is_nc(t)]
+    worst, live, checked, _ = compare(gold, tr, eng, TOL, nc)
+    assert worst <= TOL and checked > 4000
 
 
 @pytest.mark.parametrize("extra", [{"sample": "100"}, {"mea": "1"}])

@@ -72,18 +72,20 @@ def test_memory_budget_cuts_batches(decoded, monkeypatch):
 
 
 def test_piece_that_no_kernel_takes_raises(decoded):
-    """No fallback: a piece beyond the kernel's limits raises, as on the
-    sequential path (here: a piece that the device route refuses to lay out
-    in shared memory)."""
+    """No fallback: a piece beyond the kernels' limits raises, as on the
+    sequential path (here: a piece that neither K1 nor K2 can lay out in
+    shared memory; a piece K1 alone refuses goes to K2)."""
+    from augustus_tpu_torch.engine import scan as S
     from augustus_tpu_torch.engine import viterbi as V
     model, pieces, _, _ = decoded
-    limit = V.SMEM_LIMIT
+    limit, limit2 = V.SMEM_LIMIT, S.SMEM_BYTES
     try:
         V.SMEM_LIMIT = 1024
+        S.SMEM_BYTES = 1024
         with pytest.raises(NotImplementedError):
             mesh.decode_pieces(model, pieces[:2], "cpu")
     finally:
-        V.SMEM_LIMIT = limit
+        V.SMEM_LIMIT, S.SMEM_BYTES = limit, limit2
 
 
 def test_batched_walk_equals_the_walk_of_each_plane():

@@ -29,10 +29,62 @@ NC_ARGS = {"species": "repo_fixture_utr", "AUGUSTUS_CONFIG_PATH": CONFIG,
 TOL = 2e-2
 
 
-def nc_run(which: str):
+# the nc inputs whose intron hints end at one base with several starts
+MULTI = ("nc_two_starts", "nc_alt_donors")
+ALT_SEED = 20161
+MULTI_DIR = os.path.join(ROOT, "build", "nc_multi")
+
+
+def write_multi_hints(which: str, dst: str = None) -> str:
+    """The hint file of a MULTI input, written into dst: the hint fixture
+    HS08198.nc.gff with, for nc_two_starts, a copy of its first intron hint
+    that starts 30 bases earlier; for nc_alt_donors, after every intron
+    hint two seeded copies of the same end whose start moves by 8-60 bases
+    either way (alternative donors of one acceptor on the forward strand,
+    alternative acceptors of one donor on the reverse)."""
+    import numpy as np
+    with open(os.path.join(HINTS, "HS08198.nc.gff")) as fh:
+        lines = fh.read().splitlines(True)
+    out = list(lines)
+    if which == "nc_two_starts":
+        first = next(l.split("\t") for l in lines if "\tintron\t" in l)
+        extra = list(first)
+        extra[3] = str(int(first[3]) - 30)
+        out.append("\t".join(extra))
+    elif which == "nc_alt_donors":
+        rng = np.random.RandomState(ALT_SEED)
+        out = []
+        for l in lines:
+            out.append(l)
+            f = l.split("\t")
+            if len(f) < 9 or f[2] != "intron":
+                continue
+            for _ in range(2):
+                shift = int(rng.randint(8, 61)) * (1 if rng.rand() < 0.5
+                                                   else -1)
+                g = list(f)
+                g[3] = str(int(f[3]) + shift)
+                out.append("\t".join(g))
+    else:
+        raise ValueError(which)
+    dst = dst or MULTI_DIR
+    os.makedirs(dst, exist_ok=True)
+    path = os.path.join(dst, f"HS08198.{which}.gff")
+    with open(path, "w") as fh:
+        fh.write("".join(out))
+    return path
+
+
+def nc_run(which: str, dst: str = None):
     """(arguments, FASTA path) of an nc input: HS04636.fa with the tss / tts
-    / exon hints of tests/data/nc_hints.gff, HS08198.fa without hints, and
-    HS08198.fa with the hint fixture HS08198.nc.gff."""
+    / exon hints of tests/data/nc_hints.gff, HS08198.fa without hints,
+    HS08198.fa with the hint fixture HS08198.nc.gff, and HS08198.fa with
+    the hint files of write_multi_hints (written into dst, by default
+    MULTI_DIR)."""
+    if which in MULTI:
+        return (dict(NC_ARGS, hintsfile=write_multi_hints(which, dst),
+                     extrinsicCfgFile="extrinsic.M.RM.E.W.nc.cfg"),
+                os.path.join(DATA, "HS08198.fa"))
     if which == "nc_hints":
         return (dict(NC_ARGS, hintsfile=os.path.join(DATA, "nc_hints.gff"),
                      extrinsicCfgFile="extrinsic.M.RM.E.W.cfg"),
@@ -148,7 +200,7 @@ def main() -> int:
     import json
     import time
     torch.set_num_threads(1)
-    for which in ("nc_plain", "nc_hints", "nc_fixture"):
+    for which in ("nc_plain", "nc_hints", "nc_fixture") + MULTI:
         t0 = time.perf_counter()
         gold = gold_engine(which)
         t1 = time.perf_counter()
