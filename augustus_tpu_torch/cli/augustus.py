@@ -15,7 +15,8 @@ from the forward table, fewer is none), --alternatives-from-sampling=true
 augustus_tpu.  A GenBank queryfile (LOCUS and ORIGIN lines) is predicted
 record by record and evaluated against its annotation, with softmasking
 off unless asked for (predict.evaluate_genbank).  Comparative gene
-prediction (--alnfile) is not ported.
+prediction: --alnfile with --treefile and --speciesfilenames (cgp/), each
+species' gene range decoded on --device.
 """
 
 from __future__ import annotations

@@ -187,7 +187,8 @@ def pack_tracks(tr: DPTracks):
     if S > 64 or NL > 64:
         raise NotImplementedError(
             f"S={S} states / NL={NL} lanes: the Viterbi kernel takes at most "
-            "64 of each (UTR architectures are a later slice)")
+            "64 of each; such pieces take the general kernel K2 "
+            "(engine/scan.py, chosen by predict._engine and viterbi.k1_fits)")
     n_blocks = -(-n // BLK)
     n_pad = n_blocks * BLK
 

@@ -331,7 +331,13 @@ line each:
   cgp     comparative gene prediction (cgp/, tests/torch_cgp_fixtures.py:
           three species of two sequences, a MAF, a tree, an SQLite store)
           through CompGenePred.start on the card, from memory and from the
-          SQLite store: every <species>.cgp.gff equal to augustus_tpu's
+          SQLite store that the port's load2sqlitedb command line builds
+          (main() in this process, once per genome and once for hs's
+          hints), its tables equal row for row to the store that the
+          cgp.sqlite_db functions write, and getSeq's output from it
+          equal to the FASTA's slices (every sequence whole, and
+          GETSEQ_RANGE across a chunk boundary forward and with --rc);
+          every <species>.cgp.gff equal to augustus_tpu's
           golden (data/golden/cgp_*), every orthoExons.*.gff3 but for the
           omega values that the host's LAPACK rounding decides
           (tests/torch_goldens.py:omega_masked), K1, prefix.cu and K4
@@ -444,6 +450,9 @@ NC_MULTI_DIR = os.path.join(ROOT, "build", "nc_multi")
 CGP_DIR = os.path.join(ROOT, "build", "cgp")
 ROUTING = ("k1_capacity_to_host", "k1_capacity_to_k2", "k3_capacity_to_k5")
 CGP_RANGES = 6
+# the 1-based range of getSeq's runs against the cgp store: it crosses the
+# boundary of the store's chunks of 1,000 bases
+GETSEQ_RANGE = (941, 1070)
 EXON_FREE = os.path.join(ROOT, "build", "hints", "tiled_sm.exon_free.gff")
 EXON_FREE_SM = os.path.join(ROOT, "build", "hints",
                             "HS04636sm.exon_free.gff")
@@ -3089,24 +3098,75 @@ def phase_nc_multi(pieces, plain_rows, card):
           "card": card})
 
 
+def cgp_store_check(CF, inp: str) -> dict:
+    """The cgp cell's SQLite store under inp, which the port's
+    load2sqlitedb command line built: its tables against those of a store
+    of the same files that the cgp.sqlite_db functions write, row for row;
+    then the port's getSeq (main() in this process) on every species and
+    sequence of the store, whole and over GETSEQ_RANGE forward and with
+    --rc, each output against the slice of the FASTA.  (rows per table,
+    getSeq runs)."""
+    import contextlib
+    import io
+    from augustus_tpu_torch.cli import getSeq
+    paths = {"genomes": {s: os.path.join(inp, f"{s}.fa")
+                         for s in CF.SPECIES},
+             "hints": os.path.join(inp, "hs.hints.gff")}
+    db = os.path.join(inp, "cgp.db")
+    ref_db = os.path.join(inp, "functions.db")
+    CF.load_store(ref_db, paths, loader="functions")
+    got, want = CF.store_tables(db), CF.store_tables(ref_db)
+    if got != want:
+        raise AssertionError(
+            "cgp sqlite: the command line's store differs from the "
+            "functions': " + str([t for t in sorted(set(got) | set(want))
+                                  if got.get(t) != want.get(t)]))
+    lo, hi = GETSEQ_RANGE
+    runs = 0
+    for spec in CF.SPECIES:
+        for name, seq in CF.fasta_letters(paths["genomes"][spec]).items():
+            for extra, start, end, rc in (
+                    ([], 1, len(seq), False),
+                    ([f"--start={lo}", f"--end={hi}"], lo, hi, False),
+                    ([f"--start={lo}", f"--end={hi}", "--rc"], lo, hi, True)):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    code = getSeq.main([f"--species={spec}", f"--seq={name}",
+                                        f"--dbaccess={db}"] + extra)
+                if code != 0 or out.getvalue() != CF.getseq_text(
+                        seq, name, start, end, rc):
+                    raise AssertionError(
+                        f"cgp sqlite: getSeq {spec} {name} {extra} exited "
+                        f"{code} or differs from the FASTA's slice")
+                runs += 1
+    return {"store_rows": {t: len(rows) for t, (_, rows) in got.items()},
+            "store_equal_to_functions": True, "getseq_runs": runs,
+            "getseq_equal_to_fasta": True}
+
+
 def phase_cgp(card):
     """Comparative gene prediction (B): the seeded three-species input
     (tests/torch_cgp_fixtures.py) through CompGenePred.start on the card,
-    its genomes read from memory and from the SQLite store; every
+    its genomes read from memory and from the SQLite store that the
+    port's load2sqlitedb command line builds (cgp_store_check holds the
+    store and getSeq's reads of it); every
     <species>.cgp.gff equal to its golden (augustus_tpu's) and every
     orthoExons.<species>.gff3 but for its omega values, which this host's
     LAPACK rounding decides (tests/torch_goldens.py:omega_masked; the
     lines whose omega differs are counted), and K1, prefix.cu and K4
     launched for every species range."""
     TG = tests_module("torch_goldens")
+    CF = tests_module("torch_cgp_fixtures")
     t_phase = time.perf_counter()
     for store in ("mem", "sqlite"):
         import shutil
         d = os.path.join(CGP_DIR, store)
         shutil.rmtree(d, ignore_errors=True)
+        loader = "cli" if store == "sqlite" else "functions"
         before = launch_counts()
         texts, tm, counts, wall, _ = measured(
-            lambda: TG.cgp_texts("augustus_tpu_torch", d, store, "cuda"))
+            lambda: TG.cgp_texts("augustus_tpu_torch", d, store, "cuda",
+                                 loader))
         launches = cell_launches(launches_since(before))
         omega_lines = {}
         for name, text in texts.items():
@@ -3127,7 +3187,10 @@ def phase_cgp(card):
                                       "event_walk")) < CGP_RANGES:
             raise AssertionError(f"cgp {store}: {ranges} ranges, launches "
                                  f"{launches}")
-        emit({"phase": "cgp", "store": store, "equal_to_golden": True,
+        checked = cgp_store_check(CF, os.path.join(d, "input")) \
+            if store == "sqlite" else {}
+        emit({"phase": "cgp", "store": store, "loader": loader,
+              "equal_to_golden": True, **checked,
               "files": sorted(texts), "species_ranges": ranges,
               "omega_lines_unlike_golden": omega_lines,
               "genes": {k: v.count("# start gene") for k, v in texts.items()

@@ -2,7 +2,9 @@
 subprocess whose import hook raises on `jax`, `jaxlib` and `augustus_tpu`
 (and which fails if any of them was loaded), on inputs of a few kb with
 --device=cpu where the command takes one; it must exit 0 and print what
-the same main() prints in this process."""
+the same main() prints in this process.  load2db runs over the stand-in
+`pymysql` module of torch_cgp_fixtures.write_mysql_stub, put on the
+PYTHONPATH of its subprocess and on sys.path for its in-process run only."""
 
 import contextlib
 import importlib
@@ -13,6 +15,7 @@ import sys
 
 import pytest
 
+import torch_cgp_fixtures as CF
 import torch_pipeline as TP
 import torch_pipeline_fixtures as F
 
@@ -49,8 +52,8 @@ finally:
 def inputs(tmp_path_factory):
     """The commands' inputs: the seeded BAM, its hints and PSL lines, the
     protein-profile files, two small GenBank records, a configuration
-    with the species `sp` made from the template `generic` and the seeded
-    cgp input of one gene range."""
+    with the species `sp` made from the template `generic`, the seeded
+    cgp input of one gene range and the stand-in `pymysql` module."""
     from augustus_tpu_torch.pipeline.bam2hints import Bam2Hints
     from augustus_tpu_torch.pipeline.trainprep import gff2gb
     d = tmp_path_factory.mktemp("cli")
@@ -59,6 +62,7 @@ def inputs(tmp_path_factory):
     # species
     from torch_cgp_fixtures import write_cgp
     p["cgp"] = write_cgp(str(d / "cgp"), seqids=("HS08198",))
+    p["mysql_stub"] = CF.write_mysql_stub(str(d / "mysql_stub"))
     hints = io.StringIO()
     Bam2Hints(introns_only=False).run(p["bam"], hints)
     p["hints"] = str(d / "hints.gff")
@@ -162,16 +166,29 @@ CASES = [
         f"--metapars={p['metapars']}", "--kfold=2",
         f"--workdir={os.path.join(p['dir'], 'opt')}", "--device=cpu",
         p["gb"]], None),
+    ("getSeq", "augustus_tpu_torch.cli.getSeq", lambda p: [
+        "--species=mutC", "--seq=HS08198", f"--dbaccess={p['cgp']['db']}",
+        "--start=941", "--end=1070", "--rc"], None),
+    ("load2sqlitedb", "augustus_tpu_torch.cli.load2sqlitedb", lambda p: [
+        "--species=hs", f"--dbaccess={os.path.join(p['dir'], 'cli.db')}",
+        "--chunksize=1000", p["cgp"]["genomes"]["hs"]], None),
+    ("load2db", "augustus_tpu_torch.cli.load2db", lambda p: [
+        "--species=hs", "--dbaccess=nojax,localhost,user,secret",
+        p["cgp"]["genomes"]["hs"]], None),
 ]
+# the cases that import the stand-in `pymysql` module
+ON_STUB = ("load2db",)
 
 
-def _in_process(module, argv, stdin) -> str:
+def _in_process(module, argv, stdin, stub=None) -> str:
     out = io.StringIO()
     saved = sys.stdin
     sys.stdin = io.StringIO(stdin or "")
     try:
         with contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(io.StringIO()):
+                contextlib.redirect_stderr(io.StringIO()), \
+                (CF.mysql_stub_on_path(stub) if stub
+                 else contextlib.nullcontext()):
             rc = importlib.import_module(module).main(argv)
     finally:
         sys.stdin = saved
@@ -186,10 +203,13 @@ def test_cli_runs_with_jax_refused(inputs, case):
     text = stdin(inputs) if stdin else None
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    stub = inputs["mysql_stub"] if case[0] in ON_STUB else None
+    if stub:
+        env["PYTHONPATH"] = stub
     r = subprocess.run([sys.executable, "-c", HOOK, module] + argv,
                        input=text or "", capture_output=True, text=True,
                        cwd=ROOT, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
-    want = _in_process(module, argv, text)
+    want = _in_process(module, argv, text, stub)
     assert r.stdout == want
     assert r.stdout or module.endswith("trainprep")

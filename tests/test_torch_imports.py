@@ -63,6 +63,9 @@ def test_no_jax_in_sys_modules_after_import():
             "augustus_tpu_torch.cli.fastBlockSearch",
             "augustus_tpu_torch.cli.pp_simScore",
             "augustus_tpu_torch.cli.prepareAlign",
+            "augustus_tpu_torch.cli.getSeq",
+            "augustus_tpu_torch.cli.load2db",
+            "augustus_tpu_torch.cli.load2sqlitedb",
             "augustus_tpu_torch.cgp",
             "augustus_tpu_torch.cgp.alignment",
             "augustus_tpu_torch.cgp.codonevo",

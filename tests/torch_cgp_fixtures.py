@@ -15,14 +15,26 @@ Three "species" of two sequences each:
 write_cgp(dst) writes the genomes (FASTA), the alignment they were made
 with as a MAF (ALN_SPANS of each hs sequence, one block each, mutB and
 mutC rows with their gaps), a Newick tree, the species-file table, and an
-SQLite store of the three genomes (through the package `pkg`'s
-cgp.sqlite_db.load2sqlitedb, with chunks of SQL_CHUNK bases, and hints
-for hs through load_hints2sqlitedb).  Every file is a function of the
-seed (numpy's RandomState, whose stream is fixed across numpy versions).
+SQLite store of the three genomes (load_store: through the package
+`pkg`'s cgp.sqlite_db.load2sqlitedb, with chunks of SQL_CHUNK bases, and
+hints for hs through load_hints2sqlitedb, or through its command line
+cli/load2sqlitedb.py with the same arguments).  Every file is a function
+of the seed (numpy's RandomState, whose stream is fixed across numpy
+versions).
+
+store_tables reads every table of a store in rowid order; fasta_letters
+reads a FASTA file; getseq_text is getSeq's output for a slice of a
+sequence, folded from the letters; and
+write_mysql_stub writes a stand-in `pymysql` module (a recording DB-API
+double over SQLite) for the load2db command lines.
 """
 
+import contextlib
 import importlib
+import io
 import os
+import sqlite3
+import sys
 
 import numpy as np
 
@@ -155,10 +167,13 @@ def _fasta(path: str, seqs: dict) -> None:
 
 
 def write_cgp(dst: str, pkg: str = "augustus_tpu_torch",
-              seed: int = CGP_SEED, seqids=None) -> dict:
+              seed: int = CGP_SEED, seqids=None,
+              loader: str = "functions") -> dict:
     """Write the cgp input into dst: {"tree", "aln", "tbl", "db", "hints",
     "genomes": {species: path}}; the SQLite store through pkg's
-    cgp.sqlite_db; only the sequences `seqids` when given."""
+    cgp.sqlite_db functions or its load2sqlitedb command line (loader
+    "functions" or "cli", load_store); only the sequences `seqids` when
+    given."""
     os.makedirs(dst, exist_ok=True)
     seqs, blocks = genomes(seed, seqids)
     paths = {"genomes": {}}
@@ -188,12 +203,163 @@ def write_cgp(dst: str, pkg: str = "augustus_tpu_torch",
                 continue
             fh.write(f"{seqid}\tb2h\t{kind}\t{b}\t{e}\t0\t{strand}\t.\t"
                      "src=E\n")
-    sq = importlib.import_module(pkg + ".cgp.sqlite_db")
     paths["db"] = os.path.join(dst, "cgp.db")
-    if os.path.exists(paths["db"]):
-        os.remove(paths["db"])
-    for spec in SPECIES:
-        sq.load2sqlitedb(paths["db"], spec, paths["genomes"][spec],
-                         chunksize=SQL_CHUNK)
-    sq.load_hints2sqlitedb(paths["db"], "hs", paths["hints"])
+    load_store(paths["db"], paths, pkg, loader)
     return paths
+
+
+def load_store(db: str, paths: dict, pkg: str = "augustus_tpu_torch",
+               loader: str = "functions") -> str:
+    """Write the SQLite store db anew from write_cgp's genomes (chunks of
+    SQL_CHUNK bases) and hs's hints, through pkg's cgp.sqlite_db
+    functions ("functions") or through its command line
+    cli/load2sqlitedb.py, main() in this process, once per genome and once
+    for the hints ("cli"); the command lines' standard output (empty for
+    "functions")."""
+    if os.path.exists(db):
+        os.remove(db)
+    if loader == "functions":
+        sq = importlib.import_module(pkg + ".cgp.sqlite_db")
+        for spec in SPECIES:
+            sq.load2sqlitedb(db, spec, paths["genomes"][spec],
+                             chunksize=SQL_CHUNK)
+        sq.load_hints2sqlitedb(db, "hs", paths["hints"])
+        return ""
+    if loader != "cli":
+        raise ValueError(f"loader {loader!r}: 'functions' or 'cli'")
+    cli = importlib.import_module(pkg + ".cli.load2sqlitedb")
+    runs = [[f"--species={spec}", f"--dbaccess={db}",
+             f"--chunksize={SQL_CHUNK}", paths["genomes"][spec]]
+            for spec in SPECIES]
+    runs.append(["--species=hs", f"--dbaccess={db}", paths["hints"]])
+    out = io.StringIO()
+    for argv in runs:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise RuntimeError(f"load2sqlitedb {argv} exited {rc}")
+    return out.getvalue()
+
+
+def store_tables(db: str) -> dict:
+    """{table: (its CREATE statement, its rows with their rowid, in rowid
+    order)} of every table of the SQLite file db."""
+    con = sqlite3.connect(db)
+    try:
+        out = {}
+        for name, sql in con.execute(
+                "SELECT name, sql FROM sqlite_master WHERE type='table' "
+                "ORDER BY name").fetchall():
+            out[name] = (sql, con.execute(
+                f"SELECT rowid, * FROM {name} ORDER BY rowid").fetchall())
+        return out
+    finally:
+        con.close()
+
+
+def fasta_letters(path: str) -> dict:
+    """{name: letters} of a FASTA file, read line by line."""
+    out, name = {}, None
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith(">"):
+                name = line[1:].split()[0]
+                out[name] = []
+            elif name is not None:
+                out[name].append(line.strip())
+    return {k: "".join(v) for k, v in out.items()}
+
+
+def getseq_text(seq: str, name: str, start: int, end: int,
+                rc: bool = False) -> str:
+    """getSeq's output for the 1-based inclusive [start, end] of the
+    letters seq named name: a header and lines of 60 letters, reverse
+    complemented with the case kept (softmasking) when rc."""
+    s = seq[start - 1: end]
+    if rc:
+        s = "".join({"A": "T", "C": "G", "G": "C", "T": "A", "a": "t",
+                     "c": "g", "g": "c", "t": "a"}.get(c, c)
+                    for c in reversed(s))
+    return f">{name} {start}..{end}\n" + "".join(
+        s[i: i + 60] + "\n" for i in range(0, len(s), 60))
+
+
+MYSQL_STUB = '''"""A stand-in for the pymysql module: connect() opens a DB-API double
+over an SQLite file named after the database, beside this module.  Its
+cursor advertises the qmark paramstyle, records every statement it is
+given in LOG[database] as (sql, params), and runs it with MySQL's three
+phrases of the load2db schema rewritten for SQLite (AUTO_INCREMENT,
+KEY region (...), INSERT IGNORE)."""
+import os
+import re
+import sqlite3
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+LOG = {}
+
+
+def sqlite_dialect(sql):
+    sql = sql.replace("AUTO_INCREMENT", "AUTOINCREMENT")
+    sql = re.sub(r",\\s*KEY region \\([^)]*\\)", "", sql)
+    return sql.replace("INSERT IGNORE", "INSERT OR IGNORE")
+
+
+class Cursor:
+    paramstyle = "qmark"
+
+    def __init__(self, cur, log):
+        self._cur, self._log = cur, log
+
+    def execute(self, sql, params=()):
+        self._log.append((sql, tuple(params)))
+        self._cur.execute(sqlite_dialect(sql), tuple(params))
+        return self
+
+    def fetchone(self):
+        return self._cur.fetchone()
+
+    def fetchall(self):
+        return self._cur.fetchall()
+
+
+class Connection:
+    def __init__(self, path, log):
+        self._con, self._log = sqlite3.connect(path), log
+
+    def cursor(self):
+        return Cursor(self._con.cursor(), self._log)
+
+    def commit(self):
+        self._con.commit()
+
+    def close(self):
+        self._con.close()
+
+
+def connect(host, user, password, database, port=3306):
+    return Connection(os.path.join(HERE, database + ".sqlite"),
+                      LOG.setdefault(database, []))
+'''
+
+
+def write_mysql_stub(dst: str) -> str:
+    """Write MYSQL_STUB as dst/pymysql.py; dst."""
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(dst, "pymysql.py"), "w") as fh:
+        fh.write(MYSQL_STUB)
+    return dst
+
+
+@contextlib.contextmanager
+def mysql_stub_on_path(stub_dir: str):
+    """The stand-in module of write_mysql_stub importable as `pymysql` in
+    this process while the block runs; yields the module."""
+    saved = sys.modules.pop("pymysql", None)
+    sys.path.insert(0, stub_dir)
+    try:
+        yield importlib.import_module("pymysql")
+    finally:
+        sys.path.remove(stub_dir)
+        sys.modules.pop("pymysql", None)
+        if saved is not None:
+            sys.modules["pymysql"] = saved

@@ -504,13 +504,16 @@ CGP_FILES = tuple(f"{s}.cgp.gff" for s in CGP_SPECIES) + tuple(
     f"orthoExons.{s}.gff3" for s in CGP_SPECIES)
 
 
-def cgp_texts(pkg: str, dst: str, store: str = "mem", device="cpu") -> dict:
+def cgp_texts(pkg: str, dst: str, store: str = "mem", device="cpu",
+              loader: str = "functions") -> dict:
     """{file: text} of `pkg`'s CompGenePred.start on the seeded cgp input
     written into dst, its genomes read from memory ("mem") or from the
-    SQLite store ("sqlite"); the port decodes on `device`."""
+    SQLite store ("sqlite"), which `pkg`'s cgp.sqlite_db functions or its
+    load2sqlitedb command line wrote (loader "functions" or "cli",
+    torch_cgp_fixtures.load_store); the port decodes on `device`."""
     import importlib
     from torch_cgp_fixtures import write_cgp
-    paths = write_cgp(os.path.join(dst, "input"), pkg)
+    paths = write_cgp(os.path.join(dst, "input"), pkg, loader=loader)
     model = importlib.import_module(pkg + ".predict").Model.load(
         dict(CGP_ARGS))
     cgp = importlib.import_module(pkg + ".cgp").CompGenePred(
