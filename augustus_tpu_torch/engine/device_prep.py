@@ -9,8 +9,9 @@ array, the stairs and the overlays go to the card, where JGold,
 torch tensors (float64, the ordered prefix-sum kernel csrc/prefix.cu for
 the cumulative tracks), the Viterbi kernel runs, and the event walk
 (csrc/trace.cu) walks the path where the plane lies; only the events come
-back.  Stages: `prep` (host), `dev_prep` (CUDA events on the card),
-`expand` and `kernel`, `traceback`.
+back.  Stages: `prep` (host), `dev_prep` (CUDA events on the card; its
+ATen ops, host syncs and uploads counted by `stats.dispatch_counts`, and
+prefix.cu's launches), `expand` and `kernel`, `traceback`.
 
 The route is decided before any work on the device, the same way on
 `cuda` and on `cpu` (where the tensors lie on the CPU and every kernel
@@ -57,7 +58,9 @@ def prepare_on_device(gold: GoldEngine, codes: np.ndarray, softmask,
             return None
         stairs = gcmod.compute_stairs(codes, gold.cn, gold.decomp)
 
-    with stats.stage("dev_prep", device):
+    launches = U.prefix_sum_f64.launches
+    with stats.stage("dev_prep", device), \
+            stats.dispatch_counts("dev_prep", device) as counter:
         jg = JGold(gold.sg, gold.cn, gold.igp, gold.exp, gold.inp,
                    gold.decomp, gold.gcode, ext_cfg=gold.ext_cfg)
         jg.log_init = gold.log_init.copy()
@@ -68,7 +71,11 @@ def prepare_on_device(gold: GoldEngine, codes: np.ndarray, softmask,
             stairs_d = torch.from_numpy(stairs).to(device)
             jg.device_prepare(codes_d, stairs_d, meta, ov)
             tracks = build_tracks(jg)
-            return tracks, pack_tracks(tracks)
+            packed = pack_tracks(tracks)
+        if counter is not None:
+            # prefix.cu's launches go through ctypes, past the dispatcher
+            counter.ops += U.prefix_sum_f64.launches - launches
+    return tracks, packed
 
 
 def device_engine(gold: GoldEngine, codes: np.ndarray, softmask, gff_hints,

@@ -21,6 +21,8 @@ import ctypes
 
 import numpy as np
 
+from .. import stats
+
 F32_NEG = np.float32(-1.0e30)
 
 
@@ -105,23 +107,30 @@ class TorchXP:
             return x.item()
         return x
 
+    def _upload(self, x, dtype=None):
+        """Python data (a number, a list) as a tensor on the device.  torch
+        copies it from the host below the dispatcher, where
+        stats.dispatch_counts does not see the copy, so it is counted
+        here."""
+        t = self.torch.as_tensor(x, dtype=dtype, device=self.device)
+        stats.upload(t)
+        return t
+
     def _pair(self, a, b):
         """Both operands as tensors of their numpy result type."""
         torch = self.torch
         a, b = self._t(a), self._t(b)
         if not isinstance(a, torch.Tensor):
-            a = torch.as_tensor(a, dtype=torch.result_type(b, a),
-                                device=self.device)
+            a = self._upload(a, torch.result_type(b, a))
         if not isinstance(b, torch.Tensor):
-            b = torch.as_tensor(b, dtype=torch.result_type(a, b),
-                                device=self.device)
+            b = self._upload(b, torch.result_type(a, b))
         return a, b
 
     def asarray(self, x, dtype=None):
         torch = self.torch
         x = self._t(x)
         if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(x, device=self.device)
+            x = self._upload(x)
         return x if dtype is None else x.to(tdtype(dtype))
 
     # ---- construction ------------------------------------------------
@@ -171,7 +180,7 @@ class TorchXP:
         torch = self.torch
         a, b = self._t(a), self._t(b)
         if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
-            a = torch.as_tensor(a, device=self.device)
+            a = self._upload(a)
         return torch.where(self.asarray(cond), a, b)
 
     def clip(self, x, lo, hi):

@@ -24,8 +24,9 @@ sequential path, where augustus_tpu falls back to `gold.run`.  The pieces
 are prepared in order and cut into batches whose resident bytes (tables,
 planes, lane history, backpointer plane, the walk's breaks and events)
 stay within MEMORY_SHARE of the device's free memory when the call starts;
-`decode_pieces.last` records the batches, the blocks of each launch and the
-bytes per base of each kernel's pieces.
+`decode_pieces.last` records the batches, the blocks of each launch, the
+bytes per base of each kernel's pieces, the budget and the bytes that the
+caching allocator held free when the budget was read.
 
 On the CPU the same function runs the plain versions, piece after piece.
 There is no `make_batched_fn` or `stack_arrays`: the pieces are not padded
@@ -57,6 +58,16 @@ def memory_budget(device: torch.device) -> int:
     else:
         free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
     return int(free * MEMORY_SHARE)
+
+
+def cached_free_bytes(device: torch.device) -> int:
+    """Bytes that the caching allocator holds free on `device` (reserved
+    and not allocated), which `memory_budget`'s free memory does not count;
+    0 on the CPU."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.memory_reserved(device) - \
+        torch.cuda.memory_allocated(device)
 
 
 def _kernel(eng) -> str:
@@ -180,7 +191,8 @@ def decode_pieces(model, piece_inputs: List[dict], device=None) -> list:
     budget = memory_budget(device)
     out = [None] * len(piece_inputs)
     record = {"batches": 0, "ctas": [], "bytes_per_base": {},
-              "budget_bytes": budget}
+              "budget_bytes": budget,
+              "cached_free_bytes": cached_free_bytes(device)}
     batch, used = [], 0
     for i, pi in enumerate(piece_inputs):
         gold = _new_gold(model, pi["init_synch"], pi["term_synch"])

@@ -21,11 +21,12 @@ its scan engine; the output gains tss/tts lines and, with --print_utr=on,
 5'-UTR/3'-UTR lines.  Sampled or MEA, such a piece takes its forward table
 from K5, K2's logsumexp twin over the same split tables.
 
-`stats` counts the route of every piece.  Softmasked or hinted runs print
-the evidence block of every transcript.  A sequence cut into more than one
-piece is decoded in flight (parallel/mesh.py: one block of a batched
-kernel launch per piece) unless --pieceParallel=false, --sample or --mea;
-otherwise its pieces decode in order.
+`stats` counts the route of every piece, the cut-point exams (`exams`,
+each timed as the stage `exam`) and the cuts (`cuts`).  Softmasked or
+hinted runs print the evidence block of every transcript.  A sequence cut
+into more than one piece is decoded in flight (parallel/mesh.py: one
+block of a batched kernel launch per piece) unless --pieceParallel=false,
+--sample or --mea; otherwise its pieces decode in order.
 
 With --sample=N (N >= 10) a piece takes the host route, as augustus_tpu
 routes it, and also fills the forward table on `device`
@@ -577,9 +578,12 @@ def _next_cut_end_point(model, codes, softmask, gff_hints, begin: int,
         return s, e
 
     def run_exam(s, e):
-        gold = _new_gold(model, mini_init_synch, mini_term_synch)
-        return _decode(gold, codes[s: e + 1], softmask[s: e + 1],
-                       _piece_hints(gff_hints, s, e), device, model.route)
+        stats.count("exams")
+        with stats.stage("exam"):
+            gold = _new_gold(model, mini_init_synch, mini_term_synch)
+            return _decode(gold, codes[s: e + 1], softmask[s: e + 1],
+                           _piece_hints(gff_hints, s, e), device,
+                           model.route)
 
     s, e = exam_interval(exam, gaps_in_range, skip_last=False)
     path = run_exam(s, e)
@@ -621,6 +625,8 @@ def cut_pieces(model: Model, codes, softmask, gff_hints, maxstep: int,
                                   prev_term_synch)
         init_synch = begin > 0
         term_synch = end < n - 1
+        if term_synch:
+            stats.count("cuts")
         pieces.append((begin, end, init_synch, term_synch))
         prev_init_synch, prev_term_synch = init_synch, term_synch
         begin = end + 1
@@ -733,6 +739,8 @@ def predict_sequence(model: Model, rec: FastaRecord, seq_number: int = 1,
     body = "".join(bodies)
     if total == 0:
         body = "# (none)\n"
+    # the record's outputs are on the host: its stages' events have ended
+    stats.flush()
     if not with_header:
         return body, total, all_transcripts
     return "\n".join(header) + "\n" + body, total, all_transcripts
